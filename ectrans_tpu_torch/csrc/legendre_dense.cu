@@ -1,0 +1,233 @@
+// Dense-row Legendre transforms for Hopper (sm_90a): kernels K1 and K2.
+//
+// K1 replaces ectrans_tpu/ops/legendre_pallas.py group_inv_dense
+// (_inv_dense_kernel); K2 replaces group_dir_dense (_dir_dense_kernel).
+// Both contract one m-group of diagonal-realigned rows against the full-n
+// table pn[m, j, i] = Pbar_{m+j}^m(mu_i) of that group (gm, J, ig), with the
+// southern hemisphere obtained from the parity identity
+// Pbar_n^m(-mu) = (-1)^(n-m) Pbar_n^m(mu).
+//
+// What bounds them: each table element is read once per transform and
+// feeds fc2 fused multiply-adds (fc2 = 2 * fields, 20-32 on the benchmark
+// path), i.e. fc2/2 FLOP per byte in fp32 -- near the H100's fp32 CUDA-core
+// ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte).  The design therefore
+// (a) reads the table exactly once, coalesced along latitude i, through
+// shared memory, (b) keeps the small coefficient operand in shared memory and
+// the sums in registers, and (c) halves the multiply-adds by splitting each
+// sum over even and odd j: north = E + O, south = E - O (K1), and by
+// pre-combining fn +- fs so each output column takes one sum (K2).
+// Arithmetic is plain FMA in the working type (fp32 or fp64), no tensor
+// cores: fp32 FMA is the "highest" tier's accuracy contract.  Each staged
+// chunk (16-32 terms) is summed in registers and folded into a compensated
+// total, so the rounding error grows with the chunk length and not with
+// J or ig (see add_compensated).  Pipelining
+// (cp.async/TMA) and tensor-core variants are left for later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NY = 4;              // thread rows of a block
+constexpr int RPT = 8;             // coefficient rows per thread
+constexpr int ROWS = NY * RPT;     // rows per block; gridDim.z walks fc2
+constexpr int TI = 64;             // K1: latitudes per block (threads in x)
+constexpr int TJ = 32;             // K1: degrees staged per step (even)
+constexpr int DJ = 64;             // K2: degrees per block (threads in x)
+constexpr int DI = 32;             // K2: latitudes staged per step
+constexpr int THREADS = 256;       // = TI * NY = DJ * NY
+
+// sum += x with the rounding error of the addition kept in comp (Knuth's
+// TwoSum): the sums run over up to ~1300 terms, and a single running fp32
+// sum loses ~sqrt(n) times more than per-chunk sums folded in this way,
+// which the 100*eps round-trip gate at TCO1279 does not allow
+template <typename T>
+__device__ __forceinline__ void add_compensated(T& sum, T& comp, T x) {
+  const T s = sum + x;
+  const T bb = s - sum;
+  comp += (sum - (s - bb)) + (x - bb);
+  sum = s;
+}
+
+// north[m, r, i] = sum_j d2[m, r, j] pn[m, j, i]
+// south[m, r, i] = sum_j (-1)^j d2[m, r, j] pn[m, j, i]
+// Block (i-tile, m, row chunk); thread (tx = latitude, ty = row phase).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+inv_dense_kernel(const T* __restrict__ d2, const T* __restrict__ pn,
+                 T* __restrict__ north, T* __restrict__ south,
+                 int fc2, int J, int ig) {
+  __shared__ T ds[ROWS][TJ];
+  __shared__ T ps[TJ][TI];
+  const int m = blockIdx.y;
+  const int i0 = blockIdx.x * TI;
+  const int r0 = blockIdx.z * ROWS;
+  const int tx = threadIdx.x % TI;
+  const int ty = threadIdx.x / TI;
+  const T* d2m = d2 + (size_t)m * fc2 * J;
+  const T* pnm = pn + (size_t)m * J * ig;
+
+  // per-chunk partial sums, folded into compensated running totals
+  T ev[RPT], od[RPT], evc[RPT], odc[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    ev[r] = T(0); od[r] = T(0); evc[r] = T(0); odc[r] = T(0);
+  }
+
+  for (int j0 = 0; j0 < J; j0 += TJ) {
+    for (int e = threadIdx.x; e < ROWS * TJ; e += THREADS) {
+      const int r = e / TJ, j = e % TJ;
+      const int row = r0 + r, jj = j0 + j;
+      ds[r][j] = (row < fc2 && jj < J) ? d2m[(size_t)row * J + jj] : T(0);
+    }
+    for (int e = threadIdx.x; e < TJ * TI; e += THREADS) {
+      const int j = e / TI, i = e % TI;
+      const int jj = j0 + j, ii = i0 + i;
+      ps[j][i] = (jj < J && ii < ig) ? pnm[(size_t)jj * ig + ii] : T(0);
+    }
+    __syncthreads();
+    T pe_sum[RPT], po_sum[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) { pe_sum[r] = T(0); po_sum[r] = T(0); }
+#pragma unroll 4
+    for (int j = 0; j < TJ; j += 2) {   // j0 is even: local parity = global
+      const T pe = ps[j][tx];
+      const T po = ps[j + 1][tx];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        pe_sum[r] = fma(ds[ty + NY * r][j], pe, pe_sum[r]);
+        po_sum[r] = fma(ds[ty + NY * r][j + 1], po, po_sum[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      add_compensated(ev[r], evc[r], pe_sum[r]);
+      add_compensated(od[r], odc[r], po_sum[r]);
+    }
+    __syncthreads();
+  }
+
+  const int ii = i0 + tx;
+  if (ii >= ig) return;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int row = r0 + ty + NY * r;
+    if (row < fc2) {
+      const size_t o = ((size_t)m * fc2 + row) * ig + ii;
+      const T e = ev[r] + evc[r], d = od[r] + odc[r];
+      north[o] = e + d;
+      south[o] = e - d;
+    }
+  }
+}
+
+// out[m, r, j] = sum_i fn[m, r, i] pn[m, j, i] + (-1)^j sum_i fs[m, r, i] pn[m, j, i]
+//             = sum_i (fn +- fs)[m, r, i] pn[m, j, i]   (+ for even j)
+// Block (j-tile, m, row chunk); thread (tx = degree, ty = row phase).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+dir_dense_kernel(const T* __restrict__ fn, const T* __restrict__ fs,
+                 const T* __restrict__ pn, T* __restrict__ out,
+                 int fc2, int J, int ig) {
+  // sx[r][0][i] = fn + fs, sx[r][1][i] = fn - fs; the +1 pad puts the two
+  // halves read by one warp (even and odd j threads) in different banks
+  __shared__ T sx[ROWS][2][DI + 1];
+  __shared__ T ps[DI][DJ + 1];       // transposed table tile, padded
+  const int m = blockIdx.y;
+  const int j0 = blockIdx.x * DJ;
+  const int r0 = blockIdx.z * ROWS;
+  const int tx = threadIdx.x % DJ;
+  const int ty = threadIdx.x / DJ;
+  const int j = j0 + tx;
+  const int par = j & 1;
+  const T* fnm = fn + (size_t)m * fc2 * ig;
+  const T* fsm = fs + (size_t)m * fc2 * ig;
+  const T* pnm = pn + (size_t)m * J * ig;
+
+  T acc[RPT], accc[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) { acc[r] = T(0); accc[r] = T(0); }
+
+  for (int i0 = 0; i0 < ig; i0 += DI) {
+    for (int e = threadIdx.x; e < ROWS * DI; e += THREADS) {
+      const int r = e / DI, i = e % DI;
+      const int row = r0 + r, ii = i0 + i;
+      T a = T(0), b = T(0);
+      if (row < fc2 && ii < ig) {
+        a = fnm[(size_t)row * ig + ii];
+        b = fsm[(size_t)row * ig + ii];
+      }
+      sx[r][0][i] = a + b;
+      sx[r][1][i] = a - b;
+    }
+    for (int e = threadIdx.x; e < DJ * DI; e += THREADS) {
+      const int jl = e / DI, i = e % DI;
+      const int jj = j0 + jl, ii = i0 + i;
+      ps[i][jl] = (jj < J && ii < ig) ? pnm[(size_t)jj * ig + ii] : T(0);
+    }
+    __syncthreads();
+    T part[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) part[r] = T(0);
+#pragma unroll 4
+    for (int i = 0; i < DI; ++i) {
+      const T p = ps[i][tx];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        part[r] = fma(sx[ty + NY * r][par][i], p, part[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) add_compensated(acc[r], accc[r], part[r]);
+    __syncthreads();
+  }
+
+  if (j >= J) return;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int row = r0 + ty + NY * r;
+    if (row < fc2) out[((size_t)m * fc2 + row) * J + j] = acc[r] + accc[r];
+  }
+}
+
+template <typename T>
+int launch_inv(const void* d2, const void* pn, void* north, void* south,
+               int gm, int fc2, int J, int ig, void* stream) {
+  dim3 grid((ig + TI - 1) / TI, gm, (fc2 + ROWS - 1) / ROWS);
+  inv_dense_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)d2, (const T*)pn, (T*)north, (T*)south, fc2, J, ig);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dir(const void* fn, const void* fs, const void* pn, void* out,
+               int gm, int fc2, int J, int ig, void* stream) {
+  dim3 grid((J + DJ - 1) / DJ, gm, (fc2 + ROWS - 1) / ROWS);
+  dir_dense_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)fn, (const T*)fs, (const T*)pn, (T*)out, fc2, J, ig);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int ect_inv_dense_f32(const void* d2, const void* pn, void* north, void* south,
+                      int gm, int fc2, int J, int ig, void* stream) {
+  return launch_inv<float>(d2, pn, north, south, gm, fc2, J, ig, stream);
+}
+
+int ect_inv_dense_f64(const void* d2, const void* pn, void* north, void* south,
+                      int gm, int fc2, int J, int ig, void* stream) {
+  return launch_inv<double>(d2, pn, north, south, gm, fc2, J, ig, stream);
+}
+
+int ect_dir_dense_f32(const void* fn, const void* fs, const void* pn, void* out,
+                      int gm, int fc2, int J, int ig, void* stream) {
+  return launch_dir<float>(fn, fs, pn, out, gm, fc2, J, ig, stream);
+}
+
+int ect_dir_dense_f64(const void* fn, const void* fs, const void* pn, void* out,
+                      int gm, int fc2, int J, int ig, void* stream) {
+  return launch_dir<double>(fn, fs, pn, out, gm, fc2, J, ig, stream);
+}
+
+}  // extern "C"

@@ -23,3 +23,8 @@ import jax
 # env); update the live config so tests always run on the virtual CPU mesh.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc (skips without them)")
