@@ -32,14 +32,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C entry points: (name stem, argtypes); each has an _f32 and an _f64 variant
-_ENTRIES = {
-    "ect_inv_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ect_dir_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ect_compact": [_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
-    "ect_tablegen": [_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-}
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+_FLOAT = tuple(_SUFFIX.values())   # an _f32 and an _f64 variant
+_SINGLE = ("",)                    # one variant, no suffix (bf16 in, fp32 out)
+# C entry points: name stem -> (argtypes, variant suffixes)
+_ENTRIES = {
+    "ect_inv_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
+    "ect_dir_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
+    "ect_inv_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
+    "ect_dir_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
+    "ect_inv_planes": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                       _SINGLE),
+    "ect_dir_planes": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _SINGLE),
+    "ect_compact": ([_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P], _FLOAT),
+    "ect_tablegen": ([_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+                     _FLOAT),
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -95,8 +103,8 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             cdll = ctypes.CDLL(str(build()))
-            for stem, argtypes in _ENTRIES.items():
-                for suffix in _SUFFIX.values():
+            for stem, (argtypes, suffixes) in _ENTRIES.items():
+                for suffix in suffixes:
                     fn = getattr(cdll, stem + suffix)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
@@ -104,25 +112,31 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(stem: str, dtype: torch.dtype, *args) -> None:
-    """Call C entry ``stem`` for ``dtype`` on the current CUDA stream and
-    raise if the launch failed.  ``args`` exclude the trailing stream."""
-    fn = getattr(lib(), stem + _SUFFIX[dtype])
+def launch(stem: str, dtype: torch.dtype | None, *args) -> None:
+    """Call C entry ``stem`` for ``dtype`` (None for a single-variant entry)
+    on the current CUDA stream and raise if the launch failed.  ``args``
+    exclude the trailing stream."""
+    name = stem + ("" if dtype is None else _SUFFIX[dtype])
+    fn = getattr(lib(), name)
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"{stem}{_SUFFIX[dtype]} launch failed: CUDA error "
-                           f"{rc} ({torch.cuda.get_device_name()})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({torch.cuda.get_device_name()})")
 
 
 def check_operand(name: str, t: torch.Tensor, like: torch.Tensor,
-                  shape: tuple) -> None:
-    """Validate a kernel operand against the first one (device, dtype) and
-    its expected shape; kernels take contiguous tensors only."""
+                  shape: tuple, dtype: torch.dtype | None = None) -> None:
+    """Validate a kernel operand against the first one (device; dtype, or
+    the given ``dtype``) and its expected shape; kernels take contiguous
+    tensors only."""
     if t.device != like.device:
         raise ValueError(f"{name} is on device {t.device}, expected "
                          f"{like.device}")
-    if t.dtype != like.dtype or t.dtype not in _SUFFIX:
+    if dtype is not None:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    elif t.dtype != like.dtype or t.dtype not in _SUFFIX:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {like.dtype} "
                         "(float32 or float64)")
     if tuple(t.shape) != tuple(shape):

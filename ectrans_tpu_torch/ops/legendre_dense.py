@@ -13,7 +13,9 @@ Kernels (``csrc/legendre_dense.cu``) run for CUDA tensors; CPU tensors take
 the plain PyTorch versions (``torch.bmm`` per group in the working dtype).
 Realignment past a row's diagonal end reads neighbouring rows' data; it is
 cancelled by the exact zeros of the tables (past n = nsmax+1, and where
-m > nmen(lat)).
+m > nmen(lat)).  ``group_rows``, ``hemispheres_to_fourier`` and
+``weighted_rows`` (one group's kernel operand rows, and the assembly of
+its outputs) serve the "pallas" and "planes" engines too.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .layout import diag_realign
 
 
 def _jsgn(J: int, like: torch.Tensor) -> torch.Tensor:
@@ -96,55 +99,50 @@ def group_dir_dense(fn: torch.Tensor, fs: torch.Tensor,
 group_dir_dense.launches = 0
 
 
-def _diag_realign(dense: torch.Tensor) -> torch.Tensor:
-    """(nfld, 2, M, NP) -> (nfld, 2, M, NP+1) with d2[..., m, j] =
-    dense[..., m, m+j]: a pad + reshape (m*(W+1) + j = m*W + (m+j)); entries
-    past each row's diagonal end are neighbouring rows' data."""
-    f, c, M, W = dense.shape
-    flat = F.pad(dense.reshape(f, c, M * W), (0, M))
-    return flat.reshape(f, c, M, W + 1)
+def group_rows(x: torch.Tensor, g) -> torch.Tensor:
+    """(a, b, M, W) -> one m-group's contiguous (gm, a*b, W) rows, row
+    index i*b + j (f*2 + c for the (nfld, 2, ...) layout, c*nfld + f for
+    its c-major transpose)."""
+    a, b, _, width = x.shape
+    return x[:, :, g.m0:g.m1].reshape(a * b, g.m1 - g.m0, width) \
+        .transpose(0, 1).contiguous()
 
 
-def _diag_unalign(d2: torch.Tensor, NP: int) -> torch.Tensor:
-    """Inverse of _diag_realign: dense[..., m, n] = d2[..., m, n-m] (entries
-    at n < m are neighbouring rows' data)."""
-    f, c, M, W1 = d2.shape
-    return d2.reshape(f, c, M * W1)[..., : M * NP].reshape(f, c, M, NP)
+def hemispheres_to_fourier(north: torch.Tensor, south: torch.Tensor,
+                           g, nfld: int) -> torch.Tensor:
+    """One group's kernel outputs (gm, 2*nfld, ig), rows f*2 + c, south not
+    latitude-reversed -> (nfld, 2, gm, ndgl) Fourier coefficients north ->
+    south, zero at the group's inactive latitudes."""
+    gm = g.m1 - g.m0
+    north = north.transpose(0, 1).reshape(nfld, 2, gm, -1)
+    south = south.transpose(0, 1).reshape(nfld, 2, gm, -1).flip(-1)
+    return torch.cat([F.pad(north, (g.i0, 0)), F.pad(south, (0, g.i0))],
+                     dim=-1)
+
+
+def weighted_rows(fourier: torch.Tensor, ndgnh: int, w: torch.Tensor):
+    """c-major quadrature-weighted northern rows and NH-paired southern
+    rows, each (2, nfld, M, ndgnh)."""
+    fc = fourier.transpose(0, 1)
+    return fc[..., :ndgnh] * w, fc[..., ndgnh:].flip(-1) * w
 
 
 def legendre_inv_dense(dense: torch.Tensor, fl) -> torch.Tensor:
     """Inverse LT: (nfld, 2, M, NP) dense spectral -> (nfld, 2, M, ndgl)
     Fourier coefficients, latitudes north -> south (fl: FullLegendre)."""
     nfld = dense.shape[0]
-    fc2 = 2 * nfld
-    d2 = _diag_realign(dense)
-    parts = []
-    for g in fl.groups:
-        gm = g.m1 - g.m0
-        dg = d2[:, :, g.m0:g.m1, :g.J].reshape(fc2, gm, g.J)
-        north, south = group_inv_dense(dg.transpose(0, 1).contiguous(), g.pn)
-        north = north.transpose(0, 1).reshape(nfld, 2, gm, -1)
-        south = south.transpose(0, 1).reshape(nfld, 2, gm, -1).flip(-1)
-        parts.append(torch.cat([F.pad(north, (g.i0, 0)),
-                                F.pad(south, (0, g.i0))], dim=-1))
-    return torch.cat(parts, dim=2)
+    d2 = diag_realign(dense)
+    return torch.cat([
+        hemispheres_to_fourier(*group_inv_dense(
+            group_rows(d2[..., :g.J], g), g.pn), g, nfld)
+        for g in fl.groups], dim=2)
 
 
 def legendre_dir_rows(fourier: torch.Tensor, fl, w: torch.Tensor) -> list:
     """Direct LT in the kernels' native m-major layout: (nfld, 2, M, ndgl)
     Fourier coefficients + NH quadrature weights w (ndgnh,) -> list of
     per-group (gm, 2*nfld, J) realigned rows, row index c*nfld + f."""
-    nfld = fourier.shape[0]
-    fc2 = 2 * nfld
-    ndgnh = fl.ndgnh
-    fc = fourier.transpose(0, 1)                    # (2, nfld, M, ndgl)
-    fn_all = fc[..., :ndgnh] * w
-    fs_all = fc[..., ndgnh:].flip(-1) * w           # SH paired with NH index
-    rows = []
-    for g in fl.groups:
-        gm = g.m1 - g.m0
-        fn = fn_all[:, :, g.m0:g.m1, g.i0:].reshape(fc2, gm, -1)
-        fs = fs_all[:, :, g.m0:g.m1, g.i0:].reshape(fc2, gm, -1)
-        rows.append(group_dir_dense(fn.transpose(0, 1).contiguous(),
-                                    fs.transpose(0, 1).contiguous(), g.pn))
-    return rows
+    fn_all, fs_all = weighted_rows(fourier, fl.ndgnh, w)
+    return [group_dir_dense(group_rows(fn_all[..., g.i0:], g),
+                            group_rows(fs_all[..., g.i0:], g), g.pn)
+            for g in fl.groups]

@@ -138,16 +138,3 @@ def gen_group(inp: dict, m0: int, m1: int, J: int, i0: int,
 
 
 gen_group.launches = 0
-
-
-def materialize_full_legendre(res, dtype=torch.float32, device="cuda"):
-    """A resolution's FullLegendre tables generated on ``device``, with the
-    group structure of ``Resolution.legendre_groups``."""
-    from ..resolution import FullGroup, FullLegendre, canonical_device
-
-    inp = _device_inputs(res, canonical_device(device))
-    groups = tuple(
-        FullGroup(m0=m0, m1=m1, i0=i0, J=J,
-                  pn=gen_group(inp, m0, m1, J, i0, dtype))
-        for m0, m1, i0, J in res.legendre_groups())
-    return FullLegendre(groups=groups, ndgnh=res.ndgnh, kmax=res.kmax)

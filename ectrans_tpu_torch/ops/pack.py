@@ -8,6 +8,10 @@ m-group (gm, 2*nfld, J), row c*nfld + f, column j = n - m.  The groups are
 those of ``Resolution.legendre_groups`` (the tables' groups), so the dense
 (nfld, 2, M, NP) tensor is never formed.
 
+The "pallas" engine's direct transform has the dense tensor instead:
+``dense_to_packed`` realigns it into the same per-group rows (the
+counterpart of ``pack_pallas.dense_to_packed``/``packed_from_mmajor``).
+
 CUDA tensors go through the kernel (``csrc/pack.cu``); CPU tensors through
 the plain index gather.  Both copy values without arithmetic (bit-exact).
 """
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .layout import diag_realign
 
 
 def _segments(res) -> list:
@@ -86,3 +91,15 @@ def packed_from_group_rows(rows_list: list, res) -> torch.Tensor:
 
 
 packed_from_group_rows.launches = 0
+
+
+def dense_to_packed(dense: torch.Tensor, res) -> torch.Tensor:
+    """(nfld, 2, M, NP) dense -> (nfld, nspec2) packed through K3: realign
+    the diagonals (a pad + reshape), go m-major and c-major, then one launch
+    per group.  Entries of the rows past each m's last degree are
+    neighbouring rows' data, which the packing never reads."""
+    nfld, _, M, NP = dense.shape
+    mm = diag_realign(dense).permute(2, 1, 0, 3).reshape(M, 2 * nfld, NP + 1)
+    return packed_from_group_rows(
+        [mm[m0:m1, :, :min(J, NP + 1)].contiguous()
+         for m0, m1, _, J in res.legendre_groups()], res)

@@ -5,8 +5,10 @@ reference's per-m loops:
 
 * ``vordiv_to_uv``  — VDTUV (``vdtuv_mod.F90:110-145``);
 * ``ns_derivative`` — SPNSDE (``spnsde_mod.F90``);
-* ``uv_to_vordiv_rows`` — UVTVD (``uvtvd_mod.F90:103-139``) on one m-group
-  of the direct Legendre kernel's m-major realigned rows.
+* ``uv_to_vordiv`` — UVTVD (``uvtvd_mod.F90:103-139``) on the dense layout
+  (the "xla" and "pallas" engines' direct transform);
+* ``uv_to_vordiv_rows`` — UVTVD on one m-group of the direct Legendre
+  kernel's m-major realigned rows (the "dense" and "planes" engines).
 
 Coefficient tables are functions of (m, n) only, built in float64 numpy by
 the ``*_coeff_tables`` functions; ``Resolution.device_tables`` casts them.
@@ -103,6 +105,17 @@ def uvtvd_coeff_tables(res) -> dict:
     r = m * np.ones((1, NP))
     valid = (n >= m) & (n <= res.nsmax)
     return dict(p=p, q=q, r=r, valid=valid.astype(np.float64))
+
+
+def uv_to_vordiv(u: torch.Tensor, v: torch.Tensor, t: dict):
+    """Vor/div spectra from U, V spectra (UVTVD), each (nfld, 2, M, NP):
+      Z(n) = i m V(n) - n eps(n+1) U(n+1) + (n+1) eps(n) U(n-1)
+      D(n) = i m U(n) + n eps(n+1) V(n+1) - (n+1) eps(n) V(n-1)
+    """
+    p, q, r, valid = t["p"], t["q"], t["r"], t["valid"]
+    vor = r * _times_i(v) - p * _shift_up(u) + q * _shift_down(u)
+    div = r * _times_i(u) + p * _shift_up(v) - q * _shift_down(v)
+    return vor * valid, div * valid
 
 
 def _realign(t: np.ndarray) -> np.ndarray:

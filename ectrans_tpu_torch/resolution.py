@@ -11,7 +11,12 @@ request for one (dtype, device) pair and cached on the Resolution itself:
   CUDA device they are generated on the card by the table-generator kernel
   (``ops.legendre_tablegen``, a few MB of seeds instead of GiBs of host
   tables); on the CPU they come from the host fp64 recurrence, built only
-  when asked for.
+  when asked for;
+* ``grouped_legendre(dtype, device)`` and ``planes_legendre(nplanes,
+  device)``: the parity pairs of the "xla"/"pallas" engines and the bf16
+  limb planes of the "planes" engine, both derived from those pn tables on
+  the device (the cached ones, or else each group made anew and dropped),
+  so every engine runs on the same tables.
 
 Spectral layouts (as in the JAX package): **packed** (nfld, nspec2), m-major,
 n ascending, (re, im) interleaved at offsets NASM0 (``suwavedi_mod.F90``);
@@ -70,6 +75,47 @@ class FullLegendre:
 
 
 @dataclasses.dataclass(frozen=True)
+class LegendreGroup:
+    """One contiguous m-group of the parity tables ("xla"/"pallas"
+    engines): psym, pasym (m1-m0, ndgnh-i0, kg) with psym[m, i, k] =
+    P̄_{m+2k}^m(mu_i) and pasym[m, i, k] = P̄_{m+2k+1}^m(mu_i)."""
+
+    m0: int
+    m1: int
+    i0: int     # first active NH latitude (= ndgnh - ndglu(m0))
+    kg: int     # parity extent of the group (J / 2)
+    psym: torch.Tensor
+    pasym: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedLegendre:
+    groups: tuple
+    ndgnh: int
+    kmax: int
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanesGroup:
+    """One contiguous m-group of bf16 limb planes ("planes" engine): pt[k]
+    (m1-m0, ndgnh-i0, J), the transposed layout shared by both directions;
+    sum_k pt[k] is the fp32 table exactly at 3 planes."""
+
+    m0: int
+    m1: int
+    i0: int
+    J: int
+    pt: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanesLegendre:
+    groups: tuple
+    ndgnh: int
+    kmax: int
+
+
+@dataclasses.dataclass(frozen=True)
 class DeviceTables:
     """Small per-resolution tensors on one device (the FG state of the
     reference GPU backend, ``tpm_fields_gpu.F90``)."""
@@ -80,6 +126,7 @@ class DeviceTables:
     racthe: torch.Tensor        # (ndgl,) 1 / (a cos(theta))
     vd: dict                    # VDTUV coefficients (ops.spectral)
     nsd: dict                   # SPNSDE coefficients
+    uvtvd: dict                 # UVTVD coefficients, dense (M, NP)
     uvtvd_mm: dict              # UVTVD coefficients, m-major realigned
 
 
@@ -195,28 +242,91 @@ class Resolution:
                 raise ValueError(f"group m0={m0}: table shape {pn.shape} != {want}")
         self._cache[("host_pn",)] = [np.array(p, np.float64) for p in pns]
 
+    def _new_full_groups(self, dtype: torch.dtype, device: torch.device):
+        """Each group's full-n table made anew on ``device``, one at a time:
+        by the table kernel (K4) on a GPU, from the host fp64 build on the
+        CPU."""
+        groups = self.legendre_groups()
+        if device.type == "cuda":
+            from .ops import legendre_tablegen as tg
+
+            inp = tg._device_inputs(self, device)
+            pns = (tg.gen_group(inp, m0, m1, J, i0, dtype)
+                   for m0, m1, i0, J in groups)
+        elif device.type == "cpu":
+            pns = (torch.from_numpy(pn).to(dtype)
+                   for pn in self.host_full_legendre())
+        else:
+            raise ValueError(f"unsupported device {device}")
+        for (m0, m1, i0, J), pn in zip(groups, pns):
+            yield FullGroup(m0=m0, m1=m1, i0=i0, J=J, pn=pn)
+
+    def _source_groups(self, dtype: torch.dtype, device: torch.device):
+        """The groups of ``full_legendre(dtype, device)`` if it is cached,
+        else each group made anew and dropped after use: a derived table
+        keeps no second copy of pn."""
+        fl = self._cache.get(("full_legendre", dtype, str(device)))
+        if fl is not None:
+            return iter(fl.groups)
+        return self._new_full_groups(dtype, device)
+
     def full_legendre(self, dtype=torch.float32, device="cpu") -> FullLegendre:
         """Per-m-group full-n tables on ``device``: generated by the CUDA
         table kernel on a GPU, copied from the host fp64 build on the CPU."""
         dtype = check_dtype(dtype)
         device = canonical_device(device)
+        return self.cached(
+            ("full_legendre", dtype, str(device)),
+            lambda: FullLegendre(
+                groups=tuple(self._new_full_groups(dtype, device)),
+                ndgnh=self.ndgnh, kmax=self.kmax))
+
+    def grouped_legendre(self, dtype=torch.float32,
+                         device="cpu") -> GroupedLegendre:
+        """Per-m-group parity tables for the "xla" and "pallas" engines:
+        psym[m, i, k] = pn[m, 2k, i], pasym[m, i, k] = pn[m, 2k+1, i]
+        (counterpart of ``ectrans_tpu`` ``Resolution.grouped_legendre``,
+        which builds them on the host)."""
+        dtype = check_dtype(dtype)
+        device = canonical_device(device)
 
         def build():
-            if device.type == "cuda":
-                from .ops.legendre_tablegen import materialize_full_legendre
-
-                return materialize_full_legendre(self, dtype, device)
-            if device.type != "cpu":
-                raise ValueError(f"unsupported device {device}")
             groups = tuple(
-                FullGroup(m0=m0, m1=m1, i0=i0, J=J,
-                          pn=torch.from_numpy(pn).to(dtype))
-                for (m0, m1, i0, J), pn in zip(self.legendre_groups(),
-                                               self.host_full_legendre()))
-            return FullLegendre(groups=groups, ndgnh=self.ndgnh,
-                                kmax=self.kmax)
+                LegendreGroup(m0=g.m0, m1=g.m1, i0=g.i0, kg=g.J // 2,
+                              psym=g.pn[:, 0::2].transpose(1, 2).contiguous(),
+                              pasym=g.pn[:, 1::2].transpose(1, 2).contiguous())
+                for g in self._source_groups(dtype, device))
+            return GroupedLegendre(groups=groups, ndgnh=self.ndgnh,
+                                   kmax=self.kmax)
 
-        return self.cached(("full_legendre", dtype, str(device)), build)
+        return self.cached(("grouped_legendre", dtype, str(device)), build)
+
+    def planes_legendre(self, nplanes: int = 3,
+                        device="cpu") -> PlanesLegendre:
+        """Per-m-group bf16 limb planes of the fp32 tables for the "planes"
+        engine: ``split_planes(pn)`` transposed to (gm, ig, J).  3 planes
+        carry fp32 accuracy (6 bytes per entry); 1 plane is the "bf16" tier
+        (2 bytes per entry)."""
+        device = canonical_device(device)
+
+        def build():
+            from .ops.legendre_planes import split_planes
+
+            groups = tuple(
+                PlanesGroup(m0=g.m0, m1=g.m1, i0=g.i0, J=g.J,
+                            pt=tuple(p.transpose(1, 2).contiguous()
+                                     for p in split_planes(g.pn, nplanes)))
+                for g in self._source_groups(torch.float32, device))
+            return PlanesLegendre(groups=groups, ndgnh=self.ndgnh,
+                                  kmax=self.kmax)
+
+        return self.cached(("planes_legendre", nplanes, str(device)), build)
+
+    def drop_cached(self, name: str) -> None:
+        """Free the cached state called ``name`` ("full_legendre",
+        "grouped_legendre", "planes_legendre", ...) on every device."""
+        for key in [k for k in self._cache if k[0] == name]:
+            del self._cache[key]
 
     def device_tables(self, dtype=torch.float32, device="cpu") -> DeviceTables:
         dtype = check_dtype(dtype)
@@ -236,6 +346,7 @@ class Resolution:
                 racthe=f(self.racthe),
                 vd=fd(spectral.vordiv_coeff_tables(self)),
                 nsd=fd(spectral.nsder_coeff_tables(self)),
+                uvtvd=fd(spectral.uvtvd_coeff_tables(self)),
                 uvtvd_mm=fd(spectral.uvtvd_coeff_tables_mmajor(self)),
             )
 

@@ -7,23 +7,36 @@ the device of its input tensors.
 
 Inverse (spectral -> grid):
     packed -> dense -> VDTUV winds, SPNSDE N-S derivatives -> one inverse
-    Legendre call over all fields (kernel K1) -> FSC (1/(a cos) scaling,
-    E-W derivatives) -> optional ``fspgl_proc`` hook -> Fourier synthesis.
+    Legendre call over all fields -> FSC (1/(a cos) scaling, E-W
+    derivatives) -> optional ``fspgl_proc`` hook -> Fourier synthesis.
 Direct (grid -> spectral):
-    Fourier analysis -> LDFOU2 (u, v times 1/(a cos)) -> direct Legendre
-    rows (K2) -> per-group UVTVD on the rows -> compaction into the packed
-    layout (K3).  The dense (nfld, 2, M, NP) tensor is never formed.
+    Fourier analysis -> LDFOU2 (u, v times 1/(a cos)) -> direct Legendre ->
+    UVTVD -> the NASM0 packed layout.
 
-The tables come from ``Resolution.full_legendre`` (kernel K4 on a GPU).
-Field order of the inverse output (``inv_trans.F90:58-106``): vor?, div?,
-u, v, scalars, N-S derivatives of scalars?, E-W derivatives of u and v?,
-E-W derivatives of scalars?.
+The Legendre engine (``ops.legendre_matmul``; the private ``_engine``
+keyword, else ``ECTRANS_TPU_LEG_KERNEL``, else "dense"):
+
+* "dense": dense-row kernels K1/K2 on ``Resolution.full_legendre``; the
+  direct transform runs UVTVD per group on the kernel's m-major rows and
+  packs them with K3, never forming the (nfld, 2, M, NP) dense tensor;
+* "planes": bf16 limb-plane kernels K9/K10 on ``planes_legendre``, the same
+  m-major direct path; the only engine with the tiers "high" and "bf16";
+  fp64 transforms resolve to "xla";
+* "pallas" and "xla": parity split (``layout.dense_to_parity``) and the
+  grouped kernels K5/K6 or per-group einsums on ``grouped_legendre``; the
+  direct transform goes back to the dense layout (``parity_to_dense``),
+  runs the dense UVTVD and packs with K3 ("pallas") or the index gather
+  ("xla").
+
+The tables of every engine derive from the full-n tables (kernel K4 on a
+GPU).  Field order of the inverse output (``inv_trans.F90:58-106``): vor?,
+div?, u, v, scalars, N-S derivatives of scalars?, E-W derivatives of u and
+v?, E-W derivatives of scalars?.
 
 Not carried over from the JAX package: the dispatch splits and
-``optimization_barrier`` guards against TPU-compiler faults, the analysis of
-u/v and scalars in separate calls, and the engine choice (this package has
-one Legendre engine).  Precision tiers other than ``"highest"`` and NPROMATR
-packets are not ported yet.
+``optimization_barrier`` guards against TPU-compiler faults, and the
+analysis of u/v and scalars in separate calls.  NPROMATR packets are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +45,9 @@ import dataclasses
 
 import torch
 
-from .ops import fourier, layout, legendre_dense, pack, spectral
+from .ops import (fourier, layout, legendre_dense, legendre_matmul, pack,
+                  spectral)
+from .ops.legendre_planes import planes_for_tier
 from .resolution import Resolution, check_dtype
 
 
@@ -55,15 +70,40 @@ def num_inv_output_fields(nfld_uv: int, nfld_sc: int, flags: InvFlags) -> int:
     return n
 
 
-def _check_options(precision: str, npromatr) -> None:
-    if precision != "highest":
+def _resolve_engine(eng: str | None, dtype: torch.dtype) -> str:
+    """The engine of a transform: ``eng`` or ``legendre_matmul.engine()``;
+    bf16 limb planes cannot carry fp64, so "planes" in fp64 is "xla"."""
+    eng = eng or legendre_matmul.engine()
+    if eng not in legendre_matmul.ENGINES:
+        raise ValueError(f"unknown Legendre engine {eng!r}; expected one of "
+                         f"{legendre_matmul.ENGINES}")
+    if eng == "planes" and dtype == torch.float64:
+        return "xla"
+    return eng
+
+
+def _check_options(precision: str, npromatr, eng: str) -> None:
+    if precision not in legendre_matmul.TIERS[eng]:
         raise NotImplementedError(
-            f"precision {precision!r}: only 'highest' is ported (the 'high' "
-            "and 'bf16' tiers are queued in ROADMAP.md, queue A item 5)")
+            f"precision {precision!r} on the {eng!r} Legendre engine: only "
+            f"{legendre_matmul.TIERS[eng]} are ported (the 'high' and 'bf16' "
+            "tiers of the other engines are queued in ROADMAP.md, queue A "
+            "item 3)")
     if npromatr:
         raise NotImplementedError(
             "npromatr field packets are not ported (ROADMAP.md, queue A "
-            "item 5: transform.py and field_layout.py)")
+            "item 2: transform.py and field_layout.py)")
+
+
+def _leg_tables(res: Resolution, eng: str, dtype: torch.dtype,
+                precision: str, device: torch.device):
+    """The Legendre tables an engine streams: limb planes ("planes"),
+    full-n tables ("dense") or parity pairs ("xla", "pallas")."""
+    if eng == "planes":
+        return res.planes_legendre(planes_for_tier(precision), device)
+    if eng == "dense":
+        return res.full_legendre(dtype, device)
+    return res.grouped_legendre(dtype, device)
 
 
 def _device_of(*arrays) -> torch.device:
@@ -99,7 +139,8 @@ def _ew_derivative(four: torch.Tensor, racthe: torch.Tensor) -> torch.Tensor:
 def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
               flags: InvFlags = InvFlags(), dtype=torch.float32,
               fspgl_proc=None, npromatr: int | None = None,
-              precision: str = "highest") -> torch.Tensor:
+              precision: str = "highest",
+              _engine: str | None = None) -> torch.Tensor:
     """Inverse transform: packed spectral tensors -> grid fields.
 
     spvor/spdiv: (nfld_uv, nspec2); spscalar: (nfld_sc, nspec2).  Returns
@@ -117,11 +158,12 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
         raise ValueError("nothing to transform: pass spvor/spdiv and/or spscalar")
     for nm, arr in (("spvor", spvor), ("spdiv", spdiv), ("spscalar", spscalar)):
         _check_spec(nm, arr, res)
-    _check_options(precision, npromatr)
     dtype = check_dtype(dtype)
+    eng = _resolve_engine(_engine, dtype)
+    _check_options(precision, npromatr, eng)
     device = _device_of(spvor, spdiv, spscalar)
     tables = res.device_tables(dtype, device)
-    fl = res.full_legendre(dtype, device)
+    gl = _leg_tables(res, eng, dtype, precision, device)
     racthe = tables.racthe
     nfld_uv = 0 if spvor is None else spvor.shape[0]
     nfld_sc = 0 if spscalar is None else spscalar.shape[0]
@@ -142,7 +184,14 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
         lt_inputs.append(dsc)
         if flags.scders:
             lt_inputs.append(spectral.ns_derivative(dsc, tables.nsd))
-    four_all = legendre_dense.legendre_inv_dense(torch.cat(lt_inputs), fl)
+    dense_all = torch.cat(lt_inputs)
+    if eng == "dense":
+        four_all = legendre_dense.legendre_inv_dense(dense_all, gl)
+    elif eng == "planes":
+        four_all = legendre_matmul.inv_planes(dense_all, gl, precision)
+    else:
+        sym, asym = layout.dense_to_parity(dense_all, res.kmax)
+        four_all = legendre_matmul.inv_grouped(sym, asym, gl, eng)
 
     parts = list(torch.split(four_all, [x.shape[0] for x in lt_inputs]))
     out_groups = []
@@ -170,7 +219,7 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
 
 def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
               dtype=torch.float32, npromatr: int | None = None,
-              precision: str = "highest"):
+              precision: str = "highest", _engine: str | None = None):
     """Direct transform: grid fields -> packed spectral tensors.
 
     u/v: (nfld_uv, ndgl, ndlon) grid winds; scalars: (nfld_sc, ndgl, ndlon).
@@ -186,36 +235,65 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
         raise ValueError("nothing to transform: pass u/v and/or scalars")
     for nm, arr in (("u", u), ("v", v), ("scalars", scalars)):
         _check_grid_arg(nm, arr, res)
-    _check_options(precision, npromatr)
     dtype = check_dtype(dtype)
+    eng = _resolve_engine(_engine, dtype)
+    _check_options(precision, npromatr, eng)
     device = _device_of(u, v, scalars)
     tables = res.device_tables(dtype, device)
-    fl = res.full_legendre(dtype, device)
+    gl = _leg_tables(res, eng, dtype, precision, device)
     nfld_uv = 0 if u is None else u.shape[0]
     grids = [x.to(dtype) for x in (u, v, scalars) if x is not None]
 
     four = fourier.analysis(torch.cat(grids), res)
-    nfld = four.shape[0]
     if nfld_uv:
         # LDFOU2: u, v Fourier coefficients times 1/(a cos(theta)); four is
         # this function's own tensor, so it is scaled in place
         four[: 2 * nfld_uv] *= tables.racthe
-    rows_list = legendre_dense.legendre_dir_rows(four, fl,
-                                                 tables.w[: res.ndgnh])
-    nsc = nfld - 2 * nfld_uv
+    w = tables.w[: res.ndgnh]
+    if eng in ("dense", "planes"):
+        packed = _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng,
+                                  precision)
+    else:
+        packed = _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng)
+    nsc = four.shape[0] - 2 * nfld_uv
+    spvor = packed[:nfld_uv] if nfld_uv else None
+    spdiv = packed[nfld_uv: 2 * nfld_uv] if nfld_uv else None
+    spsc = packed[2 * nfld_uv:] if nsc else None
+    return spvor, spdiv, spsc
+
+
+def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision):
+    """"dense"/"planes" direct LT in the kernels' m-major rows -> per-group
+    UVTVD -> K3.  Returns packed [vor, div, scalars] (nfld, nspec2)."""
+    if eng == "dense":
+        rows_list = legendre_dense.legendre_dir_rows(four, gl, w)
+    else:
+        rows_list = legendre_matmul.dir_rows_planes(four, gl, w, precision)
+    nfld = four.shape[0]
     if nfld_uv:
         # UVTVD per group on the kernel's rows; reorder the channels to
         # c-major [vor, div, scalars]
         out_rows = []
-        for rows, g in zip(rows_list, fl.groups):
+        for rows, g in zip(rows_list, gl.groups):
             vd = spectral.uv_to_vordiv_rows(rows, g.m0, nfld_uv, nfld,
                                             tables.uvtvd_mm)
             out_rows.append(torch.cat([
                 vd[:, : 2 * nfld_uv], rows[:, 2 * nfld_uv: nfld],
                 vd[:, 2 * nfld_uv:], rows[:, nfld + 2 * nfld_uv:]], dim=1))
         rows_list = out_rows
-    packed = pack.packed_from_group_rows(rows_list, res)
-    spvor = packed[:nfld_uv] if nfld_uv else None
-    spdiv = packed[nfld_uv: 2 * nfld_uv] if nfld_uv else None
-    spsc = packed[2 * nfld_uv:] if nsc else None
-    return spvor, spdiv, spsc
+    return pack.packed_from_group_rows(rows_list, res)
+
+
+def _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng):
+    """"xla"/"pallas" grouped direct LT -> dense layout -> dense UVTVD ->
+    K3 ("pallas") or the index gather ("xla")."""
+    sym, asym = legendre_matmul.dir_grouped(four, gl, w, eng)
+    dense = layout.parity_to_dense(sym, asym, res.NP)
+    if nfld_uv:
+        dvor, ddiv = spectral.uv_to_vordiv(dense[:nfld_uv],
+                                           dense[nfld_uv: 2 * nfld_uv],
+                                           tables.uvtvd)
+        dense = torch.cat([dvor, ddiv, dense[2 * nfld_uv:]])
+    if eng == "pallas":
+        return pack.dense_to_packed(dense, res)
+    return layout.dense_to_packed(dense, res)

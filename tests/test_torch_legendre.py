@@ -16,6 +16,7 @@ from ectrans_tpu.ops import legendre_pallas, legendre_tablegen as jtg
 
 import ectrans_tpu_torch as ett
 from ectrans_tpu_torch import convert
+from ectrans_tpu_torch.ops import layout
 from ectrans_tpu_torch.ops import legendre_dense as ld
 from ectrans_tpu_torch.ops import legendre_tablegen as tg
 
@@ -80,10 +81,10 @@ def test_tablegen_zero_padding():
 def test_diag_realign_matches_jax():
     rng = np.random.default_rng(5)
     dense = rng.standard_normal((3, 2, 10, 11))
-    got = ld._diag_realign(torch.from_numpy(dense)).numpy()
+    got = layout.diag_realign(torch.from_numpy(dense)).numpy()
     want = np.asarray(legendre_pallas._diag_realign(jnp.asarray(dense)))
     np.testing.assert_array_equal(got, want)
-    back = ld._diag_unalign(torch.from_numpy(got), 11).numpy()
+    back = layout.diag_unalign(torch.from_numpy(got), 11).numpy()
     np.testing.assert_array_equal(
         back, np.asarray(legendre_pallas._diag_unalign(jnp.asarray(want), 11)))
 

@@ -61,9 +61,9 @@ def test_pack_rows_is_dense_to_packed():
     rng = np.random.default_rng(2)
     nfld = 4
     dense = torch.from_numpy(rng.standard_normal((nfld, 2, res.M, res.NP)))
-    from ectrans_tpu_torch.ops.legendre_dense import _diag_realign
+    from ectrans_tpu_torch.ops.layout import diag_realign
 
-    d2 = _diag_realign(dense)                        # (f, c, M, NP+1)
+    d2 = diag_realign(dense)                        # (f, c, M, NP+1)
     mm = d2.permute(2, 1, 0, 3).reshape(res.M, 2 * nfld, res.NP + 1)
     rows = [mm[m0:m1, :, :J].contiguous()
             for m0, m1, _, J in res.legendre_groups()]
