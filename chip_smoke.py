@@ -10,10 +10,14 @@ Phases, each printing a line:
 2. hold each kernel against its plain PyTorch version on the card, at the
    TCO1279 shapes of the benchmark round trip, all groups: K4 (table
    generator, against the plain fp64 recurrence), K1 and K2 (dense-row
-   Legendre), K5 and K6 (parity-split Legendre, on the parity tables derived
-   on the card), K9 and K10 (bf16 limb-plane Legendre, at 3 planes and at 1,
-   on planes derived on the card), with fields as in the round trip, and K3
-   (packing, bit-exact); kernel and plain times with CUDA events;
+   Legendre), K7 and K8 (hemisphere-packed, at twice K1's and K2's rows),
+   K5 and K6 (parity-split Legendre, on the parity tables derived on the
+   card), K9 and K10 (bf16 limb-plane Legendre, at 3 planes and at 1, on
+   planes derived on the card), the bf16-table variants of K1, K2, K5, K6,
+   K7 and K8 (on the "bf16" tier's tables made on the card), with fields as
+   in the round trip, K3 (packing, bit-exact), and at the roofline probe's
+   512 MiB shape K11 (copy, bit-exact) and K12 (read-reduce); kernel and
+   plain times with CUDA events;
 3. the whole inv_trans + dir_trans at T159 (O160 grid) on the card through
    every Legendre engine ("dense", "xla", "pallas", "planes"), in fp32 and
    fp64, against the same engine's plain path on the CPU in fp64;
@@ -23,11 +27,18 @@ Phases, each printing a line:
    gate on every field family; setup and round-trip times; the launch count
    of every kernel of that path (K1-K4) must be above 0;
 5. the same round trip on phase 4's inputs (so the cuFFT plans are reused)
-   through "pallas" and "planes" at "highest" (100*eps gate on every
-   family) and "planes" at "bf16" (1e6*eps gate on the scalars, the vor/div
-   ratio printed); first call, median of 3, peak memory, and the launch
-   counts of that path's kernels (K5, K6, K3; K9, K10, K3), which must be
-   above 0.  Each engine's tables are freed after its run.
+   through "pallas" and "planes" at "highest", "dense" with
+   ECTRANS_TPU_LEG_DENSE_PACK=1 (K7, K8, K3 launched and K1, K2 not) and
+   "dense" with ECTRANS_TPU_PACK_KERNEL=xla (K1, K2 and not K3), all with
+   the 100*eps gate on every family; then "planes", "dense" and "pallas"
+   at "bf16" (the 1e6*eps gate on the scalars, the vor/div ratio printed).
+   First call, median of 3, peak memory, and the launch counts of that
+   path's kernels.  Each engine's derived tables are freed after its run,
+   and the "dense" fp32 tables before the "bf16" rows of "dense" and
+   "pallas", so that their peaks show their own tables;
+6. the roofline probes of ``ectrans_tpu_torch.roofline`` (torch's ``x + 1``,
+   K11 and K12 streaming rates, K1 against K7 and K2 against K8 at one
+   TCO1279 group); K11 and K12 must have been launched.
 
 Then one JSON line with the kernels, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
@@ -37,8 +48,10 @@ matmul and convolution (the plain Legendre versions use torch.bmm).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -66,12 +79,24 @@ KERNELS = {
     "K6": dict(name="group_dir", route="cuda",
                source="ectrans_tpu_torch/csrc/legendre_grouped.cu",
                replaces="ectrans_tpu/ops/legendre_pallas.py:179"),
+    "K7": dict(name="group_inv_dense2", route="cuda",
+               source="ectrans_tpu_torch/csrc/legendre_dense.cu",
+               replaces="ectrans_tpu/ops/legendre_pallas.py:335"),
+    "K8": dict(name="group_dir_dense2", route="cuda",
+               source="ectrans_tpu_torch/csrc/legendre_dense.cu",
+               replaces="ectrans_tpu/ops/legendre_pallas.py:370"),
     "K9": dict(name="group_inv_planes", route="cuda",
                source="ectrans_tpu_torch/csrc/legendre_planes.cu",
                replaces="ectrans_tpu/ops/legendre_planes.py:159"),
     "K10": dict(name="group_dir_planes", route="cuda",
                 source="ectrans_tpu_torch/csrc/legendre_planes.cu",
                 replaces="ectrans_tpu/ops/legendre_planes.py:227"),
+    "K11": dict(name="stream_copy", route="cuda",
+                source="ectrans_tpu_torch/csrc/roofline.cu",
+                replaces="tools/roofline.py:79"),
+    "K12": dict(name="read_reduce", route="cuda",
+                source="ectrans_tpu_torch/csrc/roofline.cu",
+                replaces="tools/roofline.py:107"),
 }
 NFLD_UV, NFLD_SC = 2, 6          # bench.py's field counts
 FC2_INV, FC2_DIR = 32, 20        # kernel rows: 2 x (16 inverse, 10 direct)
@@ -98,6 +123,7 @@ def cuda_ms(fn, reps: int = 3) -> float:
 
 
 def launch_counters():
+    from ectrans_tpu_torch import roofline
     from ectrans_tpu_torch.ops import (legendre_dense, legendre_grouped,
                                        legendre_planes, legendre_tablegen,
                                        pack)
@@ -108,8 +134,27 @@ def launch_counters():
             "K4": legendre_tablegen.gen_group,
             "K5": legendre_grouped.group_inv,
             "K6": legendre_grouped.group_dir,
+            "K7": legendre_dense.group_inv_dense2,
+            "K8": legendre_dense.group_dir_dense2,
             "K9": legendre_planes.group_inv_planes,
-            "K10": legendre_planes.group_dir_planes}
+            "K10": legendre_planes.group_dir_planes,
+            "K11": roofline.stream_copy,
+            "K12": roofline.read_reduce}
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """Set environment variables for the duration of a block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def phase_build() -> None:
@@ -151,6 +196,7 @@ def hold(key: str, kern, plain, args_list, tol: float = 5e-6) -> dict:
 def phase_kernels(dev: torch.device) -> dict:
     """Each kernel against its plain version at the TCO1279 shapes."""
     import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import roofline
     from ectrans_tpu_torch.ops import legendre_dense as ld
     from ectrans_tpu_torch.ops import legendre_grouped as lg
     from ectrans_tpu_torch.ops import legendre_planes as lpl
@@ -179,32 +225,48 @@ def phase_kernels(dev: torch.device) -> dict:
     rel = err / max(1.0, scale)
     check(rel <= 1e-7, f"K4 vs plain: {rel:.3e} > 1e-7 (table scale)")
     out["K4"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, tol="1e-7 rel")
-    fl = res.full_legendre(torch.float32, dev)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    # K1 (inverse: 16 fields -> fc2 32) and K2 (direct: 10 fields -> fc2 20)
-    out["K1"] = hold("K1", ld.group_inv_dense, ld.group_inv_dense_plain,
-                     [(rnd(g.m1 - g.m0, FC2_INV, g.J), g.pn)
-                      for g in fl.groups])
-    out["K2"] = hold("K2", ld.group_dir_dense, ld.group_dir_dense_plain,
-                     [(rnd(g.m1 - g.m0, FC2_DIR, g.pn.shape[2]),
-                       rnd(g.m1 - g.m0, FC2_DIR, g.pn.shape[2]), g.pn)
-                      for g in fl.groups])
-
-    # K5 and K6 on the parity tables derived from pn on the card
-    gl = res.grouped_legendre(torch.float32, dev)
-    out["K5"] = hold("K5", lg.group_inv, lg.group_inv_plain,
-                     [(rnd(g.m1 - g.m0, FC2_INV, g.kg),
-                       rnd(g.m1 - g.m0, FC2_INV, g.kg), g.psym, g.pasym)
-                      for g in gl.groups])
-    out["K6"] = hold("K6", lg.group_dir, lg.group_dir_plain,
-                     [(rnd(g.m1 - g.m0, FC2_DIR, g.psym.shape[1]),
-                       rnd(g.m1 - g.m0, FC2_DIR, g.psym.shape[1]),
-                       g.psym, g.pasym) for g in gl.groups])
-    del gl
-    res.drop_cached("grouped_legendre")
+    # K1 (inverse: 16 fields -> fc2 32), K2 (direct: 10 fields -> fc2 20),
+    # K7 and K8 on the hemispheres stacked as the dense engine stacks them
+    # (2 x 32 and 2 x 20 rows), K5 and K6 on the parity tables derived from
+    # pn on the card; first on the fp32 tables, then on the "bf16" tier's
+    for tag, tdt in (("", torch.float32), (" bf16", torch.bfloat16)):
+        fl = res.full_legendre(tdt, dev)
+        out["K1" + tag] = hold(
+            "K1" + tag, ld.group_inv_dense, ld.group_inv_dense_plain,
+            [(rnd(g.m1 - g.m0, FC2_INV, g.J), g.pn) for g in fl.groups])
+        out["K2" + tag] = hold(
+            "K2" + tag, ld.group_dir_dense, ld.group_dir_dense_plain,
+            [(rnd(g.m1 - g.m0, FC2_DIR, g.pn.shape[2]),
+              rnd(g.m1 - g.m0, FC2_DIR, g.pn.shape[2]), g.pn)
+             for g in fl.groups])
+        d2s = [rnd(g.m1 - g.m0, FC2_INV, g.J) for g in fl.groups]
+        out["K7" + tag] = hold(
+            "K7" + tag, ld.group_inv_dense2, ld.group_inv_dense2_plain,
+            [(torch.cat([d2, d2 * ld._jsgn(g.J, d2)], dim=1), g.pn)
+             for d2, g in zip(d2s, fl.groups)])
+        del d2s
+        out["K8" + tag] = hold(
+            "K8" + tag, ld.group_dir_dense2, ld.group_dir_dense2_plain,
+            [(rnd(g.m1 - g.m0, 2 * FC2_DIR, g.pn.shape[2]), g.pn)
+             for g in fl.groups])
+        gl = res.grouped_legendre(tdt, dev)
+        out["K5" + tag] = hold(
+            "K5" + tag, lg.group_inv, lg.group_inv_plain,
+            [(rnd(g.m1 - g.m0, FC2_INV, g.kg), rnd(g.m1 - g.m0, FC2_INV, g.kg),
+              g.psym, g.pasym) for g in gl.groups])
+        out["K6" + tag] = hold(
+            "K6" + tag, lg.group_dir, lg.group_dir_plain,
+            [(rnd(g.m1 - g.m0, FC2_DIR, g.psym.shape[1]),
+              rnd(g.m1 - g.m0, FC2_DIR, g.psym.shape[1]), g.psym, g.pasym)
+             for g in gl.groups])
+        del gl
+        res.drop_cached("grouped_legendre")
+    del fl
+    res.drop_cached("full_legendre")
 
     # K9 and K10 on the planes derived on the card, operands packed as the
     # planes engine packs them; 3 planes ("highest") and 1 plane ("bf16")
@@ -239,6 +301,19 @@ def phase_kernels(dev: torch.device) -> dict:
                      plain_ms=cuda_ms(
                          lambda: pack.packed_from_group_rows_plain(rows, res)),
                      tol="bit-exact")
+
+    # K11 (bit-exact) and K12 at the roofline probe's 512 MiB shape
+    x = rnd(roofline.N_ROWS, roofline.N_COLS)
+    got, want = roofline.stream_copy(x), roofline.stream_copy_plain(x)
+    check(torch.equal(got, want), "K11 vs plain: not bit-exact")
+    out["K11"] = dict(max_abs_err=(got - want).abs().max().item(),
+                      ms=cuda_ms(lambda: roofline.stream_copy(x)),
+                      plain_ms=cuda_ms(lambda: roofline.stream_copy_plain(x)),
+                      tol="bit-exact")
+    del got, want
+    out["K12"] = hold("K12", roofline.read_reduce, roofline.read_reduce_plain,
+                      [(x,)], tol=1e-6)
+    del x
     print("phase 2 kernels vs plain (TCO1279 shapes): " + "; ".join(
         f"{k} err {v['max_abs_err']:.3e} ({v['tol']}) {v['ms']:.3f} ms vs "
         f"plain {v['plain_ms']:.3f} ms"
@@ -318,11 +393,11 @@ def family_errors(out, sp) -> list:
 
 
 def drive(res, sp, counters: dict, need: tuple, engine="dense",
-          precision="highest", reset=True):
+          precision="highest", reset=True, absent=()):
     """One round trip through an engine's main path with every launch
     counter set to 0 just before (unless the caller did) and read just
-    after; each kernel in ``need`` must have been launched.  Returns (grid,
-    spectra, seconds, launches)."""
+    after; each kernel in ``need`` must have been launched, and none in
+    ``absent``.  Returns (grid, spectra, seconds, launches)."""
     if reset:
         for c in counters.values():
             c.launches = 0
@@ -330,9 +405,11 @@ def drive(res, sp, counters: dict, need: tuple, engine="dense",
     grid, out = round_trip(res, sp, torch.float32, engine, precision)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    launches = {k: counters[k].launches for k in need}
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel was not launched on the {engine} path: {launches}")
+    launches = {k: counters[k].launches for k in need + absent}
+    check(all(launches[k] > 0 for k in need) and
+          not any(launches[k] for k in absent),
+          f"the {engine} path launched {launches}; expected {need} and not "
+          f"{absent}")
     check(tuple(grid.shape) == (26, res.ndgl, res.grid.ndlon),
           f"grid shape {tuple(grid.shape)}")
     check(bool(torch.isfinite(grid).all()), "non-finite grid values")
@@ -389,27 +466,47 @@ def phase_bench(dev: torch.device, counters: dict):
     return res, sp, launches
 
 
-def phase_engines(dev: torch.device, res, sp, counters: dict) -> dict:
-    """Phase 4's round trip through the "pallas" and "planes" engines."""
+# phase 5 rows: engine, tier, environment, kernels that must run, kernels
+# that must not, whether the row's tables are the "bf16" tier's (their run
+# drops every full-n table first, so that the peak shows their own)
+ENGINE_ROWS = (
+    ("pallas", "highest", {}, ("K3", "K5", "K6"), ()),
+    ("planes", "highest", {}, ("K3", "K9", "K10"), ()),
+    ("planes", "bf16", {}, ("K3", "K9", "K10"), ()),
+    ("dense", "highest", {"ECTRANS_TPU_LEG_DENSE_PACK": "1"},
+     ("K3", "K7", "K8"), ("K1", "K2")),
+    ("dense", "highest", {"ECTRANS_TPU_PACK_KERNEL": "xla"}, ("K1", "K2"),
+     ("K3",)),
+    ("dense", "bf16", {}, ("K1", "K2", "K3"), ()),
+    ("pallas", "bf16", {}, ("K3", "K5", "K6"), ()),
+)
+
+
+def phase_engines(dev: torch.device, res, sp, counters: dict,
+                  launches: dict) -> None:
+    """Phase 4's round trip through the other engines, tiers and knobs;
+    each kernel's count in ``launches`` comes from the first path that runs
+    it (phase 4 for K1-K4)."""
     eps32 = float(np.finfo(np.float32).eps)
-    launches = {}
-    for engine, precision, need in (("pallas", "highest", ("K3", "K5", "K6")),
-                                    ("planes", "highest", ("K3", "K9", "K10")),
-                                    ("planes", "bf16", ("K3", "K9", "K10"))):
+    for engine, precision, env, need, absent in ENGINE_ROWS:
+        if precision == "bf16" and engine != "planes":
+            res.drop_cached("full_legendre")
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        grid, out, t_first, got = drive(res, sp, counters, need, engine,
-                                        precision)
-        del grid
+        with environ(**env):
+            grid, out, t_first, got = drive(res, sp, counters, need, engine,
+                                            precision, absent=absent)
+            del grid
+            med, lo, hi = median_ms(res, sp, 3, engine, precision)
+        peak = torch.cuda.max_memory_allocated() / 2**30
         errs = family_errors(out, sp)
         if precision == "highest":
             err, gate = max(((e, 100 * eps32 * m) for e, m in errs),
                             key=lambda x: x[0] / x[1])
-            check(err <= gate, f"{engine} round-trip gate: err {err:.4e} > "
-                               f"100*eps*max {gate:.4e}")
+            check(err <= gate, f"{engine} {env} round-trip gate: err "
+                               f"{err:.4e} > 100*eps*max {gate:.4e}")
             verdict = f"err {err:.4e} gate (100 eps) {gate:.4e}"
-            launches.update({k: n for k, n in got.items() if k != "K3"})
         else:
             # the 1e6*eps gate holds the scalars; vor/div go through UVTVD's
             # ~n amplification and are printed beside it
@@ -421,15 +518,33 @@ def phase_engines(dev: torch.device, res, sp, counters: dict) -> dict:
             verdict = (f"scalars err {err:.4e} gate (1e6 eps) {gate:.4e}; "
                        f"vor/div at {ratios[0]:.3f} / {ratios[1]:.3f} of "
                        "their 1e6 eps gate")
-        med, lo, hi = median_ms(res, sp, 3, engine, precision)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"phase 5 TCO1279 bench round trip ({engine}, {precision}): "
-              f"{verdict}; first call {t_first:.3f} s; median {med:.1f} ms "
-              f"(min {lo:.1f}, max {hi:.1f}, n 3); peak {peak:.2f} GiB; "
-              f"launches {got}; cuFFT plans cached "
+        for k in need:
+            if k != "K3":
+                launches.setdefault(k, got[k])
+        knobs = "".join(f" {k}={v}" for k, v in env.items())
+        print(f"phase 5 TCO1279 bench round trip ({engine}, {precision}"
+              f"{knobs}): {verdict}; first call {t_first:.3f} s; median "
+              f"{med:.1f} ms (min {lo:.1f}, max {hi:.1f}, n 3); peak "
+              f"{peak:.2f} GiB; launches {got}; cuFFT plans cached "
               f"{torch.backends.cuda.cufft_plan_cache[dev.index].size}")
         res.drop_cached("grouped_legendre")
         res.drop_cached("planes_legendre")
+    res.drop_cached("full_legendre")
+
+
+def phase_roofline(dev: torch.device, counters: dict) -> dict:
+    """The roofline probes, with K11 and K12 counted."""
+    from ectrans_tpu_torch import roofline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.launches = 0
+    print("phase 6 roofline probes (ectrans_tpu_torch.roofline):")
+    roofline.run(dev)
+    launches = {k: counters[k].launches for k in ("K11", "K12")}
+    check(all(n > 0 for n in launches.values()),
+          f"a roofline kernel was not launched: {launches}")
     return launches
 
 
@@ -447,7 +562,9 @@ def main() -> int:
     phase_small(dev)
     counters = launch_counters()
     res, sp, launches = phase_bench(dev, counters)
-    launches.update(phase_engines(dev, res, sp, counters))
+    phase_engines(dev, res, sp, counters, launches)
+    del res, sp
+    launches.update(phase_roofline(dev, counters))
     print(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k],
              max_abs_err=kern[k]["max_abs_err"], ms=kern[k]["ms"],

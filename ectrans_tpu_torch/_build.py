@@ -32,21 +32,32 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
-_FLOAT = tuple(_SUFFIX.values())   # an _f32 and an _f64 variant
+_WORKING = (torch.float32, torch.float64)
+# variant suffix by dtype: the working dtype, or bfloat16 for the kernels
+# that take fp32 operands on a bf16 table
+_SUFFIX = {torch.float32: "_f32", torch.float64: "_f64",
+           torch.bfloat16: "_bf16"}
+_FLOAT = ("_f32", "_f64")          # an _f32 and an _f64 variant
+_TABLES = _FLOAT + ("_bf16",)      # and a bf16-table variant
 _SINGLE = ("",)                    # one variant, no suffix (bf16 in, fp32 out)
 # C entry points: name stem -> (argtypes, variant suffixes)
 _ENTRIES = {
-    "ect_inv_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
-    "ect_dir_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
-    "ect_inv_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
-    "ect_dir_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
+    "ect_inv_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
+    "ect_dir_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
+    "ect_inv_dense2": ([_P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
+    "ect_dir_dense2": ([_P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
+    "ect_inv_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                        _TABLES),
+    "ect_dir_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                        _TABLES),
     "ect_inv_planes": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                        _SINGLE),
     "ect_dir_planes": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _SINGLE),
     "ect_compact": ([_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P], _FLOAT),
     "ect_tablegen": ([_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
                      _FLOAT),
+    "ect_copy": ([_P, _P, _L, _P], ("_f32",)),
+    "ect_reduce8": ([_P, _P, _P, _L, _I, _I, _P], ("_f32",)),
 }
 
 _lock = threading.Lock()
@@ -72,7 +83,7 @@ def sources() -> list[pathlib.Path]:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources():
+    for s in sorted(_SRC.glob("*.cu*")):     # the sources and their headers
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libectrans_kernels_{h.hexdigest()[:16]}.so"
@@ -113,9 +124,10 @@ def lib() -> ctypes.CDLL:
 
 
 def launch(stem: str, dtype: torch.dtype | None, *args) -> None:
-    """Call C entry ``stem`` for ``dtype`` (None for a single-variant entry)
-    on the current CUDA stream and raise if the launch failed.  ``args``
-    exclude the trailing stream."""
+    """Call C entry ``stem`` for ``dtype`` (the working dtype, bfloat16 for
+    a bf16-table variant, None for a single-variant entry) on the current
+    CUDA stream and raise if the launch failed.  ``args`` exclude the
+    trailing stream."""
     name = stem + ("" if dtype is None else _SUFFIX[dtype])
     fn = getattr(lib(), name)
     stream = torch.cuda.current_stream().cuda_stream
@@ -136,7 +148,7 @@ def check_operand(name: str, t: torch.Tensor, like: torch.Tensor,
     if dtype is not None:
         if t.dtype != dtype:
             raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    elif t.dtype != like.dtype or t.dtype not in _SUFFIX:
+    elif t.dtype != like.dtype or t.dtype not in _WORKING:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {like.dtype} "
                         "(float32 or float64)")
     if tuple(t.shape) != tuple(shape):
@@ -144,6 +156,15 @@ def check_operand(name: str, t: torch.Tensor, like: torch.Tensor,
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def table_dtype(x: torch.Tensor, table: torch.Tensor) -> torch.dtype:
+    """The table dtype of the Legendre kernel variant for operand ``x`` and
+    ``table``: bfloat16 for an fp32 operand on a bf16 table (the "bf16"
+    tier), else the operand's working dtype (which the table must match)."""
+    if x.dtype == torch.float32 and table.dtype == torch.bfloat16:
+        return torch.bfloat16
+    return x.dtype
 
 
 def on_cpu(t: torch.Tensor) -> bool:

@@ -1,0 +1,53 @@
+// Arithmetic shared by the dense-row (K1, K2, K7, K8) and parity-split (K5,
+// K6) Legendre kernels: compensated chunk sums, and the operand and table
+// types of each variant.
+//
+// A kernel variant is a pair (T, P): T the arithmetic and operand type
+// (float or double), P the table's storage type.  P = T is the "highest"
+// arithmetic.  P = bf16 (with T = float) is the "bf16" tier: the table is
+// stored in bfloat16, and each operand entry is rounded to bf16 as it is
+// staged, so every product of two bf16 values is exact in fp32 (the TPU
+// kernels' single-pass mode "bf16", legendre_pallas.py _dot); the sums are
+// the same compensated fp32 sums as at "highest".
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace ect {
+
+typedef __nv_bfloat16 bf16;
+
+// sum += x with the rounding error of the addition kept in comp (Knuth's
+// TwoSum): the sums run over up to ~1300 terms, and a single running fp32
+// sum loses ~sqrt(n) times more than per-chunk sums folded in this way,
+// which the 100*eps round-trip gate at TCO1279 does not allow
+template <typename T>
+__device__ __forceinline__ void add_compensated(T& sum, T& comp, T x) {
+  const T s = sum + x;
+  const T bb = s - sum;
+  comp += (sum - (s - bb)) + (x - bb);
+  sum = s;
+}
+
+// a table entry in the arithmetic type
+__device__ __forceinline__ float table_value(float p) { return p; }
+__device__ __forceinline__ double table_value(double p) { return p; }
+__device__ __forceinline__ float table_value(bf16 p) {
+  return __bfloat162float(p);
+}
+
+// an operand entry as it enters the products of a (T, P) variant
+template <typename T, typename P>
+__device__ __forceinline__ T operand(T x) {
+  if constexpr (std::is_same<P, bf16>::value) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+}  // namespace ect

@@ -19,16 +19,23 @@
 // registers.  K5's table tile is stored [latitude][k] with a +1 pad so a
 // warp reading one k for 32 latitudes hits 32 banks; K6's is [latitude][k],
 // read along k by consecutive threads.  Arithmetic is plain FMA in the
-// working type (no tensor cores: the "highest" tier's accuracy contract).
+// working type (no tensor cores: the "highest" tier's accuracy contract,
+// which serves "high" too); the "bf16" tier reads bf16 tables and rounds the
+// operand to bf16 (legendre_common.cuh).
 // Each staged chunk is summed in registers and folded into a compensated
 // total (TwoSum), so the rounding error grows with the chunk length and not
 // with kg or ig: one running fp32 sum misses the TCO1279 100*eps round-trip
 // gate (see legendre_dense.cu).  Pipelining and tensor-core variants are
 // left for later work.
 
-#include <cuda_runtime.h>
+#include "legendre_common.cuh"
 
 namespace {
+
+using ect::add_compensated;
+using ect::bf16;
+using ect::operand;
+using ect::table_value;
 
 constexpr int NY = 4;              // thread rows of a block
 constexpr int RPT = 8;             // coefficient rows per thread
@@ -43,21 +50,13 @@ struct Stage {
   static constexpr int K = 128 / sizeof(T);
 };
 
-template <typename T>
-__device__ __forceinline__ void add_compensated(T& sum, T& comp, T x) {
-  const T s = sum + x;
-  const T bb = s - sum;
-  comp += (sum - (s - bb)) + (x - bb);
-  sum = s;
-}
-
 // north[m, r, i] = sum_k sym[m, r, k] psym[m, i, k] + asym[m, r, k] pasym[m, i, k]
 // south[m, r, i] = sum_k sym[m, r, k] psym[m, i, k] - asym[m, r, k] pasym[m, i, k]
 // Block (i-tile, m, row chunk); thread (tx = latitude, ty = row phase).
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(THREADS)
 inv_grouped_kernel(const T* __restrict__ sym, const T* __restrict__ asym,
-                   const T* __restrict__ psym, const T* __restrict__ pasym,
+                   const P* __restrict__ psym, const P* __restrict__ pasym,
                    T* __restrict__ north, T* __restrict__ south,
                    int fc2, int kg, int ig) {
   constexpr int TK = Stage<T>::K;
@@ -72,8 +71,8 @@ inv_grouped_kernel(const T* __restrict__ sym, const T* __restrict__ asym,
   const int ty = threadIdx.x / TI;
   const T* sm = sym + (size_t)m * fc2 * kg;
   const T* am = asym + (size_t)m * fc2 * kg;
-  const T* psm = psym + (size_t)m * ig * kg;
-  const T* pam = pasym + (size_t)m * ig * kg;
+  const P* psm = psym + (size_t)m * ig * kg;
+  const P* pam = pasym + (size_t)m * ig * kg;
 
   T fs[RPT], fa[RPT], fsc[RPT], fac[RPT];
 #pragma unroll
@@ -86,15 +85,15 @@ inv_grouped_kernel(const T* __restrict__ sym, const T* __restrict__ asym,
       const int r = e / TK, k = e % TK;
       const int row = r0 + r, kk = k0 + k;
       const bool ok = row < fc2 && kk < kg;
-      ss[r][k] = ok ? sm[(size_t)row * kg + kk] : T(0);
-      sa[r][k] = ok ? am[(size_t)row * kg + kk] : T(0);
+      ss[r][k] = ok ? operand<T, P>(sm[(size_t)row * kg + kk]) : T(0);
+      sa[r][k] = ok ? operand<T, P>(am[(size_t)row * kg + kk]) : T(0);
     }
     for (int e = threadIdx.x; e < TI * TK; e += THREADS) {
       const int i = e / TK, k = e % TK;   // consecutive threads along k
       const int ii = i0 + i, kk = k0 + k;
       const bool ok = ii < ig && kk < kg;
-      ps[i][k] = ok ? psm[(size_t)ii * kg + kk] : T(0);
-      pa[i][k] = ok ? pam[(size_t)ii * kg + kk] : T(0);
+      ps[i][k] = ok ? table_value(psm[(size_t)ii * kg + kk]) : T(0);
+      pa[i][k] = ok ? table_value(pam[(size_t)ii * kg + kk]) : T(0);
     }
     __syncthreads();
     T s_part[RPT], a_part[RPT];
@@ -135,10 +134,10 @@ inv_grouped_kernel(const T* __restrict__ sym, const T* __restrict__ asym,
 // sym[m, r, k] = sum_i fsym[m, r, i] psym[m, i, k]
 // asym[m, r, k] = sum_i fasym[m, r, i] pasym[m, i, k]
 // Block (k-tile, m, row chunk); thread (tx = degree, ty = row phase).
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(THREADS)
 dir_grouped_kernel(const T* __restrict__ fsym, const T* __restrict__ fasym,
-                   const T* __restrict__ psym, const T* __restrict__ pasym,
+                   const P* __restrict__ psym, const P* __restrict__ pasym,
                    T* __restrict__ sym, T* __restrict__ asym,
                    int fc2, int kg, int ig) {
   constexpr int DI = Stage<T>::K;      // latitudes per stage: 32 or 16
@@ -154,8 +153,8 @@ dir_grouped_kernel(const T* __restrict__ fsym, const T* __restrict__ fasym,
   const int k = k0 + tx;
   const T* fsm = fsym + (size_t)m * fc2 * ig;
   const T* fam = fasym + (size_t)m * fc2 * ig;
-  const T* psm = psym + (size_t)m * ig * kg;
-  const T* pam = pasym + (size_t)m * ig * kg;
+  const P* psm = psym + (size_t)m * ig * kg;
+  const P* pam = pasym + (size_t)m * ig * kg;
 
   T s_acc[RPT], a_acc[RPT], s_c[RPT], a_c[RPT];
 #pragma unroll
@@ -168,15 +167,15 @@ dir_grouped_kernel(const T* __restrict__ fsym, const T* __restrict__ fasym,
       const int r = e / DI, i = e % DI;
       const int row = r0 + r, ii = i0 + i;
       const bool ok = row < fc2 && ii < ig;
-      sx[r][i] = ok ? fsm[(size_t)row * ig + ii] : T(0);
-      ax[r][i] = ok ? fam[(size_t)row * ig + ii] : T(0);
+      sx[r][i] = ok ? operand<T, P>(fsm[(size_t)row * ig + ii]) : T(0);
+      ax[r][i] = ok ? operand<T, P>(fam[(size_t)row * ig + ii]) : T(0);
     }
     for (int e = threadIdx.x; e < DI * DK; e += THREADS) {
       const int i = e / DK, kl = e % DK;  // consecutive threads along k
       const int ii = i0 + i, kk = k0 + kl;
       const bool ok = ii < ig && kk < kg;
-      ps[i][kl] = ok ? psm[(size_t)ii * kg + kk] : T(0);
-      pa[i][kl] = ok ? pam[(size_t)ii * kg + kk] : T(0);
+      ps[i][kl] = ok ? table_value(psm[(size_t)ii * kg + kk]) : T(0);
+      pa[i][kl] = ok ? table_value(pam[(size_t)ii * kg + kk]) : T(0);
     }
     __syncthreads();
     T s_part[RPT], a_part[RPT];
@@ -212,58 +211,50 @@ dir_grouped_kernel(const T* __restrict__ fsym, const T* __restrict__ fasym,
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch_inv(const void* sym, const void* asym, const void* psym,
                const void* pasym, void* north, void* south, int gm, int fc2,
                int kg, int ig, void* stream) {
   dim3 grid((ig + TI - 1) / TI, gm, (fc2 + ROWS - 1) / ROWS);
-  inv_grouped_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)sym, (const T*)asym, (const T*)psym, (const T*)pasym,
+  inv_grouped_kernel<T, P><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)sym, (const T*)asym, (const P*)psym, (const P*)pasym,
       (T*)north, (T*)south, fc2, kg, ig);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch_dir(const void* fsym, const void* fasym, const void* psym,
                const void* pasym, void* sym, void* asym, int gm, int fc2,
                int kg, int ig, void* stream) {
   dim3 grid((kg + DK - 1) / DK, gm, (fc2 + ROWS - 1) / ROWS);
-  dir_grouped_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)fsym, (const T*)fasym, (const T*)psym, (const T*)pasym,
+  dir_grouped_kernel<T, P><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)fsym, (const T*)fasym, (const P*)psym, (const P*)pasym,
       (T*)sym, (T*)asym, fc2, kg, ig);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// C entries per variant: _f32 and _f64 (the working type throughout) and
+// _bf16 (fp32 operands and outputs, bf16 tables)
+#define ECT_GROUPED_ENTRIES(SUFFIX, T, P)                                     \
+  int ect_inv_grouped##SUFFIX(const void* sym, const void* asym,              \
+                              const void* psym, const void* pasym,            \
+                              void* north, void* south, int gm, int fc2,      \
+                              int kg, int ig, void* stream) {                 \
+    return launch_inv<T, P>(sym, asym, psym, pasym, north, south, gm, fc2,    \
+                            kg, ig, stream);                                  \
+  }                                                                           \
+  int ect_dir_grouped##SUFFIX(const void* fsym, const void* fasym,            \
+                              const void* psym, const void* pasym, void* sym, \
+                              void* asym, int gm, int fc2, int kg, int ig,    \
+                              void* stream) {                                 \
+    return launch_dir<T, P>(fsym, fasym, psym, pasym, sym, asym, gm, fc2, kg, \
+                            ig, stream);                                      \
+  }
+
 extern "C" {
-
-int ect_inv_grouped_f32(const void* sym, const void* asym, const void* psym,
-                        const void* pasym, void* north, void* south, int gm,
-                        int fc2, int kg, int ig, void* stream) {
-  return launch_inv<float>(sym, asym, psym, pasym, north, south, gm, fc2, kg,
-                           ig, stream);
-}
-
-int ect_inv_grouped_f64(const void* sym, const void* asym, const void* psym,
-                        const void* pasym, void* north, void* south, int gm,
-                        int fc2, int kg, int ig, void* stream) {
-  return launch_inv<double>(sym, asym, psym, pasym, north, south, gm, fc2, kg,
-                            ig, stream);
-}
-
-int ect_dir_grouped_f32(const void* fsym, const void* fasym, const void* psym,
-                        const void* pasym, void* sym, void* asym, int gm,
-                        int fc2, int kg, int ig, void* stream) {
-  return launch_dir<float>(fsym, fasym, psym, pasym, sym, asym, gm, fc2, kg,
-                           ig, stream);
-}
-
-int ect_dir_grouped_f64(const void* fsym, const void* fasym, const void* psym,
-                        const void* pasym, void* sym, void* asym, int gm,
-                        int fc2, int kg, int ig, void* stream) {
-  return launch_dir<double>(fsym, fasym, psym, pasym, sym, asym, gm, fc2, kg,
-                            ig, stream);
-}
-
+ECT_GROUPED_ENTRIES(_f32, float, float)
+ECT_GROUPED_ENTRIES(_f64, double, double)
+ECT_GROUPED_ENTRIES(_bf16, float, bf16)
 }  // extern "C"

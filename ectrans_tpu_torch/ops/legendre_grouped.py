@@ -11,6 +11,8 @@ symmetric and antisymmetric Fourier combinations against the same tables.
 
 Kernels (``csrc/legendre_grouped.cu``) run for CUDA tensors; CPU tensors
 take the plain versions (``torch.bmm`` per group in the working dtype).
+bf16 tables (the "bf16" tier) take fp32 operands rounded to bf16, as in
+``legendre_dense``.
 """
 
 from __future__ import annotations
@@ -19,11 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .legendre_dense import group_rows, hemispheres_to_fourier
+from .legendre_dense import group_rows, hemispheres_to_fourier, plain_operands
 
 
 def group_inv_plain(sym, asym, psym, pasym):
     """Plain version of K5: (gm, fc2, kg) x (gm, ig, kg) -> (north, south)."""
+    psym, sym = plain_operands(psym, sym)
+    pasym, asym = plain_operands(pasym, asym)
     fs = torch.bmm(sym, psym.transpose(1, 2))
     fa = torch.bmm(asym, pasym.transpose(1, 2))
     return fs + fa, fs - fa
@@ -38,16 +42,17 @@ def group_inv(sym: torch.Tensor, asym: torch.Tensor, psym: torch.Tensor,
         return group_inv_plain(sym, asym, psym, pasym)
     gm, fc2, kg = sym.shape
     ig = psym.shape[1]
+    tdt = _build.table_dtype(sym, psym)
     _build.check_operand("sym", sym, sym, (gm, fc2, kg))
     _build.check_operand("asym", asym, sym, (gm, fc2, kg))
-    _build.check_operand("psym", psym, sym, (gm, ig, kg))
-    _build.check_operand("pasym", pasym, sym, (gm, ig, kg))
+    _build.check_operand("psym", psym, sym, (gm, ig, kg), dtype=tdt)
+    _build.check_operand("pasym", pasym, sym, (gm, ig, kg), dtype=tdt)
     north = torch.empty((gm, fc2, ig), dtype=sym.dtype, device=sym.device)
     south = torch.empty_like(north)
     if north.numel() == 0:
         return north.zero_(), south.zero_()
     with torch.cuda.device(sym.device):
-        _build.launch("ect_inv_grouped", sym.dtype, sym.data_ptr(),
+        _build.launch("ect_inv_grouped", tdt, sym.data_ptr(),
                       asym.data_ptr(), psym.data_ptr(), pasym.data_ptr(),
                       north.data_ptr(), south.data_ptr(), gm, fc2, kg, ig)
     group_inv.launches += 1
@@ -59,6 +64,8 @@ group_inv.launches = 0
 
 def group_dir_plain(fsym, fasym, psym, pasym):
     """Plain version of K6: (gm, fc2, ig) x (gm, ig, kg) -> (sym, asym)."""
+    psym, fsym = plain_operands(psym, fsym)
+    pasym, fasym = plain_operands(pasym, fasym)
     return torch.bmm(fsym, psym), torch.bmm(fasym, pasym)
 
 
@@ -71,16 +78,17 @@ def group_dir(fsym: torch.Tensor, fasym: torch.Tensor, psym: torch.Tensor,
         return group_dir_plain(fsym, fasym, psym, pasym)
     gm, fc2, ig = fsym.shape
     kg = psym.shape[2]
+    tdt = _build.table_dtype(fsym, psym)
     _build.check_operand("fsym", fsym, fsym, (gm, fc2, ig))
     _build.check_operand("fasym", fasym, fsym, (gm, fc2, ig))
-    _build.check_operand("psym", psym, fsym, (gm, ig, kg))
-    _build.check_operand("pasym", pasym, fsym, (gm, ig, kg))
+    _build.check_operand("psym", psym, fsym, (gm, ig, kg), dtype=tdt)
+    _build.check_operand("pasym", pasym, fsym, (gm, ig, kg), dtype=tdt)
     sym = torch.empty((gm, fc2, kg), dtype=fsym.dtype, device=fsym.device)
     asym = torch.empty_like(sym)
     if sym.numel() == 0:
         return sym, asym
     with torch.cuda.device(fsym.device):
-        _build.launch("ect_dir_grouped", fsym.dtype, fsym.data_ptr(),
+        _build.launch("ect_dir_grouped", tdt, fsym.data_ptr(),
                       fasym.data_ptr(), psym.data_ptr(), pasym.data_ptr(),
                       sym.data_ptr(), asym.data_ptr(), gm, fc2, kg, ig)
     group_dir.launches += 1

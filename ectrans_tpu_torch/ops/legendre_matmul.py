@@ -1,23 +1,43 @@
-"""Legendre engine choice, the "xla" engine, and the engine dispatchers.
+"""Legendre engine choice, the precision tiers, the "xla" engine, and the
+engine dispatchers.
 
 Counterpart of ``ectrans_tpu/ops/legendre_matmul.py``.  Four engines compute
 the same Legendre sums:
 
 * "dense"  — dense-row kernels K1/K2 (``legendre_dense``) on the full-n
-  tables; the default on every device;
+  tables; the default on every device.  With ``dense_pack()``
+  (``ECTRANS_TPU_LEG_DENSE_PACK``) it runs the hemisphere-packed K7/K8;
 * "pallas" — parity-split grouped kernels K5/K6 (``legendre_grouped``);
-* "planes" — bf16 limb-plane kernels K9/K10 (``legendre_planes``), the only
-  engine with the tiers "high" (an alias of "highest") and "bf16";
+* "planes" — bf16 limb-plane kernels K9/K10 (``legendre_planes``);
 * "xla"    — the grouped parity contraction as per-group ``torch.einsum``
   (this module): the plain matrix product the JAX package leaves to XLA.
   It is the fp64 engine of "planes" and runs in the working dtype (TF32
   stays off unless the caller turns it on).
 
+Every engine serves the three tiers of the JAX package (its
+``_PALLAS_MODE``/``_XLA_PREC`` maps):
+
+* "highest" — fp32 (or fp64) FMA with compensated chunk sums in the
+  kernels; 3 limb planes on "planes";
+* "high"    — the same arithmetic as "highest" on every engine ("planes"
+  aliases it to 3 planes).  The TPU served it with three bf16 passes
+  (bf16x3); on CUDA cores that costs three FMAs per term where one fp32 FMA
+  is cheaper and more accurate, and the tier's contract is an error bound,
+  which fp32 meets.  3xTF32 on tensor cores (the reference GPU's CUTLASS
+  path) is queued as a redesign in ROADMAP.md;
+* "bf16"    — tables stored in bfloat16 (``transform._table_dtype``; half
+  the table bytes).  "dense" and "pallas" round the fp32 operand to bf16 and
+  sum the exact products (the TPU's single-pass mode); "xla" upcasts each
+  group's bf16 tables for its einsums, as the JAX "xla" engine computes on
+  the CPU; "planes" takes 1 plane.  In fp64 the tables stay fp64, so the
+  tier is "highest" there (as in the JAX package, bf16 tables need fp32).
+
 ``engine()`` reads ``ECTRANS_TPU_LEG_KERNEL`` as the JAX package does; its
 "auto" is "dense" on the CPU too (the JAX package picks "xla" there only
 because Pallas cannot run on the CPU; here every kernel has a plain
-version).  The dispatchers take the engine or tier as an argument and never
-read the environment.
+version).  ``engine()`` and ``dense_pack()`` are read once per transform by
+``transform.py``; the dispatchers take the engine, tier or packing as an
+argument and never read the environment.
 """
 
 from __future__ import annotations
@@ -31,11 +51,7 @@ from . import legendre_grouped
 from . import legendre_planes as lp
 
 ENGINES = ("dense", "xla", "pallas", "planes")
-# precision tiers each engine serves (the JAX package's tier -> mode and
-# tier -> plane-count maps; this port's "dense", "xla" and "pallas"
-# engines sum in the working dtype, which is the "highest" tier)
-TIERS = {"dense": ("highest",), "xla": ("highest",), "pallas": ("highest",),
-         "planes": ("highest", "high", "bf16")}
+TIERS = ("highest", "high", "bf16")
 
 
 def engine() -> str:
@@ -45,16 +61,24 @@ def engine() -> str:
     return kern if kern in ENGINES else "dense"
 
 
+def dense_pack() -> bool:
+    """The hemisphere-packed kernels K7/K8 on the "dense" engine, as
+    ``ECTRANS_TPU_LEG_DENSE_PACK`` selects (anything but "0"; default
+    off, as in the JAX package)."""
+    return os.environ.get("ECTRANS_TPU_LEG_DENSE_PACK", "0") != "0"
+
+
 def legendre_inv_grouped(sym: torch.Tensor, asym: torch.Tensor,
                          gl) -> torch.Tensor:
     """Grouped inverse LT as einsums: sym/asym (nfld, 2, M, kmax) ->
-    (nfld, 2, M, ndgl) Fourier coefficients, latitudes north -> south."""
+    (nfld, 2, M, ndgl) Fourier coefficients, latitudes north -> south.
+    bf16 tables are upcast to the working dtype one group at a time."""
     parts = []
     for g in gl.groups:
         s = sym[:, :, g.m0:g.m1, :g.kg]
         a = asym[:, :, g.m0:g.m1, :g.kg]
-        fs = torch.einsum("mik,fcmk->fcmi", g.psym, s)
-        fa = torch.einsum("mik,fcmk->fcmi", g.pasym, a)
+        fs = torch.einsum("mik,fcmk->fcmi", g.psym.to(sym.dtype), s)
+        fa = torch.einsum("mik,fcmk->fcmi", g.pasym.to(sym.dtype), a)
         parts.append(torch.cat([F.pad(fs + fa, (g.i0, 0)),
                                 F.pad((fs - fa).flip(-1), (0, g.i0))], dim=-1))
     return torch.cat(parts, dim=2)
@@ -69,9 +93,11 @@ def legendre_dir_grouped(fourier: torch.Tensor, gl, w: torch.Tensor):
     for g in gl.groups:
         pad = (0, gl.kmax - g.kg)
         syms.append(F.pad(torch.einsum(
-            "mik,fcmi->fcmk", g.psym, fsym_all[:, :, g.m0:g.m1, g.i0:]), pad))
+            "mik,fcmi->fcmk", g.psym.to(fourier.dtype),
+            fsym_all[:, :, g.m0:g.m1, g.i0:]), pad))
         asyms.append(F.pad(torch.einsum(
-            "mik,fcmi->fcmk", g.pasym, fasym_all[:, :, g.m0:g.m1, g.i0:]), pad))
+            "mik,fcmi->fcmk", g.pasym.to(fourier.dtype),
+            fasym_all[:, :, g.m0:g.m1, g.i0:]), pad))
     return torch.cat(syms, dim=2), torch.cat(asyms, dim=2)
 
 

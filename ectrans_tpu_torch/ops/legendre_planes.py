@@ -34,12 +34,11 @@ guard).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .. import _build
-from .layout import diag_realign, diag_unalign
+from .layout import diag_realign
 from .legendre_dense import (_jsgn, group_rows, hemispheres_to_fourier,
-                             weighted_rows)
+                             rows_to_dense, weighted_rows)
 
 _TIER_PLANES = {"highest": 3, "high": 3, "bf16": 1}
 
@@ -220,10 +219,5 @@ def legendre_dir_planes(fourier: torch.Tensor, ppl, w: torch.Tensor, NP: int,
                         nplanes: int = 3) -> torch.Tensor:
     """Direct LT to the dense layout: (nfld, 2, M, ndgl) -> (nfld, 2, M, NP)
     (entries at n < m are neighbouring rows' data)."""
-    nfld = fourier.shape[0]
-    parts = []
-    for g, rows in zip(ppl.groups, legendre_dir_rows_planes(
-            fourier, ppl, w, nplanes)):
-        d2g = rows.reshape(g.m1 - g.m0, 2, nfld, g.J).permute(2, 1, 0, 3)
-        parts.append(F.pad(d2g, (0, NP + 1 - g.J)))
-    return diag_unalign(torch.cat(parts, dim=2), NP)
+    return rows_to_dense(legendre_dir_rows_planes(fourier, ppl, w, nplanes),
+                         ppl.groups, fourier.shape[0], NP)

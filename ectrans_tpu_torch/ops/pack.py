@@ -14,15 +14,29 @@ counterpart of ``pack_pallas.dense_to_packed``/``packed_from_mmajor``).
 
 CUDA tensors go through the kernel (``csrc/pack.cu``); CPU tensors through
 the plain index gather.  Both copy values without arithmetic (bit-exact).
+``pack_kernel()`` reads ``ECTRANS_TPU_PACK_KERNEL``: at "xla" the direct
+transform of every engine goes to the dense layout and packs with the index
+gather (``layout.dense_to_packed``) instead.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from .. import _build
 from .layout import diag_realign
+
+
+def pack_kernel() -> str:
+    """The direct transform's packing, as ``ECTRANS_TPU_PACK_KERNEL``
+    selects: "xla" (the index gather from the dense layout) or "kernel"
+    (K3; "auto", the default, and "force", which in the JAX package runs
+    its kernel in interpret mode on the CPU)."""
+    return ("xla" if os.environ.get("ECTRANS_TPU_PACK_KERNEL", "auto") == "xla"
+            else "kernel")
 
 
 def _segments(res) -> list:

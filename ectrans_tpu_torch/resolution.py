@@ -7,7 +7,8 @@ request for one (dtype, device) pair and cached on the Resolution itself:
 * ``device_tables(dtype, device)``: the small per-resolution tables
   (index maps, weights, 1/(a cos), spectral-operator coefficients);
 * ``full_legendre(dtype, device)``: the per-m-group full-n Legendre tables
-  pn[m, j, i] = P̄_{m+j}^m(mu_i) streamed by the dense-row kernels.  On a
+  pn[m, j, i] = P̄_{m+j}^m(mu_i) streamed by the dense-row kernels, in a
+  table dtype (float32, float64, or bfloat16 for the "bf16" tier).  On a
   CUDA device they are generated on the card by the table-generator kernel
   (``ops.legendre_tablegen``, a few MB of seeds instead of GiBs of host
   tables); on the CPU they come from the host fp64 recurrence, built only
@@ -37,12 +38,22 @@ from .legendre import build_parity_tables, eps_table
 EARTH_RADIUS = 6371229.0  # metres; reference default RA (setup_trans0.F90)
 
 _FLOATS = (torch.float32, torch.float64)
+_TABLE_DTYPES = _FLOATS + (torch.bfloat16,)
 
 
 def check_dtype(dtype) -> torch.dtype:
     """The working dtypes of this package: float32 and float64."""
     if dtype not in _FLOATS:
         raise TypeError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
+    return dtype
+
+
+def check_table_dtype(dtype) -> torch.dtype:
+    """The Legendre table dtypes: the working dtypes, and bfloat16 (the
+    "bf16" tier's tables, which take fp32 operands)."""
+    if dtype not in _TABLE_DTYPES:
+        raise TypeError("table dtype must be torch.float32, torch.float64 or "
+                        f"torch.bfloat16, got {dtype}")
     return dtype
 
 
@@ -245,13 +256,16 @@ class Resolution:
     def _new_full_groups(self, dtype: torch.dtype, device: torch.device):
         """Each group's full-n table made anew on ``device``, one at a time:
         by the table kernel (K4) on a GPU, from the host fp64 build on the
-        CPU."""
+        CPU.  A bf16 group is K4's fp32 group rounded to nearest even (the
+        fp32 group is dropped before the next is made); on the CPU the fp64
+        values are rounded as the JAX package's host tables are."""
         groups = self.legendre_groups()
         if device.type == "cuda":
             from .ops import legendre_tablegen as tg
 
             inp = tg._device_inputs(self, device)
-            pns = (tg.gen_group(inp, m0, m1, J, i0, dtype)
+            gen = torch.float32 if dtype == torch.bfloat16 else dtype
+            pns = (tg.gen_group(inp, m0, m1, J, i0, gen).to(dtype)
                    for m0, m1, i0, J in groups)
         elif device.type == "cpu":
             pns = (torch.from_numpy(pn).to(dtype)
@@ -271,9 +285,10 @@ class Resolution:
         return self._new_full_groups(dtype, device)
 
     def full_legendre(self, dtype=torch.float32, device="cpu") -> FullLegendre:
-        """Per-m-group full-n tables on ``device``: generated by the CUDA
-        table kernel on a GPU, copied from the host fp64 build on the CPU."""
-        dtype = check_dtype(dtype)
+        """Per-m-group full-n tables of table dtype ``dtype`` (float32,
+        float64 or bfloat16) on ``device``: generated by the CUDA table
+        kernel on a GPU, copied from the host fp64 build on the CPU."""
+        dtype = check_table_dtype(dtype)
         device = canonical_device(device)
         return self.cached(
             ("full_legendre", dtype, str(device)),
@@ -283,11 +298,12 @@ class Resolution:
 
     def grouped_legendre(self, dtype=torch.float32,
                          device="cpu") -> GroupedLegendre:
-        """Per-m-group parity tables for the "xla" and "pallas" engines:
-        psym[m, i, k] = pn[m, 2k, i], pasym[m, i, k] = pn[m, 2k+1, i]
-        (counterpart of ``ectrans_tpu`` ``Resolution.grouped_legendre``,
-        which builds them on the host)."""
-        dtype = check_dtype(dtype)
+        """Per-m-group parity tables for the "xla" and "pallas" engines, of
+        table dtype ``dtype`` (as ``full_legendre``): psym[m, i, k] =
+        pn[m, 2k, i], pasym[m, i, k] = pn[m, 2k+1, i] (counterpart of
+        ``ectrans_tpu`` ``Resolution.grouped_legendre``, which builds them on
+        the host)."""
+        dtype = check_table_dtype(dtype)
         device = canonical_device(device)
 
         def build():

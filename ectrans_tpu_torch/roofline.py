@@ -1,0 +1,194 @@
+"""Streaming-rate probes on one CUDA card, kernels K11 and K12.
+
+Counterpart of ``tools/roofline.py``: what a hand-written kernel reaches in
+device-memory bandwidth on this card, and the dense Legendre kernels at one
+TCO1279 group beside it, so that the kernels' table rates can be read
+against a measured ceiling as well as the data sheet's.
+
+    python -m ectrans_tpu_torch.roofline
+
+Probes, one printed line each (cheapest first), all on fp32 x of shape
+(262,144, 512), 512 MiB, as in the JAX probe:
+
+1. ``x + 1``: PyTorch's own streaming rate (read + write GB/s);
+2. K11 ``stream_copy``, out = x (``csrc/roofline.cu``): read + write GB/s;
+3. K12 ``read_reduce``, out[r, c] = sum over rows i = r (mod 8) of x[i, c],
+   (8, 512): read GB/s (the Legendre kernels' table stream is a read);
+4. K1 against K7 at the TCO1279 group-0 shapes (gm 80, J 2562, ig 1280,
+   fc2 32) on fp32 and on bf16 tables: ms and table GB/s each;
+5. the largest difference of K7 from K1, relative to K1's largest output;
+6. K2 against K8 at the same shapes (fc2 32): ms each, and their largest
+   relative difference.
+
+The JAX probe's MXU pass-count and tile-size scans have no counterpart:
+the port's kernels make one FMA per term and their tiles are compile-time
+constants.  Results go to stdout and to ``_build/roofline.json`` beside the
+kernel library.  A CPU tensor takes the plain versions (``x.clone()`` and a
+reshape-sum); the probes need a CUDA card and refuse to run without one.
+"""
+
+from __future__ import annotations
+
+import json
+
+import torch
+
+from . import _build
+
+N_ROWS, N_COLS = 512 * 512, 512     # fp32, 512 MiB
+OCTET = 8                           # K12's output rows
+MAX_SLICES = 256                    # K12's partial-sum slices
+GROUP0 = dict(gm=80, J=2562, ig=1280, fc2=32)   # TCO1279 group 0
+
+
+def _check_stream(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous tensor")
+
+
+def stream_copy_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K11."""
+    return x.clone()
+
+
+def stream_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x (K11; replaces ``tools/roofline.py`` ``pallas_copy``):
+    fp32, contiguous, a multiple of 4 values."""
+    if _build.on_cpu(x):
+        return stream_copy_plain(x)
+    _check_stream("stream_copy", x)
+    if x.numel() % 4:
+        raise ValueError(f"stream_copy takes a multiple of 4 values, got "
+                         f"{x.numel()}")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _build.launch("ect_copy", torch.float32, x.data_ptr(), out.data_ptr(),
+                      x.numel())
+    stream_copy.launches += 1
+    return out
+
+
+stream_copy.launches = 0
+
+
+def read_reduce_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12."""
+    return x.reshape(-1, OCTET, x.shape[-1]).sum(0)
+
+
+def read_reduce(x: torch.Tensor) -> torch.Tensor:
+    """(rows, cols) -> (8, cols), out[r, c] = sum_{i = r mod 8} x[i, c]
+    (K12; replaces ``tools/roofline.py`` ``pallas_reduce``): fp32,
+    contiguous, rows a multiple of 8 and cols of 4.  Deterministic: per-slice
+    partial sums, added in a fixed order by a second pass."""
+    if _build.on_cpu(x):
+        return read_reduce_plain(x)
+    _check_stream("read_reduce", x)
+    if x.ndim != 2 or x.shape[0] % OCTET or x.shape[1] % 4 or not x.numel():
+        raise ValueError("read_reduce takes a non-empty (rows, cols) tensor "
+                         f"with rows % 8 == 0 and cols % 4 == 0, got "
+                         f"{tuple(x.shape)}")
+    rows, cols = x.shape
+    slices = min(MAX_SLICES, rows // OCTET)
+    partial = torch.empty((slices, OCTET, cols), dtype=x.dtype,
+                          device=x.device)
+    out = torch.empty((OCTET, cols), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.launch("ect_reduce8", torch.float32, x.data_ptr(),
+                      partial.data_ptr(), out.data_ptr(), rows, cols, slices)
+    read_reduce.launches += 1
+    return out
+
+
+read_reduce.launches = 0
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device time of fn() in ms over reps calls, after one warm-up
+    (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def run(device: torch.device) -> dict:
+    """All probes on ``device``; prints one line per probe and returns the
+    results (also written to ``_build/roofline.json``)."""
+    from .ops import legendre_dense as ld
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the roofline probes measure a CUDA card; there "
+                           "is none")
+    results = {"device": torch.cuda.get_device_name(device)}
+
+    def emit(key, value):
+        results[key] = value
+        print(f"{key}: {value}", flush=True)
+
+    # the JAX probe's data: column index * 1e-3, made on the card
+    x = (torch.arange(N_COLS, device=device, dtype=torch.float32) * 1e-3) \
+        .expand(N_ROWS, N_COLS).contiguous()
+    gb = x.numel() * 4 / 1e9
+    emit("torch_addone_gbps_rw", 2 * gb / device_ms(lambda: x + 1) * 1e3)
+    emit("k11_copy_gbps_rw", 2 * gb / device_ms(lambda: stream_copy(x)) * 1e3)
+    emit("k12_reduce_read_gbps",
+         gb / device_ms(lambda: read_reduce(x)) * 1e3)
+    del x
+
+    gm, J, ig, fc2 = (GROUP0[k] for k in ("gm", "J", "ig", "fc2"))
+    gen = torch.Generator(device=device).manual_seed(0)
+    pn = torch.randn(gm, J, ig, generator=gen, device=device)
+    dg = torch.randn(gm, fc2, J, generator=gen, device=device)
+    d4 = torch.cat([dg, dg * ld._jsgn(J, dg)], dim=1)
+    fn = torch.randn(gm, fc2, ig, generator=gen, device=device)
+    fs = fn * 0.5
+    f4 = torch.cat([fn, fs], dim=1)
+    for tag, table in (("f32", pn), ("bf16", pn.to(torch.bfloat16))):
+        tab_gb = table.numel() * table.element_size() / 1e9
+        for kern, fn_ in (("k1", lambda: ld.group_inv_dense(dg, table)),
+                          ("k7", lambda: ld.group_inv_dense2(d4, table))):
+            t = device_ms(fn_, reps=5)
+            emit(f"{kern}_inv_{tag}_tables", {
+                "ms": t, "table_gbps": tab_gb / t * 1e3})
+        north, south = ld.group_inv_dense(dg, table)
+        o = ld.group_inv_dense2(d4, table)
+        emit(f"k7_vs_k1_maxdiff_rel_{tag}",
+             max(_rel(o[:, :fc2], north), _rel(o[:, fc2:], south)))
+        del north, south, o
+        t2 = device_ms(lambda: ld.group_dir_dense(fn, fs, table), reps=5)
+        t8 = device_ms(lambda: ld.group_dir_dense2(f4, table), reps=5)
+        raw = ld.group_dir_dense2(f4, table)
+        emit(f"k2_vs_k8_dir_{tag}_tables", {
+            "k2_ms": t2, "k8_ms": t8,
+            "maxdiff_rel": _rel(raw[:, :fc2] + raw[:, fc2:] * ld._jsgn(J, raw),
+                                ld.group_dir_dense(fn, fs, table))})
+        del raw
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    (_build.BUILD_DIR / "roofline.json").write_text(
+        json.dumps(results, indent=1))
+    return results
+
+
+def main() -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run(torch.device("cuda", torch.cuda.current_device()))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

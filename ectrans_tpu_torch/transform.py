@@ -16,17 +16,25 @@ Direct (grid -> spectral):
 The Legendre engine (``ops.legendre_matmul``; the private ``_engine``
 keyword, else ``ECTRANS_TPU_LEG_KERNEL``, else "dense"):
 
-* "dense": dense-row kernels K1/K2 on ``Resolution.full_legendre``; the
-  direct transform runs UVTVD per group on the kernel's m-major rows and
-  packs them with K3, never forming the (nfld, 2, M, NP) dense tensor;
+* "dense": dense-row kernels K1/K2 on ``Resolution.full_legendre`` (K7/K8
+  with ``ECTRANS_TPU_LEG_DENSE_PACK``); the direct transform runs UVTVD per
+  group on the kernel's m-major rows and packs them with K3, never forming
+  the (nfld, 2, M, NP) dense tensor;
 * "planes": bf16 limb-plane kernels K9/K10 on ``planes_legendre``, the same
-  m-major direct path; the only engine with the tiers "high" and "bf16";
-  fp64 transforms resolve to "xla";
+  m-major direct path; fp64 transforms resolve to "xla";
 * "pallas" and "xla": parity split (``layout.dense_to_parity``) and the
   grouped kernels K5/K6 or per-group einsums on ``grouped_legendre``; the
   direct transform goes back to the dense layout (``parity_to_dense``),
   runs the dense UVTVD and packs with K3 ("pallas") or the index gather
   ("xla").
+
+With ``ECTRANS_TPU_PACK_KERNEL=xla`` every engine's direct transform takes
+the dense-layout path and the index gather (the JAX package's path on the
+CPU): "dense" through ``legendre_dense.legendre_dir_dense``, "planes"
+through ``legendre_matmul.dir_planes``.  Every engine serves the tiers
+"highest", "high" (the same arithmetic) and "bf16" (bf16 tables,
+``_table_dtype``); see ``ops.legendre_matmul``.  The environment is read
+once per call, here, and passed down.
 
 The tables of every engine derive from the full-n tables (kernel K4 on a
 GPU).  Field order of the inverse output (``inv_trans.F90:58-106``): vor?,
@@ -82,17 +90,23 @@ def _resolve_engine(eng: str | None, dtype: torch.dtype) -> str:
     return eng
 
 
-def _check_options(precision: str, npromatr, eng: str) -> None:
-    if precision not in legendre_matmul.TIERS[eng]:
-        raise NotImplementedError(
-            f"precision {precision!r} on the {eng!r} Legendre engine: only "
-            f"{legendre_matmul.TIERS[eng]} are ported (the 'high' and 'bf16' "
-            "tiers of the other engines are queued in ROADMAP.md, queue A "
-            "item 3)")
+def _check_options(precision: str, npromatr) -> None:
+    if precision not in legendre_matmul.TIERS:
+        raise ValueError(f"unknown precision tier {precision!r}; expected "
+                         f"one of {legendre_matmul.TIERS}")
     if npromatr:
         raise NotImplementedError(
             "npromatr field packets are not ported (ROADMAP.md, queue A "
             "item 2: transform.py and field_layout.py)")
+
+
+def _table_dtype(dtype: torch.dtype, precision: str) -> torch.dtype:
+    """Legendre table dtype of a tier: bfloat16 for "bf16" in fp32 (half
+    the table bytes; the operands are rounded to bf16 anyway), else the
+    working dtype (``ectrans_tpu`` ``transform._table_dtype``)."""
+    if precision == "bf16" and dtype == torch.float32:
+        return torch.bfloat16
+    return dtype
 
 
 def _leg_tables(res: Resolution, eng: str, dtype: torch.dtype,
@@ -102,8 +116,8 @@ def _leg_tables(res: Resolution, eng: str, dtype: torch.dtype,
     if eng == "planes":
         return res.planes_legendre(planes_for_tier(precision), device)
     if eng == "dense":
-        return res.full_legendre(dtype, device)
-    return res.grouped_legendre(dtype, device)
+        return res.full_legendre(_table_dtype(dtype, precision), device)
+    return res.grouped_legendre(_table_dtype(dtype, precision), device)
 
 
 def _device_of(*arrays) -> torch.device:
@@ -160,7 +174,8 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
         _check_spec(nm, arr, res)
     dtype = check_dtype(dtype)
     eng = _resolve_engine(_engine, dtype)
-    _check_options(precision, npromatr, eng)
+    pack2 = legendre_matmul.dense_pack()
+    _check_options(precision, npromatr)
     device = _device_of(spvor, spdiv, spscalar)
     tables = res.device_tables(dtype, device)
     gl = _leg_tables(res, eng, dtype, precision, device)
@@ -186,7 +201,7 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
             lt_inputs.append(spectral.ns_derivative(dsc, tables.nsd))
     dense_all = torch.cat(lt_inputs)
     if eng == "dense":
-        four_all = legendre_dense.legendre_inv_dense(dense_all, gl)
+        four_all = legendre_dense.legendre_inv_dense(dense_all, gl, pack2)
     elif eng == "planes":
         four_all = legendre_matmul.inv_planes(dense_all, gl, precision)
     else:
@@ -237,7 +252,9 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
         _check_grid_arg(nm, arr, res)
     dtype = check_dtype(dtype)
     eng = _resolve_engine(_engine, dtype)
-    _check_options(precision, npromatr, eng)
+    pack2 = legendre_matmul.dense_pack()
+    packing = pack.pack_kernel()
+    _check_options(precision, npromatr)
     device = _device_of(u, v, scalars)
     tables = res.device_tables(dtype, device)
     gl = _leg_tables(res, eng, dtype, precision, device)
@@ -250,11 +267,12 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
         # this function's own tensor, so it is scaled in place
         four[: 2 * nfld_uv] *= tables.racthe
     w = tables.w[: res.ndgnh]
-    if eng in ("dense", "planes"):
+    if eng in ("dense", "planes") and packing == "kernel":
         packed = _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng,
-                                  precision)
+                                  precision, pack2)
     else:
-        packed = _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng)
+        packed = _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng,
+                                   precision, pack2, packing)
     nsc = four.shape[0] - 2 * nfld_uv
     spvor = packed[:nfld_uv] if nfld_uv else None
     spdiv = packed[nfld_uv: 2 * nfld_uv] if nfld_uv else None
@@ -262,11 +280,12 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
     return spvor, spdiv, spsc
 
 
-def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision):
+def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
+                     pack2):
     """"dense"/"planes" direct LT in the kernels' m-major rows -> per-group
     UVTVD -> K3.  Returns packed [vor, div, scalars] (nfld, nspec2)."""
     if eng == "dense":
-        rows_list = legendre_dense.legendre_dir_rows(four, gl, w)
+        rows_list = legendre_dense.legendre_dir_rows(four, gl, w, pack2)
     else:
         rows_list = legendre_matmul.dir_rows_planes(four, gl, w, precision)
     nfld = four.shape[0]
@@ -284,16 +303,22 @@ def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision):
     return pack.packed_from_group_rows(rows_list, res)
 
 
-def _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng):
-    """"xla"/"pallas" grouped direct LT -> dense layout -> dense UVTVD ->
-    K3 ("pallas") or the index gather ("xla")."""
-    sym, asym = legendre_matmul.dir_grouped(four, gl, w, eng)
-    dense = layout.parity_to_dense(sym, asym, res.NP)
+def _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
+                      pack2, packing):
+    """Direct LT to the dense layout -> dense UVTVD -> K3 ("pallas") or the
+    index gather ("xla", and every engine when ``packing`` is "xla")."""
+    if eng == "dense":
+        dense = legendre_dense.legendre_dir_dense(four, gl, w, res.NP, pack2)
+    elif eng == "planes":
+        dense = legendre_matmul.dir_planes(four, gl, w, res.NP, precision)
+    else:
+        sym, asym = legendre_matmul.dir_grouped(four, gl, w, eng)
+        dense = layout.parity_to_dense(sym, asym, res.NP)
     if nfld_uv:
         dvor, ddiv = spectral.uv_to_vordiv(dense[:nfld_uv],
                                            dense[nfld_uv: 2 * nfld_uv],
                                            tables.uvtvd)
         dense = torch.cat([dvor, ddiv, dense[2 * nfld_uv:]])
-    if eng == "pallas":
-        return pack.dense_to_packed(dense, res)
-    return layout.dense_to_packed(dense, res)
+    if eng == "xla" or packing == "xla":
+        return layout.dense_to_packed(dense, res)
+    return pack.dense_to_packed(dense, res)

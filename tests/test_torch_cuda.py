@@ -1,14 +1,17 @@
 """ectrans_tpu_torch's CUDA kernels against their plain PyTorch versions on
-the card (K1-K6, K9, K10 and the whole slice through every Legendre
-engine), marked ``cuda``: they skip without a CUDA card.  This file imports
-neither jax nor ectrans_tpu, so it also runs where those are not installed:
+the card (K1-K12, the bf16-table variants, and the whole slice through every
+Legendre engine, tier and knob), marked ``cuda``: they skip without a CUDA
+card.  This file imports neither jax nor ectrans_tpu, so it also runs where
+those are not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
-Tolerances: K1/K2/K5/K6 5e-6 (fp32) / 1e-12 (fp64) relative to the
-output's max, K9/K10 5e-6 (fp32 sums of exact bf16 products); K4 1e-7 of
-the table scale; K3 bit-exact; the slice as in test_torch_transform.py
-(fp64 1e-10 relative, fp32 2e-5 + 1e-5 relative).
+Tolerances: K1/K2/K5/K6/K7/K8 5e-6 (fp32, and on bf16 tables, whose
+products of rounded operands are exact in fp32) / 1e-12 (fp64) relative to
+the output's max, K9/K10 5e-6 (fp32 sums of exact bf16 products); K4 1e-7
+of the table scale; K3 and K11 bit-exact; K12 1e-6 relative; the slice as
+in test_torch_transform.py (fp64 1e-10 relative, fp32 2e-5 + 1e-5
+relative).
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 import ectrans_tpu_torch as ett
+from ectrans_tpu_torch import roofline
 from ectrans_tpu_torch.ops import legendre_dense as ld
 from ectrans_tpu_torch.ops import legendre_grouped as lg
 from ectrans_tpu_torch.ops import legendre_planes as lp
@@ -25,7 +29,10 @@ from ectrans_tpu_torch.ops import pack
 pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float32, torch.float64]
-LT_TOL = {torch.float32: 5e-6, torch.float64: 1e-12}
+LT_TOL = {torch.float32: 5e-6, torch.float64: 1e-12, torch.bfloat16: 5e-6}
+# (working dtype, table dtype) of every Legendre kernel variant
+VARIANTS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
+            (torch.float32, torch.bfloat16)]
 SLICE_TOL = {torch.float64: (0.0, 1e-10), torch.float32: (2e-5, 1e-5)}
 
 
@@ -69,29 +76,52 @@ def test_tablegen_kernel_matches_plain(dev, dtype):
             1.0, want.abs().max().item())
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_legendre_kernels_match_plain(dev, dtype):
+@pytest.mark.parametrize("dtype,tdt", VARIANTS)
+def test_legendre_kernels_match_plain(dev, dtype, tdt):
+    """K1, K2 and the hemisphere-packed K7, K8 (on the rows the dense engine
+    stacks) per table variant."""
     res = ett.setup("O160", 159)
-    fl = res.full_legendre(dtype, dev)
+    fl = res.full_legendre(tdt, dev)
     g = torch.Generator(device=dev).manual_seed(0)
     for grp in fl.groups:
         gm, J, ig = grp.pn.shape
         d2 = torch.randn(gm, 40, J, generator=g, device=dev, dtype=dtype)
         for a, b in zip(ld.group_inv_dense(d2, grp.pn),
                         ld.group_inv_dense_plain(d2, grp.pn)):
-            assert (a - b).abs().max() <= LT_TOL[dtype] * b.abs().max()
+            assert a.dtype == dtype and rel_err(a, b) <= LT_TOL[tdt]
+        d4 = torch.cat([d2, d2 * ld._jsgn(J, d2)], dim=1)
+        assert rel_err(ld.group_inv_dense2(d4, grp.pn),
+                       ld.group_inv_dense2_plain(d4, grp.pn)) <= LT_TOL[tdt]
         fn, fs = (torch.randn(gm, 12, ig, generator=g, device=dev,
                               dtype=dtype) for _ in range(2))
         a = ld.group_dir_dense(fn, fs, grp.pn)
         b = ld.group_dir_dense_plain(fn, fs, grp.pn)
-        assert (a - b).abs().max() <= LT_TOL[dtype] * b.abs().max()
+        assert a.dtype == dtype and rel_err(a, b) <= LT_TOL[tdt]
+        f4 = torch.cat([fn, fs], dim=1)
+        assert rel_err(ld.group_dir_dense2(f4, grp.pn),
+                       ld.group_dir_dense2_plain(f4, grp.pn)) <= LT_TOL[tdt]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_grouped_kernels_match_plain(dev, dtype):
+def test_packed_kernels_keep_k1_sums(dev):
+    """K7 on [d2 ; d2 sgn] is K1 bit for bit (the same even/odd sums)."""
+    res = ett.setup("O160", 159)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for tdt in (torch.float32, torch.bfloat16):
+        for grp in res.full_legendre(tdt, dev).groups:
+            gm, J, _ = grp.pn.shape
+            d2 = torch.randn(gm, 32, J, generator=g, device=dev)
+            north, south = ld.group_inv_dense(d2, grp.pn)
+            o = ld.group_inv_dense2(torch.cat([d2, d2 * ld._jsgn(J, d2)],
+                                              dim=1), grp.pn)
+            assert torch.equal(o[:, :32], north)
+            assert torch.equal(o[:, 32:], south)
+
+
+@pytest.mark.parametrize("dtype,tdt", VARIANTS)
+def test_grouped_kernels_match_plain(dev, dtype, tdt):
     """K5 and K6 on the parity tables derived on the card."""
     res = ett.setup("O160", 159)
-    gl = res.grouped_legendre(dtype, dev)
+    gl = res.grouped_legendre(tdt, dev)
     g = torch.Generator(device=dev).manual_seed(2)
     for grp in gl.groups:
         gm, ig, kg = grp.psym.shape
@@ -99,12 +129,26 @@ def test_grouped_kernels_match_plain(dev, dtype):
                 for _ in range(2))
         for x, y in zip(lg.group_inv(s, a, grp.psym, grp.pasym),
                         lg.group_inv_plain(s, a, grp.psym, grp.pasym)):
-            assert rel_err(x, y) <= LT_TOL[dtype]
+            assert rel_err(x, y) <= LT_TOL[tdt]
         fs, fa = (torch.randn(gm, 20, ig, generator=g, device=dev,
                               dtype=dtype) for _ in range(2))
         for x, y in zip(lg.group_dir(fs, fa, grp.psym, grp.pasym),
                         lg.group_dir_plain(fs, fa, grp.psym, grp.pasym)):
-            assert rel_err(x, y) <= LT_TOL[dtype]
+            assert rel_err(x, y) <= LT_TOL[tdt]
+
+
+def test_roofline_kernels_match_plain(dev):
+    """K11 bit-exact and K12 at 1e-6 relative, at an uneven size and at
+    the probe's 512 MiB shape."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    for shape in ((1000, 12), (roofline.N_ROWS, roofline.N_COLS)):
+        x = torch.randn(*shape, generator=g, device=dev)
+        assert torch.equal(roofline.stream_copy(x),
+                           roofline.stream_copy_plain(x))
+        got = roofline.read_reduce(x)
+        assert got.shape == (8, shape[1])
+        assert rel_err(got, roofline.read_reduce_plain(x)) <= 1e-6
+        assert torch.equal(got, roofline.read_reduce(x))   # deterministic
 
 
 @pytest.mark.parametrize("nplanes", [3, 1])
@@ -145,14 +189,40 @@ def test_engines_on_card_match_cpu(dev, engine, dtype):
         assert err <= atol + rtol * b.abs().max().item()
 
 
-@pytest.mark.parametrize("engine,kernels", [
-    ("pallas", ("group_inv", "group_dir", "pack")),
-    ("planes", ("group_inv_planes", "group_dir_planes", "pack"))])
-def test_engine_round_trip_launches_its_kernels(dev, engine, kernels):
+@pytest.mark.parametrize("engine", ["dense", "xla", "pallas"])
+def test_bf16_tier_on_card_matches_cpu(dev, engine):
+    """The "bf16" tier on the card vs the same engine and tier on the CPU
+    (the same rounded operands): 2e-5 + 1e-3 of each output's max (an fp32
+    Fourier coefficient that differs in its last bit can round to the
+    neighbouring bf16 value, 2^-8 of itself)."""
+    res = ett.setup("O48", 47)
+    sp = [packed(res, n, seed) for n, seed in ((2, 0), (2, 1), (6, 2))]
+    g0, out0 = round_trip(res, sp, torch.float32, "cpu", engine, "bf16")
+    g1, out1 = round_trip(res, sp, torch.float32, dev, engine, "bf16")
+    for a, b in [(g1, g0)] + list(zip(out1, out0)):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 2e-5 + 1e-3 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("engine,env,kernels", [
+    ("pallas", {}, ("group_inv", "group_dir", "pack")),
+    ("planes", {}, ("group_inv_planes", "group_dir_planes", "pack")),
+    ("dense", {"ECTRANS_TPU_LEG_DENSE_PACK": "1"},
+     ("group_inv_dense2", "group_dir_dense2", "pack")),
+    ("dense", {"ECTRANS_TPU_PACK_KERNEL": "xla"},
+     ("group_inv_dense", "group_dir_dense"))])
+def test_engine_round_trip_launches_its_kernels(dev, monkeypatch, engine,
+                                                env, kernels):
     counters = {"group_inv": lg.group_inv, "group_dir": lg.group_dir,
                 "group_inv_planes": lp.group_inv_planes,
                 "group_dir_planes": lp.group_dir_planes,
+                "group_inv_dense": ld.group_inv_dense,
+                "group_dir_dense": ld.group_dir_dense,
+                "group_inv_dense2": ld.group_inv_dense2,
+                "group_dir_dense2": ld.group_dir_dense2,
                 "pack": pack.packed_from_group_rows}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     for c in counters.values():
         c.launches = 0
     res = ett.setup("O48", 47)
@@ -211,6 +281,13 @@ def test_wrappers_reject_bad_operands(dev):
                            torch.zeros(2, 4, 4, device=dev), pn)
     with pytest.raises(ValueError, match="device"):
         ld.group_inv_dense(torch.zeros(2, 4, 6, device=dev), pn.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        ld.group_inv_dense(torch.zeros(2, 4, 6, device=dev).double(),
+                           pn.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        roofline.stream_copy(torch.zeros(6, device=dev))
+    with pytest.raises(ValueError, match="rows % 8"):
+        roofline.read_reduce(torch.zeros(12, 8, device=dev))
     planes = (torch.zeros(2, 5, 6, device=dev, dtype=torch.bfloat16),)
     with pytest.raises(TypeError, match="dtype"):
         lp.group_inv_planes(torch.zeros(2, 8, 6, device=dev), planes, 1, 4)

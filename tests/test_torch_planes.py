@@ -137,10 +137,13 @@ def test_tiers_per_engine(pair, monkeypatch):
     _, res = pair
     monkeypatch.delenv("ECTRANS_TPU_LEG_KERNEL", raising=False)
     sc = torch.from_numpy(packed(res, 2, 9).astype(np.float32))
+    # every engine serves the three tiers (tests/test_torch_tiers.py holds
+    # the other engines' against the JAX package); "planes" takes 1 plane
+    # at "bf16", as "dense" computes it on its bf16 tables
     for eng in ("dense", "xla", "pallas"):
-        for tier in ("high", "bf16"):
-            with pytest.raises(NotImplementedError, match="queue A item 3"):
-                ett.inv_trans(res, spscalar=sc, precision=tier, _engine=eng)
+        torch.testing.assert_close(
+            ett.inv_trans(res, spscalar=sc, precision="high", _engine=eng),
+            ett.inv_trans(res, spscalar=sc, _engine=eng), rtol=0, atol=0)
     highest = ett.inv_trans(res, spscalar=sc, _engine="planes")
     torch.testing.assert_close(
         ett.inv_trans(res, spscalar=sc, precision="high", _engine="planes"),
@@ -148,6 +151,9 @@ def test_tiers_per_engine(pair, monkeypatch):
     bf16 = ett.inv_trans(res, spscalar=sc, precision="bf16", _engine="planes")
     err = (bf16 - highest).abs().max() / highest.abs().max()
     assert 1e-5 < err < 1e6 * torch.finfo(torch.float32).eps
+    torch.testing.assert_close(
+        ett.inv_trans(res, spscalar=sc, precision="bf16", _engine="dense"),
+        bf16, rtol=1e-5, atol=1e-5 * bf16.abs().max().item())
     # fp64 on "planes" is the "xla" engine
     assert transform._resolve_engine("planes", torch.float64) == "xla"
     sc64 = sc.double()

@@ -166,17 +166,22 @@ def test_spectral_operators_match_jax(pair):
 
 
 def test_options_not_ported_raise():
+    """npromatr packets are not ported and bf16 is no working dtype; the
+    tiers "high" and "bf16" run on the default "dense" engine."""
     res = ett.setup("T47")
     sc = torch.from_numpy(packed(res, 1, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ett.inv_trans(res, spscalar=sc, precision="high")
     with pytest.raises(NotImplementedError, match="npromatr"):
         ett.inv_trans(res, spscalar=sc, npromatr=1)
-    g = ett.inv_trans(res, spscalar=sc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ett.dir_trans(res, scalars=g, precision="bf16")
     with pytest.raises(TypeError):
         ett.inv_trans(res, spscalar=sc, dtype=torch.bfloat16)
+    g = ett.inv_trans(res, spscalar=sc)
+    for tier in ("high", "bf16"):
+        gt = ett.inv_trans(res, spscalar=sc, precision=tier, _engine="dense")
+        assert gt.shape == g.shape and gt.dtype == torch.float32
+        assert torch.isfinite(gt).all()
+        _, _, st = ett.dir_trans(res, scalars=gt, precision=tier,
+                                 _engine="dense")
+        assert st.shape == sc.shape and torch.isfinite(st).all()
 
 
 def test_argument_checks():
