@@ -17,7 +17,13 @@ Phases, each printing a line:
    K7 and K8 (on the "bf16" tier's tables made on the card), with fields as
    in the round trip, K3 (packing, bit-exact), and at the roofline probe's
    512 MiB shape K11 (copy, bit-exact) and K12 (read-reduce); kernel and
-   plain times with CUDA events;
+   plain times with CUDA events, each kernel's bound (the larger of its
+   bytes over 3.35 TB/s and its operations over the data sheet's peak) and,
+   for K7, K8 (fp32), K11 and K12, the one PyTorch call that computes the
+   same function (torch.bmm, clone, sum), timed in turns with the kernel.
+   K7 gets a line of its own: its time against torch.bmm's, the share of
+   its 1.77 ms bound, its blocks per launch and waves, and its registers,
+   shared memory and spills from ``build.log`` (a spill fails the run);
 3. the whole inv_trans + dir_trans at T159 (O160 grid) on the card through
    every Legendre engine ("dense", "xla", "pallas", "planes"), in fp32 and
    fp64, against the same engine's plain path on the CPU in fp64;
@@ -28,7 +34,8 @@ Phases, each printing a line:
    of every kernel of that path (K1-K4) must be above 0;
 5. the same round trip on phase 4's inputs (so the cuFFT plans are reused)
    through "pallas" and "planes" at "highest", "dense" with
-   ECTRANS_TPU_LEG_DENSE_PACK=1 (K7, K8, K3 launched and K1, K2 not) and
+   ECTRANS_TPU_LEG_DENSE_PACK=1 (K7 once per m-group, K8, K3 launched and
+   K1, K2 not) and
    "dense" with ECTRANS_TPU_PACK_KERNEL=xla (K1, K2 and not K3), all with
    the 100*eps gate on every family; then "planes", "dense" and "pallas"
    at "bf16" (the 1e6*eps gate on the scalars, the vor/div ratio printed).
@@ -37,8 +44,9 @@ Phases, each printing a line:
    and the "dense" fp32 tables before the "bf16" rows of "dense" and
    "pallas", so that their peaks show their own tables;
 6. the roofline probes of ``ectrans_tpu_torch.roofline`` (torch's ``x + 1``,
-   K11 and K12 streaming rates, K1 against K7 and K2 against K8 at one
-   TCO1279 group); K11 and K12 must have been launched.
+   K11 and K12 streaming rates, K1 against K7 and K2 against K8 at the JAX
+   roofline tool's dense shape, J 2562: twice TCO1279 group 0's J of
+   1282); K11 and K12 must have been launched.
 
 Then one JSON line with the kernels, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
@@ -80,7 +88,7 @@ KERNELS = {
                source="ectrans_tpu_torch/csrc/legendre_grouped.cu",
                replaces="ectrans_tpu/ops/legendre_pallas.py:179"),
     "K7": dict(name="group_inv_dense2", route="cuda",
-               source="ectrans_tpu_torch/csrc/legendre_dense.cu",
+               source="ectrans_tpu_torch/csrc/legendre_dense2.cu",
                replaces="ectrans_tpu/ops/legendre_pallas.py:335"),
     "K8": dict(name="group_dir_dense2", route="cuda",
                source="ectrans_tpu_torch/csrc/legendre_dense.cu",
@@ -99,6 +107,9 @@ KERNELS = {
                 replaces="tools/roofline.py:107"),
 }
 NFLD_UV, NFLD_SC = 2, 6          # bench.py's field counts
+# the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): device memory,
+# fp32 FMA outside the tensor cores, and fp64 outside them (K4's recurrence)
+HBM_BPS, FP32_FLOPS, FP64_FLOPS = 3.35e12, 67e12, 34e12
 FC2_INV, FC2_DIR = 32, 20        # kernel rows: 2 x (16 inverse, 10 direct)
 ENGINES = ("dense", "xla", "pallas", "planes")
 
@@ -172,13 +183,39 @@ def phase_build() -> None:
     print(smi.splitlines()[0])
 
 
-def hold(key: str, kern, plain, args_list, tol: float = 5e-6) -> dict:
+def tensor_bytes(*xs) -> int:
+    """Bytes of the tensors in xs (nested in tuples and lists)."""
+    n = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            n += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            n += tensor_bytes(*x)
+    return n
+
+
+def bound(flop: float, nbytes: float, rate: float = FP32_FLOPS) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flop / rate * 1e3
+    return dict(bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations")
+
+
+def hold(key: str, kern, plain, args_list, tol: float = 5e-6, flop=None,
+         library=None) -> dict:
     """A kernel against its plain version on each argument tuple (one per
     m-group): max abs error, the largest error relative to the plain
-    output's max (must be <= tol), and both times summed over the groups."""
-    err, rel, t_k, t_p = 0.0, 0.0, 0.0, 0.0
+    output's max (must be <= tol), and both times summed over the groups;
+    the bound from ``flop(*args)`` (fp32) and the bytes of the arguments and
+    the output; with ``library``, the time of that one PyTorch call on the
+    same arguments, taken in turns with the kernel's (kernel, library,
+    kernel, library; each kernel time is the mean of its two)."""
+    err, rel, t_k, t_p, t_l, nflop, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
     for args in args_list:
         got, want = kern(*args), plain(*args)
+        nbytes += tensor_bytes(args, got)
+        nflop += flop(*args) if flop else 0
         if isinstance(got, tuple):
             got, want = torch.cat(got), torch.cat(want)
         check(bool(torch.isfinite(got).all()), f"{key}: non-finite output")
@@ -186,11 +223,70 @@ def hold(key: str, kern, plain, args_list, tol: float = 5e-6) -> dict:
         err = max(err, d)
         rel = max(rel, d / want.abs().max().item())
         del got, want
-        t_k += cuda_ms(lambda: kern(*args))
+        if library is None:
+            t_k += cuda_ms(lambda: kern(*args))
+        else:
+            turns = [cuda_ms(lambda: f(*args))
+                     for f in (kern, library, kern, library)]
+            t_k += (turns[0] + turns[2]) / 2
+            t_l += (turns[1] + turns[3]) / 2
         t_p += cuda_ms(lambda: plain(*args))
     check(rel <= tol, f"{key} vs plain: {rel:.3e} > {tol:g} relative")
     return dict(max_abs_err=err, rel=rel, ms=t_k, plain_ms=t_p,
-                tol=f"{tol:g} rel")
+                library_ms=t_l if library else None, tol=f"{tol:g} rel",
+                **bound(nflop, nbytes))
+
+
+def ptxas_report(needle: str) -> dict:
+    """Registers and spill bytes of each kernel whose mangled name contains
+    ``needle``, from the compiler's report beside the kernel library."""
+    from ectrans_tpu_torch import _build
+
+    out, name = {}, None
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if needle in line else None
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out.setdefault(name, {}).update(stack=nums[0], spill_stores=nums[1],
+                                            spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            out.setdefault(name, {})["registers"] = int(
+                words[words.index("registers,") - 1])
+    return out
+
+
+def k7_report(groups, out: dict) -> None:
+    """Phase 2's K7 line: the kernel against torch.bmm from the same call,
+    its bound and the share of it, its launch shape and waves, and the
+    compiler's registers and spills; no spill is allowed."""
+    from ectrans_tpu_torch.ops import legendre_dense as ld
+
+    k = out["K7"]
+    shapes = [ld.group_inv_dense2_shape(g.m1 - g.m0, 2 * FC2_INV,
+                                        g.pn.shape[2]) for g in groups]
+    rep = ptxas_report("k717inv_dense2_kernel")
+    check(len(rep) == 2, f"K7: {len(rep)} kernels in build.log, expected 2")
+    for name, r in rep.items():
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"K7 {name} spills: {r}")
+    regs = {("bf16" if "bfloat16" in name else "fp32"): r["registers"]
+            for name, r in rep.items()}
+    print(f"phase 2 K7 (fp32, {len(groups)} groups, fc4 {2 * FC2_INV}): "
+          f"kernel {k['ms']:.3f} ms vs torch.bmm {k['library_ms']:.3f} ms, "
+          f"in turns ({k['ms'] / k['library_ms']:.2f}x); bound "
+          f"{k['bound_ms']:.3f} ms ({k['bound_by']}), "
+          f"{100 * k['bound_ms'] / k['ms']:.1f} % of it; blocks per launch "
+          f"{min(s['blocks'] for s in shapes)}-"
+          f"{max(s['blocks'] for s in shapes)} of {shapes[0]['threads']} "
+          f"threads, {shapes[0]['blocks_per_sm']} an SM x {shapes[0]['sms']} "
+          f"SMs: {min(s['waves'] for s in shapes):.2f}-"
+          f"{max(s['waves'] for s in shapes):.2f} waves; registers "
+          f"{regs['fp32']} (fp32) / {regs['bf16']} (bf16), "
+          f"{shapes[0]['smem_bytes']} B dynamic shared memory, no spills; err "
+          f"{k['rel']:.2e} relative (limit 5e-6)")
 
 
 def phase_kernels(dev: torch.device) -> dict:
@@ -224,7 +320,12 @@ def phase_kernels(dev: torch.device) -> dict:
         del got, want
     rel = err / max(1.0, scale)
     check(rel <= 1e-7, f"K4 vs plain: {rel:.3e} > 1e-7 (table scale)")
-    out["K4"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, tol="1e-7 rel")
+    # writes every table entry once, 3 fp64 operations each (the recurrence)
+    n_out = sum((m1 - m0) * J * (res.ndgnh - i0) for m0, m1, i0, J in groups)
+    out["K4"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, tol="1e-7 rel",
+                     library_ms=None,
+                     **bound(3 * n_out, 4 * n_out + tensor_bytes(
+                         list(inp.values())), FP64_FLOPS))
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -237,32 +338,44 @@ def phase_kernels(dev: torch.device) -> dict:
         fl = res.full_legendre(tdt, dev)
         out["K1" + tag] = hold(
             "K1" + tag, ld.group_inv_dense, ld.group_inv_dense_plain,
-            [(rnd(g.m1 - g.m0, FC2_INV, g.J), g.pn) for g in fl.groups])
+            [(rnd(g.m1 - g.m0, FC2_INV, g.J), g.pn) for g in fl.groups],
+            flop=lambda d2, pn: 2 * d2.numel() * pn.shape[2])
         out["K2" + tag] = hold(
             "K2" + tag, ld.group_dir_dense, ld.group_dir_dense_plain,
             [(rnd(g.m1 - g.m0, FC2_DIR, g.pn.shape[2]),
               rnd(g.m1 - g.m0, FC2_DIR, g.pn.shape[2]), g.pn)
-             for g in fl.groups])
+             for g in fl.groups],
+            flop=lambda fn, fs, pn: 2 * fn.numel() * pn.shape[1])
+        # the bf16-table variants have no one-call counterpart (torch.bmm
+        # takes one dtype)
+        bmm = torch.bmm if tdt == torch.float32 else None
         d2s = [rnd(g.m1 - g.m0, FC2_INV, g.J) for g in fl.groups]
         out["K7" + tag] = hold(
             "K7" + tag, ld.group_inv_dense2, ld.group_inv_dense2_plain,
             [(torch.cat([d2, d2 * ld._jsgn(g.J, d2)], dim=1), g.pn)
-             for d2, g in zip(d2s, fl.groups)])
+             for d2, g in zip(d2s, fl.groups)],
+            flop=lambda d4, pn: 2 * d4.numel() * pn.shape[2], library=bmm)
         del d2s
+        if tdt == torch.float32:
+            k7_report(fl.groups, out)
         out["K8" + tag] = hold(
             "K8" + tag, ld.group_dir_dense2, ld.group_dir_dense2_plain,
             [(rnd(g.m1 - g.m0, 2 * FC2_DIR, g.pn.shape[2]), g.pn)
-             for g in fl.groups])
+             for g in fl.groups],
+            flop=lambda f4, pn: 2 * f4.numel() * pn.shape[1],
+            library=bmm and (lambda f4, pn: torch.bmm(f4, pn.transpose(1, 2))))
         gl = res.grouped_legendre(tdt, dev)
         out["K5" + tag] = hold(
             "K5" + tag, lg.group_inv, lg.group_inv_plain,
             [(rnd(g.m1 - g.m0, FC2_INV, g.kg), rnd(g.m1 - g.m0, FC2_INV, g.kg),
-              g.psym, g.pasym) for g in gl.groups])
+              g.psym, g.pasym) for g in gl.groups],
+            flop=lambda s, a, ps, pa: 4 * s.numel() * ps.shape[1])
         out["K6" + tag] = hold(
             "K6" + tag, lg.group_dir, lg.group_dir_plain,
             [(rnd(g.m1 - g.m0, FC2_DIR, g.psym.shape[1]),
               rnd(g.m1 - g.m0, FC2_DIR, g.psym.shape[1]), g.psym, g.pasym)
-             for g in gl.groups])
+             for g in gl.groups],
+            flop=lambda fs, fa, ps, pa: 4 * fs.numel() * ps.shape[2])
         del gl
         res.drop_cached("grouped_legendre")
     del fl
@@ -277,14 +390,16 @@ def phase_kernels(dev: torch.device) -> dict:
             lambda a, pt: lpl.group_inv_planes_plain(a, pt, nplanes,
                                                      FC2_INV),
             [(lpl._pack_inv_rows(rnd(g.m1 - g.m0, FC2_INV, g.J), nplanes),
-              g.pt) for g in ppl.groups])
+              g.pt) for g in ppl.groups],
+            flop=lambda a, pt: (2 * FC2_INV + len(pt) - 1) * pt[0].numel())
         out["K10" + tag] = hold(
             "K10" + tag, lambda w, pt: lpl.group_dir_planes(w, pt, nplanes, FC2_DIR),
             lambda w, pt: lpl.group_dir_planes_plain(w, pt, nplanes,
                                                      FC2_DIR),
             [(lpl._pack_dir_rows(rnd(g.m1 - g.m0, FC2_DIR, g.pt[0].shape[1]),
                                  rnd(g.m1 - g.m0, FC2_DIR, g.pt[0].shape[1]),
-                                 nplanes), g.pt) for g in ppl.groups])
+                                 nplanes), g.pt) for g in ppl.groups],
+            flop=lambda w, pt: (2 * FC2_DIR + len(pt) - 1) * pt[0].numel())
         torch.cuda.synchronize()
         del ppl
         res.drop_cached("planes_legendre")
@@ -300,19 +415,25 @@ def phase_kernels(dev: torch.device) -> dict:
                      ms=cuda_ms(lambda: pack.packed_from_group_rows(rows, res)),
                      plain_ms=cuda_ms(
                          lambda: pack.packed_from_group_rows_plain(rows, res)),
-                     tol="bit-exact")
+                     tol="bit-exact", library_ms=None,
+                     **bound(0, tensor_bytes(rows, got)))
 
     # K11 (bit-exact) and K12 at the roofline probe's 512 MiB shape
     x = rnd(roofline.N_ROWS, roofline.N_COLS)
     got, want = roofline.stream_copy(x), roofline.stream_copy_plain(x)
     check(torch.equal(got, want), "K11 vs plain: not bit-exact")
+    t_k11 = [cuda_ms(f) for f in (lambda: roofline.stream_copy(x), x.clone,
+                                   lambda: roofline.stream_copy(x), x.clone)]
     out["K11"] = dict(max_abs_err=(got - want).abs().max().item(),
-                      ms=cuda_ms(lambda: roofline.stream_copy(x)),
+                      ms=(t_k11[0] + t_k11[2]) / 2,
                       plain_ms=cuda_ms(lambda: roofline.stream_copy_plain(x)),
-                      tol="bit-exact")
+                      library_ms=(t_k11[1] + t_k11[3]) / 2, tol="bit-exact",
+                      **bound(0, tensor_bytes(x, got)))
     del got, want
     out["K12"] = hold("K12", roofline.read_reduce, roofline.read_reduce_plain,
-                      [(x,)], tol=1e-6)
+                      [(x,)], tol=1e-6, flop=lambda x: x.numel(),
+                      library=lambda x: x.reshape(-1, roofline.OCTET,
+                                                  x.shape[-1]).sum(0))
     del x
     print("phase 2 kernels vs plain (TCO1279 shapes): " + "; ".join(
         f"{k} err {v['max_abs_err']:.3e} ({v['tol']}) {v['ms']:.3f} ms vs "
@@ -518,6 +639,10 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
             verdict = (f"scalars err {err:.4e} gate (1e6 eps) {gate:.4e}; "
                        f"vor/div at {ratios[0]:.3f} / {ratios[1]:.3f} of "
                        "their 1e6 eps gate")
+        if "ECTRANS_TPU_LEG_DENSE_PACK" in env:
+            ngroups = len(res.legendre_groups())
+            check(got["K7"] == ngroups, f"DENSE_PACK launched K7 {got['K7']} "
+                                        f"times, expected {ngroups}")
         for k in need:
             if k != "K3":
                 launches.setdefault(k, got[k])
@@ -567,8 +692,9 @@ def main() -> int:
     launches.update(phase_roofline(dev, counters))
     print(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k],
-             max_abs_err=kern[k]["max_abs_err"], ms=kern[k]["ms"],
-             plain_ms=kern[k]["plain_ms"])
+             **{f: kern[k][f] for f in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")})
         for k in sorted(KERNELS, key=lambda k: int(k[1:]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, under ``_build/`` next to this file,
-at first use; the library's name carries a hash of the sources and flags, so
-an edited source is rebuilt.  It is loaded with ctypes.  Every C entry
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one process
+per source, all started together, and linked into one shared library with a
+plain C interface, under ``_build/`` next to this file, at first use; the
+library's name carries a hash of the sources and flags, so an edited source
+is rebuilt.  It is loaded with ctypes.  Every C entry
 launches on the stream it is given and returns ``cudaGetLastError()``; the
 wrappers in ``ops/`` raise on a non-zero code.
 
@@ -27,7 +28,7 @@ _HERE = pathlib.Path(__file__).parent
 _SRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,12 +41,14 @@ _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64",
 _FLOAT = ("_f32", "_f64")          # an _f32 and an _f64 variant
 _TABLES = _FLOAT + ("_bf16",)      # and a bf16-table variant
 _SINGLE = ("",)                    # one variant, no suffix (bf16 in, fp32 out)
+_FP32_OPS = ("_f32", "_bf16")      # fp32 operands, fp32 or bf16 table
 # C entry points: name stem -> (argtypes, variant suffixes)
 _ENTRIES = {
     "ect_inv_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
     "ect_dir_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
     "ect_inv_dense2": ([_P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
     "ect_dir_dense2": ([_P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
+    "ect_inv_dense2_shape": ([_I, _I, _I, _P], _FP32_OPS),
     "ect_inv_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                         _TABLES),
     "ect_dir_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -98,12 +101,26 @@ def build() -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    cmds.append([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                 *map(str, objs)])
+    runs = [p.communicate() + (p.returncode,) for p in procs]
+    if all(rc == 0 for _, _, rc in runs):
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        runs.append((link.stdout, link.stderr, link.returncode))
+    (BUILD_DIR / "build.log").write_text("".join(
+        " ".join(c) + "\n" + o + e for c, (o, e, _) in zip(cmds, runs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(c, e, rc) for c, (_, e, rc) in zip(cmds, runs) if rc != 0]
+    if failed:
+        c, e, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{e}")
     os.replace(tmp, out)
     return out
 

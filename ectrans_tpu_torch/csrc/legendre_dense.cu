@@ -1,4 +1,5 @@
-// Dense-row Legendre transforms for Hopper (sm_90a): kernels K1, K2, K7, K8.
+// Dense-row Legendre transforms for Hopper (sm_90a): kernels K1, K2, K8,
+// and the fp64 variant of K7.
 //
 // K1 replaces ectrans_tpu/ops/legendre_pallas.py group_inv_dense
 // (_inv_dense_kernel); K2 replaces group_dir_dense (_dir_dense_kernel); K7
@@ -12,6 +13,9 @@
 //   K7: out = d4 . pn for caller-stacked rows d4 = [d2 ; d2 sgn] (2 fc2 rows);
 //   K8: out_j = sum_i f4_i P_ji for caller-stacked rows f4 = [fn ; fs], the
 //       raw dots (the caller combines out[:fc2] + out[fc2:] sgn).
+// K7's fp32 and bf16-table variants are their own kernel, register-tiled and
+// pipelined (legendre_dense2.cu); its fp64 variant, off the benchmark path,
+// is K1's template without the sign (STACKED), below.
 //
 // What bounds them: each table element is read once per transform and
 // feeds fc2 fused multiply-adds (fc2 = 2 * fields, 20-32 on the benchmark
@@ -23,10 +27,8 @@
 // by splitting each sum over even and odd j: north = E + O, south = E - O
 // (K1), and by pre-combining fn +- fs so each output column takes one sum
 // (K2).  The TPU stacked the hemispheres (K7, K8) to fill more rows of its
-// 128-row matrix unit; CUDA cores have no such occupancy to win, so K7 and
-// K8 are K1 and K2 without the sign (STACKED): K7 keeps K1's even/odd sums,
-// so its south rows (signs already applied by the caller) are K1's E - O
-// bit for bit.  Row chunks are the fastest grid axis, so the chunks of one
+// 128-row matrix unit; K8 (and fp64 K7) are K2 and K1 without the sign
+// (STACKED).  Row chunks are the fastest grid axis, so the chunks of one
 // table tile run together and the second reads it from L2.
 // Arithmetic is plain FMA in the working type (fp32 or fp64), no tensor
 // cores: fp32 FMA is the "highest" tier's accuracy contract, and "high" is
@@ -34,7 +36,8 @@
 // operand to bf16 (legendre_common.cuh).  Each staged chunk (16-32 terms) is
 // summed in registers and folded into a compensated total, so the rounding
 // error grows with the chunk length and not with J or ig.  Pipelining
-// (cp.async/TMA) and tensor-core variants are left for later work.
+// (cp.async/TMA) and tensor-core variants of K1, K2 and K8 are left for
+// later work.
 
 #include "legendre_common.cuh"
 
@@ -219,7 +222,7 @@ int launch_dir(const void* fn, const void* fs, const void* pn, void* out,
 }  // namespace
 
 // C entries per variant: _f32 and _f64 (the working type throughout) and
-// _bf16 (fp32 operands and outputs, bf16 table)
+// _bf16 (fp32 operands and outputs, bf16 table); K7 only _f64 here
 #define ECT_DENSE_ENTRIES(SUFFIX, T, P)                                       \
   int ect_inv_dense##SUFFIX(const void* d2, const void* pn, void* north,      \
                             void* south, int gm, int fc2, int J, int ig,      \
@@ -232,11 +235,6 @@ int launch_dir(const void* fn, const void* fs, const void* pn, void* out,
                             void* stream) {                                   \
     return launch_dir<T, P, false>(fn, fs, pn, out, gm, fc2, J, ig, stream);  \
   }                                                                           \
-  int ect_inv_dense2##SUFFIX(const void* d4, const void* pn, void* out,       \
-                             int gm, int fc4, int J, int ig, void* stream) {  \
-    return launch_inv<T, P, true>(d4, pn, out, nullptr, gm, fc4, J, ig,      \
-                                  stream);                                    \
-  }                                                                           \
   int ect_dir_dense2##SUFFIX(const void* f4, const void* pn, void* out,       \
                              int gm, int fc4, int J, int ig, void* stream) {  \
     return launch_dir<T, P, true>(f4, nullptr, pn, out, gm, fc4, J, ig,       \
@@ -247,4 +245,9 @@ extern "C" {
 ECT_DENSE_ENTRIES(_f32, float, float)
 ECT_DENSE_ENTRIES(_f64, double, double)
 ECT_DENSE_ENTRIES(_bf16, float, bf16)
+int ect_inv_dense2_f64(const void* d4, const void* pn, void* out, int gm,
+                       int fc4, int J, int ig, void* stream) {
+  return launch_inv<double, double, true>(d4, pn, out, nullptr, gm, fc4, J,
+                                          ig, stream);
+}
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Streaming-rate probes on one CUDA card, kernels K11 and K12.
 
 Counterpart of ``tools/roofline.py``: what a hand-written kernel reaches in
-device-memory bandwidth on this card, and the dense Legendre kernels at one
-TCO1279 group beside it, so that the kernels' table rates can be read
+device-memory bandwidth on this card, and the dense Legendre kernels at the
+JAX tool's dense shape beside it, so that the kernels' table rates can be read
 against a measured ceiling as well as the data sheet's.
 
     python -m ectrans_tpu_torch.roofline
@@ -14,8 +14,9 @@ Probes, one printed line each (cheapest first), all on fp32 x of shape
 2. K11 ``stream_copy``, out = x (``csrc/roofline.cu``): read + write GB/s;
 3. K12 ``read_reduce``, out[r, c] = sum over rows i = r (mod 8) of x[i, c],
    (8, 512): read GB/s (the Legendre kernels' table stream is a read);
-4. K1 against K7 at the TCO1279 group-0 shapes (gm 80, J 2562, ig 1280,
-   fc2 32) on fp32 and on bf16 tables: ms and table GB/s each;
+4. K1 against K7 at the JAX roofline tool's dense shape (gm 80, J 2562,
+   ig 1280, fc2 32: TCO1279 group 0's gm and ig, with J twice that group's
+   1282) on fp32 and on bf16 tables: ms and table GB/s each;
 5. the largest difference of K7 from K1, relative to K1's largest output;
 6. K2 against K8 at the same shapes (fc2 32): ms each, and their largest
    relative difference.
@@ -38,7 +39,9 @@ from . import _build
 N_ROWS, N_COLS = 512 * 512, 512     # fp32, 512 MiB
 OCTET = 8                           # K12's output rows
 MAX_SLICES = 256                    # K12's partial-sum slices
-GROUP0 = dict(gm=80, J=2562, ig=1280, fc2=32)   # TCO1279 group 0
+# the JAX roofline tool's dense shape (tools/roofline.py): TCO1279 group 0's
+# gm and ig, J 2562 (twice that group's J of 1282)
+GROUP0 = dict(gm=80, J=2562, ig=1280, fc2=32)
 
 
 def _check_stream(name: str, x: torch.Tensor) -> None:

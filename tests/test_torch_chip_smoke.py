@@ -1,0 +1,55 @@
+"""chip_smoke.py's bookkeeping, on the CPU: the bound it reports for each
+kernel (the larger of the bytes over the memory rate and the operations over
+their peak) and its reading of the compiler's register and spill report.
+The script itself runs only on a CUDA card."""
+
+import importlib.util
+import pathlib
+
+import pytest
+import torch
+
+from ectrans_tpu_torch import _build
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bound_takes_the_larger_time(smoke):
+    # K7 at TCO1279: 1.186e11 FLOP against 4.24 GB is compute-bound
+    b = smoke.bound(2 * 64 * 926_445_600, 4.24e9)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(1.7699, rel=1e-4)
+    b = smoke.bound(0, 2 * 2**29)          # K11's 512 MiB copy
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(2 * 2**29 / 3.35e12 * 1e3)
+    assert smoke.tensor_bytes(torch.zeros(3, 4), (torch.zeros(2,
+                              dtype=torch.bfloat16), [torch.zeros(1)])) \
+        == 48 + 4 + 4
+
+
+def test_ptxas_report_reads_registers_and_spills(smoke, tmp_path,
+                                                 monkeypatch):
+    (tmp_path / "build.log").write_text(
+        "ptxas info    : Compiling entry function '_ZN2k7kernAIfEEv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN2k7kernAIfEEv\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 4 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN5otherEv' for "
+        "'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 40 registers, 384 bytes cmem[0]\n")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert smoke.ptxas_report("k7kernA") == {"_ZN2k7kernAIfEEv": dict(
+        stack=8, spill_stores=12, spill_loads=4, registers=168)}

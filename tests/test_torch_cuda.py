@@ -76,23 +76,39 @@ def test_tablegen_kernel_matches_plain(dev, dtype):
             1.0, want.abs().max().item())
 
 
+def k7_edge_cases(dev, dtype, tdt, fc4, g):
+    """Synthetic K7 operands at the edges of its tiles: ig % 4 in {0, 1, 2,
+    3} (the table copy widths), J = 82 (not a multiple of the 32-degree
+    stage) and J = 81 (odd: 4-byte copies of the degree chunk), and a table
+    whose base is only 4-byte aligned."""
+    for J, ig in ((82, 200), (82, 201), (82, 202), (82, 203), (81, 203)):
+        yield (torch.randn(2, fc4, J, generator=g, device=dev, dtype=dtype),
+               torch.randn(2, J, ig, generator=g, device=dev,
+                           dtype=dtype).to(tdt))
+    buf = torch.randn(2 * 82 * 200 + 1, generator=g, device=dev, dtype=dtype)
+    yield (torch.randn(2, fc4, 82, generator=g, device=dev, dtype=dtype),
+           buf.to(tdt)[1:].view(2, 82, 200))
+
+
+@pytest.mark.parametrize("fc2", [20, 32, 40])
 @pytest.mark.parametrize("dtype,tdt", VARIANTS)
-def test_legendre_kernels_match_plain(dev, dtype, tdt):
+def test_legendre_kernels_match_plain(dev, dtype, tdt, fc2):
     """K1, K2 and the hemisphere-packed K7, K8 (on the rows the dense engine
-    stacks) per table variant."""
+    stacks, fc4 = 2 fc2 = 40, 64, 80) per table variant, on the O160 groups;
+    and K7 on synthetic groups at the edges of its tiles."""
     res = ett.setup("O160", 159)
     fl = res.full_legendre(tdt, dev)
     g = torch.Generator(device=dev).manual_seed(0)
     for grp in fl.groups:
         gm, J, ig = grp.pn.shape
-        d2 = torch.randn(gm, 40, J, generator=g, device=dev, dtype=dtype)
+        d2 = torch.randn(gm, fc2, J, generator=g, device=dev, dtype=dtype)
         for a, b in zip(ld.group_inv_dense(d2, grp.pn),
                         ld.group_inv_dense_plain(d2, grp.pn)):
             assert a.dtype == dtype and rel_err(a, b) <= LT_TOL[tdt]
         d4 = torch.cat([d2, d2 * ld._jsgn(J, d2)], dim=1)
         assert rel_err(ld.group_inv_dense2(d4, grp.pn),
                        ld.group_inv_dense2_plain(d4, grp.pn)) <= LT_TOL[tdt]
-        fn, fs = (torch.randn(gm, 12, ig, generator=g, device=dev,
+        fn, fs = (torch.randn(gm, fc2, ig, generator=g, device=dev,
                               dtype=dtype) for _ in range(2))
         a = ld.group_dir_dense(fn, fs, grp.pn)
         b = ld.group_dir_dense_plain(fn, fs, grp.pn)
@@ -100,21 +116,30 @@ def test_legendre_kernels_match_plain(dev, dtype, tdt):
         f4 = torch.cat([fn, fs], dim=1)
         assert rel_err(ld.group_dir_dense2(f4, grp.pn),
                        ld.group_dir_dense2_plain(f4, grp.pn)) <= LT_TOL[tdt]
+    for d4, pn in k7_edge_cases(dev, dtype, tdt, 2 * fc2, g):
+        got = ld.group_inv_dense2(d4, pn)
+        assert got.shape == (2, 2 * fc2, pn.shape[2])
+        assert rel_err(got, ld.group_inv_dense2_plain(d4, pn)) <= LT_TOL[tdt]
 
 
-def test_packed_kernels_keep_k1_sums(dev):
-    """K7 on [d2 ; d2 sgn] is K1 bit for bit (the same even/odd sums)."""
-    res = ett.setup("O160", 159)
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_k7_error_within_k1s(dev, tdt):
+    """K7 on [d2 ; d2 sgn] against an fp64 torch.bmm of the same (rounded)
+    operands: its largest error is at most 1.5x K1's on the same rows and
+    table, at TCO1279 group 2's widths (J 1122, ig 1203: unaligned rows)
+    with gm cut to 4, on a synthetic table."""
     g = torch.Generator(device=dev).manual_seed(4)
-    for tdt in (torch.float32, torch.bfloat16):
-        for grp in res.full_legendre(tdt, dev).groups:
-            gm, J, _ = grp.pn.shape
-            d2 = torch.randn(gm, 32, J, generator=g, device=dev)
-            north, south = ld.group_inv_dense(d2, grp.pn)
-            o = ld.group_inv_dense2(torch.cat([d2, d2 * ld._jsgn(J, d2)],
-                                              dim=1), grp.pn)
-            assert torch.equal(o[:, :32], north)
-            assert torch.equal(o[:, 32:], south)
+    gm, J, ig = 4, 1122, 1203
+    pn = torch.randn(gm, J, ig, generator=g, device=dev).to(tdt)
+    d2 = torch.randn(gm, 32, J, generator=g, device=dev)
+    d4 = torch.cat([d2, d2 * ld._jsgn(J, d2)], dim=1)
+    pf, d4r = ld.plain_operands(pn, d4)
+    want = torch.bmm(d4r.double(), pf.double())
+    k1 = torch.cat(ld.group_inv_dense(d2, pn), dim=1)
+    k7 = ld.group_inv_dense2(d4, pn)
+    e1 = (k1.double() - want).abs().max().item()
+    e7 = (k7.double() - want).abs().max().item()
+    assert 0 < e7 <= 1.5 * e1, (e7, e1)
 
 
 @pytest.mark.parametrize("dtype,tdt", VARIANTS)
