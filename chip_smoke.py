@@ -21,8 +21,9 @@ Phases, each printing a line:
    bytes over 3.35 TB/s and its operations over the data sheet's peak) and,
    for K7, K8 (fp32), K11 and K12, the one PyTorch call that computes the
    same function (torch.bmm, clone, sum), timed in turns with the kernel.
-   K7 gets a line of its own: its time against torch.bmm's, the share of
-   its 1.77 ms bound, its blocks per launch and waves, and its registers,
+   K7 and K8, the kernels redesigned for the card, get a line each: the
+   time against torch.bmm's, the share of the bound (K7 1.77 ms, K8
+   1.205 ms), the blocks per launch, threads and waves, and the registers,
    shared memory and spills from ``build.log`` (a spill fails the run);
 3. the whole inv_trans + dir_trans at T159 (O160 grid) on the card through
    every Legendre engine ("dense", "xla", "pallas", "planes"), in fp32 and
@@ -47,6 +48,10 @@ Phases, each printing a line:
    K11 and K12 streaming rates, K1 against K7 and K2 against K8 at the JAX
    roofline tool's dense shape, J 2562: twice TCO1279 group 0's J of
    1282); K11 and K12 must have been launched.
+
+Between phases 5 and 6, the DENSE_PACK A/B line: K7 + K8 against K1 + K2
+from phase 2 (the same call), and the two round trips' gate ratios, medians
+and launch counts from phases 4 and 5.
 
 Then one JSON line with the kernels, and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
@@ -91,7 +96,7 @@ KERNELS = {
                source="ectrans_tpu_torch/csrc/legendre_dense2.cu",
                replaces="ectrans_tpu/ops/legendre_pallas.py:335"),
     "K8": dict(name="group_dir_dense2", route="cuda",
-               source="ectrans_tpu_torch/csrc/legendre_dense.cu",
+               source="ectrans_tpu_torch/csrc/legendre_dense2_dir.cu",
                replaces="ectrans_tpu/ops/legendre_pallas.py:370"),
     "K9": dict(name="group_inv_planes", route="cuda",
                source="ectrans_tpu_torch/csrc/legendre_planes.cu",
@@ -258,34 +263,58 @@ def ptxas_report(needle: str) -> dict:
     return out
 
 
-def k7_report(groups, out: dict) -> None:
-    """Phase 2's K7 line: the kernel against torch.bmm from the same call,
-    its bound and the share of it, its launch shape and waves, and the
-    compiler's registers and spills; no spill is allowed."""
-    from ectrans_tpu_torch.ops import legendre_dense as ld
-
-    k = out["K7"]
-    shapes = [ld.group_inv_dense2_shape(g.m1 - g.m0, 2 * FC2_INV,
-                                        g.pn.shape[2]) for g in groups]
-    rep = ptxas_report("k717inv_dense2_kernel")
-    check(len(rep) == 2, f"K7: {len(rep)} kernels in build.log, expected 2")
+def registers(key: str, needle: str) -> dict:
+    """A kernel's registers by variant (fp32, bf16) from ``build.log``; its
+    two variants must be there, and neither may spill."""
+    rep = ptxas_report(needle)
+    check(len(rep) == 2, f"{key}: {len(rep)} kernels in build.log, expected 2")
     for name, r in rep.items():
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
-              f"K7 {name} spills: {r}")
-    regs = {("bf16" if "bfloat16" in name else "fp32"): r["registers"]
+              f"{key} {name} spills: {r}")
+    return {("bf16" if "bfloat16" in name else "fp32"): r["registers"]
             for name, r in rep.items()}
-    print(f"phase 2 K7 (fp32, {len(groups)} groups, fc4 {2 * FC2_INV}): "
-          f"kernel {k['ms']:.3f} ms vs torch.bmm {k['library_ms']:.3f} ms, "
-          f"in turns ({k['ms'] / k['library_ms']:.2f}x); bound "
-          f"{k['bound_ms']:.3f} ms ({k['bound_by']}), "
-          f"{100 * k['bound_ms'] / k['ms']:.1f} % of it; blocks per launch "
-          f"{min(s['blocks'] for s in shapes)}-"
-          f"{max(s['blocks'] for s in shapes)} of {shapes[0]['threads']} "
-          f"threads, {shapes[0]['blocks_per_sm']} an SM x {shapes[0]['sms']} "
-          f"SMs: {min(s['waves'] for s in shapes):.2f}-"
-          f"{max(s['waves'] for s in shapes):.2f} waves; registers "
+
+
+# the kernels redesigned for the card: mangled-name needle in build.log,
+# fc4 at the bench shapes, the launch-shape report in legendre_dense and
+# the table axis (ig or J) it takes last
+REDESIGNED = {"K7": ("k717inv_dense2_kernel", 2 * FC2_INV,
+                     "group_inv_dense2_shape", 2),
+              "K8": ("k817dir_dense2_kernel", 2 * FC2_DIR,
+                     "group_dir_dense2_shape", 1)}
+
+
+def redesign_report(key: str, groups, out: dict) -> None:
+    """Phase 2's line for K7 or K8: the kernel against torch.bmm from the
+    same call, its bound and the share of it, its launch shapes and waves
+    per group, and the compiler's registers and spills; no spill is
+    allowed."""
+    from ectrans_tpu_torch.ops import legendre_dense as ld
+
+    k = out[key]
+    needle, fc4, shape_of, axis = REDESIGNED[key]
+    shapes = [getattr(ld, shape_of)(g.m1 - g.m0, fc4, g.pn.shape[axis])
+              for g in groups]
+    regs = registers(key, needle)
+
+    def values(f):
+        return "/".join(str(v) for v in sorted({s[f] for s in shapes}))
+
+    wide = [i for i, s in enumerate(shapes)
+            if s["threads"] > min(s["threads"] for s in shapes)]
+    waves = [s["waves"] for s in shapes]
+    print(f"phase 2 {key} (fp32, {len(groups)} groups, fc4 {fc4}): kernel "
+          f"{k['ms']:.3f} ms vs torch.bmm {k['library_ms']:.3f} ms, in turns "
+          f"({k['ms'] / k['library_ms']:.2f}x); bound {k['bound_ms']:.3f} ms "
+          f"({k['bound_by']}), {100 * k['bound_ms'] / k['ms']:.1f} % of it; "
+          f"blocks per launch {min(s['blocks'] for s in shapes)}-"
+          f"{max(s['blocks'] for s in shapes)} of {values('threads')} "
+          f"threads{f' (the more on groups {wide})' if wide else ''}, "
+          f"{values('blocks_per_sm')} an SM x {shapes[0]['sms']} SMs: "
+          f"{min(waves):.2f}-{max(waves):.2f} waves (groups 0-2: "
+          f"{', '.join(f'{w:.2f}' for w in waves[:3])}); registers "
           f"{regs['fp32']} (fp32) / {regs['bf16']} (bf16), "
-          f"{shapes[0]['smem_bytes']} B dynamic shared memory, no spills; err "
+          f"{values('smem_bytes')} B dynamic shared memory, no spills; err "
           f"{k['rel']:.2e} relative (limit 5e-6)")
 
 
@@ -356,14 +385,15 @@ def phase_kernels(dev: torch.device) -> dict:
              for d2, g in zip(d2s, fl.groups)],
             flop=lambda d4, pn: 2 * d4.numel() * pn.shape[2], library=bmm)
         del d2s
-        if tdt == torch.float32:
-            k7_report(fl.groups, out)
         out["K8" + tag] = hold(
             "K8" + tag, ld.group_dir_dense2, ld.group_dir_dense2_plain,
             [(rnd(g.m1 - g.m0, 2 * FC2_DIR, g.pn.shape[2]), g.pn)
              for g in fl.groups],
             flop=lambda f4, pn: 2 * f4.numel() * pn.shape[1],
             library=bmm and (lambda f4, pn: torch.bmm(f4, pn.transpose(1, 2))))
+        if tdt == torch.float32:
+            for key in REDESIGNED:
+                redesign_report(key, fl.groups, out)
         gl = res.grouped_legendre(tdt, dev)
         out["K5" + tag] = hold(
             "K5" + tag, lg.group_inv, lg.group_inv_plain,
@@ -584,7 +614,8 @@ def phase_bench(dev: torch.device, counters: dict):
           f"round trip {t_first:.3f} s; median {med:.1f} ms (min {lo:.1f}, "
           f"max {hi:.1f}, n 5); peak {peak:.2f} GiB; launches {launches}; "
           f"cuFFT plans cached {torch.backends.cuda.cufft_plan_cache[dev.index].size}")
-    return res, sp, launches
+    return res, sp, launches, dict(ratio=err / gate, median=med,
+                                   launches=dict(launches))
 
 
 # phase 5 rows: engine, tier, environment, kernels that must run, kernels
@@ -604,10 +635,11 @@ ENGINE_ROWS = (
 
 
 def phase_engines(dev: torch.device, res, sp, counters: dict,
-                  launches: dict) -> None:
+                  launches: dict) -> dict:
     """Phase 4's round trip through the other engines, tiers and knobs;
     each kernel's count in ``launches`` comes from the first path that runs
-    it (phase 4 for K1-K4)."""
+    it (phase 4 for K1-K4).  Returns the DENSE_PACK row's gate ratio, median
+    and launches."""
     eps32 = float(np.finfo(np.float32).eps)
     for engine, precision, env, need, absent in ENGINE_ROWS:
         if precision == "bf16" and engine != "planes":
@@ -641,8 +673,10 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
                        "their 1e6 eps gate")
         if "ECTRANS_TPU_LEG_DENSE_PACK" in env:
             ngroups = len(res.legendre_groups())
-            check(got["K7"] == ngroups, f"DENSE_PACK launched K7 {got['K7']} "
-                                        f"times, expected {ngroups}")
+            check(got["K7"] == got["K8"] == ngroups,
+                  f"DENSE_PACK launched K7 {got['K7']} and K8 {got['K8']} "
+                  f"times, expected {ngroups} each")
+            packed = dict(ratio=err / gate, median=med, launches=got)
         for k in need:
             if k != "K3":
                 launches.setdefault(k, got[k])
@@ -655,6 +689,22 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
         res.drop_cached("grouped_legendre")
         res.drop_cached("planes_legendre")
     res.drop_cached("full_legendre")
+    return packed
+
+
+def ab_report(kern: dict, dense: dict, packed: dict) -> None:
+    """The DENSE_PACK A/B: the packed Legendre kernels K7 + K8 against the
+    default K1 + K2 at the bench shapes (phase 2, same call), and the two
+    round trips (phases 4 and 5)."""
+    default = kern["K1"]["ms"] + kern["K2"]["ms"]
+    pack2 = kern["K7"]["ms"] + kern["K8"]["ms"]
+    print(f"DENSE_PACK A/B (TCO1279): Legendre kernels K7 + K8 "
+          f"{pack2:.3f} ms vs K1 + K2 {default:.3f} ms ({pack2 - default:+.3f}"
+          f" ms a round trip); round trip with DENSE_PACK=1: "
+          f"{packed['ratio']:.3f} of the 100 eps gate, median "
+          f"{packed['median']:.1f} ms, launches {packed['launches']}; "
+          f"default: {dense['ratio']:.3f} of the gate, median "
+          f"{dense['median']:.1f} ms, launches {dense['launches']}")
 
 
 def phase_roofline(dev: torch.device, counters: dict) -> dict:
@@ -686,9 +736,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small(dev)
     counters = launch_counters()
-    res, sp, launches = phase_bench(dev, counters)
-    phase_engines(dev, res, sp, counters, launches)
+    res, sp, launches, dense = phase_bench(dev, counters)
+    packed = phase_engines(dev, res, sp, counters, launches)
     del res, sp
+    ab_report(kern, dense, packed)
     launches.update(phase_roofline(dev, counters))
     print(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k],

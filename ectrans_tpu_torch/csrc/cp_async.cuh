@@ -1,0 +1,102 @@
+// Staging of row-major tiles into shared memory with cp.async, shared by the
+// pipelined hemisphere-packed Legendre kernels K7 (legendre_dense2.cu) and
+// K8 (legendre_dense2_dir.cu).
+//
+// Both stream rows of ig latitudes (a table row, a Fourier row) whose start
+// is 16-byte aligned only where ig % 4 == 0, so the copy width V (floats) is
+// a template argument, chosen per launch from the alignment; TMA is out, as
+// it needs 16-byte global strides.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace ect {
+
+// cp.async of BYTES from global src to shared dst; with ZFILL, an invalid
+// copy reads nothing and zero-fills
+template <int BYTES, bool ZFILL>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid = true) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (ZFILL) {
+    const int n = valid ? BYTES : 0;
+    if constexpr (BYTES == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                   "l"(src), "r"(n));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                   "l"(src), "n"(BYTES), "r"(n));
+    }
+  } else if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copies a tile of NR rows x NC floats, V floats a copy, from global rows of
+// length ld (first element src) into shared rows of length dld, with THREADS
+// threads (tid the caller's among them): thread tid copies columns ct ..
+// ct + V - 1 of rows rt, rt + RSTEP, ...  By cp.async, or with SYNC through
+// registers, each value passed through cvt.  FULL: the tile lies inside the
+// source, nothing is tested; else rows from nrow and columns from ncol on
+// are zero-filled.
+template <int THREADS, typename S, int V, int NR, int NC, bool FULL,
+          bool SYNC, typename Cvt>
+__device__ __forceinline__ void copy_tile(float* dst, int dld, const S* src,
+                                          int ld, int nrow, int ncol,
+                                          const S* base, Cvt cvt, int tid) {
+  constexpr int PER_ROW = NC / V;              // copies per row
+  constexpr int RSTEP = THREADS / PER_ROW;     // rows a pass
+  static_assert(THREADS % PER_ROW == 0 && NR % RSTEP == 0, "");
+  const int rt = tid / PER_ROW, ct = tid % PER_ROW * V;
+  const bool cok = FULL || ct < ncol;          // ncol % V == 0: whole copies
+  src += (size_t)rt * ld + ct;
+  dst += rt * dld + ct;
+  // recomputed at every stage, not hoisted out of the stage loop, where the
+  // per-copy addresses would hold registers through the FMAs
+  size_t step = (size_t)RSTEP * ld;
+  asm volatile("" : "+l"(step));
+#pragma unroll
+  for (int k = 0; k < NR / RSTEP; ++k) {
+    const bool ok = FULL || (cok && rt + k * RSTEP < nrow);
+    const S* sk = src;
+    src += step;
+    float* dk = dst + k * RSTEP * dld;
+    if constexpr (SYNC) {
+      static_assert(V == 1, "one value a copy through registers");
+      *dk = ok ? cvt(*sk) : 0.f;
+    } else if constexpr (FULL) {
+      cp_async<4 * V, false>(dk, sk);
+    } else {
+      cp_async<4 * V, true>(dk, ok ? sk : base, ok);
+    }
+  }
+}
+
+// the widest copy (floats) that every row of ld floats from ptr allows: 4
+// where each row starts 16-byte aligned, 2 where 8-byte aligned, else 1
+inline int copy_vec(const void* ptr, int ld, int widest = 4) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
+  if (widest >= 4 && a % 16 == 0 && ld % 4 == 0) return 4;
+  if (widest >= 2 && a % 8 == 0 && ld % 2 == 0) return 2;
+  return 1;
+}
+
+}  // namespace ect

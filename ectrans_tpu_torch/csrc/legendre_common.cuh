@@ -1,6 +1,6 @@
 // Arithmetic shared by the dense-row (K1, K2, K7, K8) and parity-split (K5,
 // K6) Legendre kernels: compensated chunk sums, and the operand and table
-// types of each variant.
+// types of each variant; and the launch report of the pipelined K7 and K8.
 //
 // A kernel variant is a pair (T, P): T the arithmetic and operand type
 // (float or double), P the table's storage type.  P = T is the "highest"
@@ -48,6 +48,30 @@ __device__ __forceinline__ T operand(T x) {
   } else {
     return x;
   }
+}
+
+// info[0..4] = blocks per launch, threads per block, dynamic shared bytes,
+// resident blocks per SM (occupancy API), SMs of the current device
+template <typename Kernel>
+inline int launch_shape(Kernel kernel, dim3 grid, int threads, int smem,
+                        int* info) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  }
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  info[0] = (int)(grid.x * grid.y * grid.z);
+  info[1] = threads;
+  info[2] = smem;
+  info[3] = per_sm;
+  info[4] = sms;
+  return (int)e;
 }
 
 }  // namespace ect

@@ -13,9 +13,10 @@
 //   K7: out = d4 . pn for caller-stacked rows d4 = [d2 ; d2 sgn] (2 fc2 rows);
 //   K8: out_j = sum_i f4_i P_ji for caller-stacked rows f4 = [fn ; fs], the
 //       raw dots (the caller combines out[:fc2] + out[fc2:] sgn).
-// K7's fp32 and bf16-table variants are their own kernel, register-tiled and
-// pipelined (legendre_dense2.cu); its fp64 variant, off the benchmark path,
-// is K1's template without the sign (STACKED), below.
+// The fp32 and bf16-table variants of K7 and K8 are kernels of their own,
+// register-tiled and pipelined (legendre_dense2.cu, legendre_dense2_dir.cu);
+// their fp64 variants, off the benchmark path, are K1's and K2's templates
+// without the sign (STACKED), below.
 //
 // What bounds them: each table element is read once per transform and
 // feeds fc2 fused multiply-adds (fc2 = 2 * fields, 20-32 on the benchmark
@@ -27,7 +28,7 @@
 // by splitting each sum over even and odd j: north = E + O, south = E - O
 // (K1), and by pre-combining fn +- fs so each output column takes one sum
 // (K2).  The TPU stacked the hemispheres (K7, K8) to fill more rows of its
-// 128-row matrix unit; K8 (and fp64 K7) are K2 and K1 without the sign
+// 128-row matrix unit; fp64 K8 and K7 are K2 and K1 without the sign
 // (STACKED).  Row chunks are the fastest grid axis, so the chunks of one
 // table tile run together and the second reads it from L2.
 // Arithmetic is plain FMA in the working type (fp32 or fp64), no tensor
@@ -140,8 +141,9 @@ __global__ void __launch_bounds__(THREADS)
 dir_dense_kernel(const T* __restrict__ fn, const T* __restrict__ fs,
                  const P* __restrict__ pn, T* __restrict__ out,
                  int fc2, int J, int ig) {
-  // sx[r][0][i] = fn + fs, sx[r][1][i] = fn - fs; the +1 pad puts the two
-  // halves read by one warp (even and odd j threads) in different banks
+  // sx[r][0][i] = fn + fs, sx[r][1][i] = fn - fs (STACKED: sx[r][0][i] = fn
+  // alone); the +1 pad puts the two halves read by one warp (even and odd j
+  // threads) in different banks
   __shared__ T sx[ROWS][2][DI + 1];
   __shared__ T ps[DI][DJ + 1];       // transposed table tile, padded
   const int r0 = blockIdx.x * ROWS;
@@ -169,7 +171,7 @@ dir_dense_kernel(const T* __restrict__ fn, const T* __restrict__ fs,
         if (!STACKED) b = operand<T, P>(fsm[(size_t)row * ig + ii]);
       }
       sx[r][0][i] = a + b;
-      sx[r][1][i] = a - b;
+      if (!STACKED) sx[r][1][i] = a - b;
     }
     for (int e = threadIdx.x; e < DJ * DI; e += THREADS) {
       const int jl = e / DI, i = e % DI;
@@ -222,7 +224,7 @@ int launch_dir(const void* fn, const void* fs, const void* pn, void* out,
 }  // namespace
 
 // C entries per variant: _f32 and _f64 (the working type throughout) and
-// _bf16 (fp32 operands and outputs, bf16 table); K7 only _f64 here
+// _bf16 (fp32 operands and outputs, bf16 table); K7 and K8 only _f64 here
 #define ECT_DENSE_ENTRIES(SUFFIX, T, P)                                       \
   int ect_inv_dense##SUFFIX(const void* d2, const void* pn, void* north,      \
                             void* south, int gm, int fc2, int J, int ig,      \
@@ -234,11 +236,6 @@ int launch_dir(const void* fn, const void* fs, const void* pn, void* out,
                             void* out, int gm, int fc2, int J, int ig,        \
                             void* stream) {                                   \
     return launch_dir<T, P, false>(fn, fs, pn, out, gm, fc2, J, ig, stream);  \
-  }                                                                           \
-  int ect_dir_dense2##SUFFIX(const void* f4, const void* pn, void* out,       \
-                             int gm, int fc4, int J, int ig, void* stream) {  \
-    return launch_dir<T, P, true>(f4, nullptr, pn, out, gm, fc4, J, ig,       \
-                                  stream);                                    \
   }
 
 extern "C" {
@@ -248,6 +245,11 @@ ECT_DENSE_ENTRIES(_bf16, float, bf16)
 int ect_inv_dense2_f64(const void* d4, const void* pn, void* out, int gm,
                        int fc4, int J, int ig, void* stream) {
   return launch_inv<double, double, true>(d4, pn, out, nullptr, gm, fc4, J,
+                                          ig, stream);
+}
+int ect_dir_dense2_f64(const void* f4, const void* pn, void* out, int gm,
+                       int fc4, int J, int ig, void* stream) {
+  return launch_dir<double, double, true>(f4, nullptr, pn, out, gm, fc4, J,
                                           ig, stream);
 }
 }  // extern "C"

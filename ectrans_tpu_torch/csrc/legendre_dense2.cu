@@ -48,11 +48,12 @@
 // copies otherwise; the degree chunk with 8-byte copies when J is even (and
 // d4 8-byte aligned), else 4-byte ones; both chosen per launch.  Stages
 // that reach past fc4, J or ig test each copy and zero-fill what lies
-// outside; the others copy untested.  The chunk loop reads nothing past the
-// group's table.  TMA is out: it needs 16-byte global strides.  A bf16
-// table's rows start at 2-byte boundaries when ig is odd, and its operand
-// must be rounded to bf16 while staged, so the bf16 variant stages both
-// tiles through registers (load, convert, store) into the same ring.
+// outside; the others copy untested (the copies: cp_async.cuh, shared with
+// K8).  The chunk loop reads nothing past the group's table.  TMA is out: it
+// needs 16-byte global strides.  A bf16 table's rows start at 2-byte
+// boundaries when ig is odd, and its operand must be rounded to bf16 while
+// staged, so the bf16 variant stages both tiles through registers (load,
+// convert, store) into the same ring.
 //
 // Launch shape: 128 threads; shared memory 2 stages x 16,896 bytes + 32,768
 // bytes of totals = 66,560 bytes; __launch_bounds__(128, 3): three blocks
@@ -62,14 +63,17 @@
 // The fp64 variant (not on the benchmark path) stays on K1's template in
 // legendre_dense.cu.
 
-#include <cstdint>
-
+#include "cp_async.cuh"
 #include "legendre_common.cuh"
 
 namespace k7 {
 
 using ect::add_compensated;
 using ect::bf16;
+using ect::copy_tile;
+using ect::copy_vec;
+using ect::cp_async_commit;
+using ect::cp_async_wait;
 using ect::operand;
 
 constexpr int BM = 64;        // rows per block
@@ -92,79 +96,6 @@ constexpr int SMEM = (STAGES * STAGE + 2 * THREADS * RT * LT) * 4;  // bytes
 static_assert(THREADS % TJ == 0 && (TJ * TI) % (4 * THREADS) == 0, "");
 static_assert(TJ % FOLD == 0 && FOLD % 2 == 0 && FOLD_STAGES >= 1, "");
 
-// cp.async of BYTES from global src to shared dst; with ZFILL, an invalid
-// copy reads nothing and zero-fills
-template <int BYTES, bool ZFILL>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid = true) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (ZFILL) {
-    const int n = valid ? BYTES : 0;
-    if constexpr (BYTES == 16) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                   "l"(src), "r"(n));
-    } else {
-      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-                   "l"(src), "n"(BYTES), "r"(n));
-    }
-  } else if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-                 "l"(src), "n"(BYTES));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copies a tile of NR rows x NC floats, V floats a copy, from global rows of
-// length ld (first element src) into shared rows of length dld: thread t
-// copies columns ct .. ct + V - 1 of rows rt, rt + RSTEP, ...  By cp.async,
-// or with SYNC through registers, each value passed through cvt.  FULL: the
-// tile lies inside the source, nothing is tested; else rows from nrow and
-// columns from ncol on are zero-filled.
-template <typename S, int V, int NR, int NC, bool FULL, bool SYNC,
-          typename Cvt>
-__device__ __forceinline__ void copy_tile(float* dst, int dld, const S* src,
-                                          int ld, int nrow, int ncol,
-                                          const S* base, Cvt cvt) {
-  constexpr int PER_ROW = NC / V;              // copies per row
-  constexpr int RSTEP = THREADS / PER_ROW;     // rows a pass
-  static_assert(THREADS % PER_ROW == 0 && NR % RSTEP == 0, "");
-  const int rt = threadIdx.x / PER_ROW, ct = threadIdx.x % PER_ROW * V;
-  const bool cok = FULL || ct < ncol;          // ncol % V == 0: whole copies
-  src += (size_t)rt * ld + ct;
-  dst += rt * dld + ct;
-  // recomputed at every stage, not hoisted out of the stage loop, where the
-  // per-copy addresses would hold registers through the FMAs
-  size_t step = (size_t)RSTEP * ld;
-  asm volatile("" : "+l"(step));
-#pragma unroll
-  for (int k = 0; k < NR / RSTEP; ++k) {
-    const bool ok = FULL || (cok && rt + k * RSTEP < nrow);
-    const S* sk = src;
-    src += step;
-    float* dk = dst + k * RSTEP * dld;
-    if constexpr (SYNC) {
-      static_assert(V == 1, "one value a copy through registers");
-      *dk = ok ? cvt(*sk) : 0.f;
-    } else if constexpr (FULL) {
-      cp_async<4 * V, false>(dk, sk);
-    } else {
-      cp_async<4 * V, true>(dk, ok ? sk : base, ok);
-    }
-  }
-}
-
 // one stage, degrees j0 .. j0 + TJ - 1: the degree chunk ds[r][j] =
 // d4[row0 + r, j0 + j] (8-byte copies where d4's rows allow, dvec = 2) and
 // the table tile ps[j][i] = pn[j0 + j, i0 + i] (16-, 8- or 4-byte copies,
@@ -180,31 +111,32 @@ __device__ __forceinline__ void fill_tiles(float* st, const float* d4m,
   const float* dsrc = d4m + (size_t)row0 * J + j0;
   const P* psrc = pnm + (size_t)j0 * ig + i0;
   const int nrow = fc4 - row0, ndeg = J - j0, nlat = ig - i0;
+  const int t = threadIdx.x;
   if constexpr (!std::is_same<P, float>::value) {
     auto rnd = [](float x) { return operand<float, P>(x); };
     auto wide = [](P x) { return __bfloat162float(x); };
-    copy_tile<float, 1, BM, TJ, FULL, true>(ds, DR, dsrc, J, nrow, ndeg, d4m,
-                                            rnd);
-    copy_tile<P, 1, TJ, TI, FULL, true>(ps, TI, psrc, ig, ndeg, nlat, pnm,
-                                        wide);
+    copy_tile<THREADS, float, 1, BM, TJ, FULL, true>(ds, DR, dsrc, J, nrow,
+                                                     ndeg, d4m, rnd, t);
+    copy_tile<THREADS, P, 1, TJ, TI, FULL, true>(ps, TI, psrc, ig, ndeg, nlat,
+                                                 pnm, wide, t);
   } else {
     auto same = [](float x) { return x; };
     if (dvec == 2) {
-      copy_tile<float, 2, BM, TJ, FULL, false>(ds, DR, dsrc, J, nrow, ndeg,
-                                               d4m, same);
+      copy_tile<THREADS, float, 2, BM, TJ, FULL, false>(ds, DR, dsrc, J, nrow,
+                                                        ndeg, d4m, same, t);
     } else {
-      copy_tile<float, 1, BM, TJ, FULL, false>(ds, DR, dsrc, J, nrow, ndeg,
-                                               d4m, same);
+      copy_tile<THREADS, float, 1, BM, TJ, FULL, false>(ds, DR, dsrc, J, nrow,
+                                                        ndeg, d4m, same, t);
     }
     if (vec == 4) {
-      copy_tile<float, 4, TJ, TI, FULL, false>(ps, TI, psrc, ig, ndeg, nlat,
-                                               pnm, same);
+      copy_tile<THREADS, float, 4, TJ, TI, FULL, false>(ps, TI, psrc, ig, ndeg,
+                                                        nlat, pnm, same, t);
     } else if (vec == 2) {
-      copy_tile<float, 2, TJ, TI, FULL, false>(ps, TI, psrc, ig, ndeg, nlat,
-                                               pnm, same);
+      copy_tile<THREADS, float, 2, TJ, TI, FULL, false>(ps, TI, psrc, ig, ndeg,
+                                                        nlat, pnm, same, t);
     } else {
-      copy_tile<float, 1, TJ, TI, FULL, false>(ps, TI, psrc, ig, ndeg, nlat,
-                                               pnm, same);
+      copy_tile<THREADS, float, 1, TJ, TI, FULL, false>(ps, TI, psrc, ig, ndeg,
+                                                        nlat, pnm, same, t);
     }
   }
 }
@@ -354,19 +286,6 @@ inv_dense2_kernel(const float* __restrict__ d4, const P* __restrict__ pn,
   }
 }
 
-// the copy widths (floats): the table's, 4 where every row is 16-byte
-// aligned, 2 where 8-byte aligned, else 1; the degree chunk's, 2 or 1
-inline int table_vec(const void* pn, int ig) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(pn);
-  if (a % 16 == 0 && ig % 4 == 0) return 4;
-  if (a % 8 == 0 && ig % 2 == 0) return 2;
-  return 1;
-}
-
-inline int chunk_vec(const void* d4, int J) {
-  return reinterpret_cast<uintptr_t>(d4) % 8 == 0 && J % 2 == 0 ? 2 : 1;
-}
-
 inline dim3 grid_of(int gm, int fc4, int ig) {
   return dim3((fc4 + BM - 1) / BM, (ig + TI - 1) / TI, gm);
 }
@@ -380,32 +299,14 @@ int launch(const void* d4, const void* pn, void* out, int gm, int fc4, int J,
   inv_dense2_kernel<P>
       <<<grid_of(gm, fc4, ig), THREADS, SMEM, (cudaStream_t)stream>>>(
           (const float*)d4, (const P*)pn, (float*)out, fc4, J, ig,
-          chunk_vec(d4, J), table_vec(pn, ig));
+          copy_vec(d4, J, 2), copy_vec(pn, ig));
   return (int)cudaGetLastError();
 }
 
-// info[0..4] = blocks per launch, threads per block, dynamic shared bytes,
-// resident blocks per SM, SMs of the current device
 template <typename P>
 int shape(int gm, int fc4, int ig, int* info) {
-  cudaError_t e = cudaFuncSetAttribute(
-      inv_dense2_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  int per_sm = 0, dev = 0, sms = 0;
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, inv_dense2_kernel<P>, THREADS, SMEM);
-  }
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const dim3 g = grid_of(gm, fc4, ig);
-  info[0] = (int)(g.x * g.y * g.z);
-  info[1] = THREADS;
-  info[2] = SMEM;
-  info[3] = per_sm;
-  info[4] = sms;
-  return (int)e;
+  return ect::launch_shape(inv_dense2_kernel<P>, grid_of(gm, fc4, ig), THREADS,
+                           SMEM, info);
 }
 
 }  // namespace k7

@@ -12,8 +12,9 @@ identity P̄_n^m(-mu) = (-1)^(n-m) P̄_n^m(mu) inside K1/K2; with ``pack2``
 both hemispheres on the row axis instead, [d2 ; d2 sgn] and [fn ; fs], for
 the hemisphere-packed K7/K8, and combines their raw dots.
 
-Kernels (``csrc/legendre_dense.cu``; K7's fp32 and bf16-table variants in
-``csrc/legendre_dense2.cu``) run for CUDA tensors; CPU tensors take
+Kernels (``csrc/legendre_dense.cu``; the fp32 and bf16-table variants of
+K7 in ``csrc/legendre_dense2.cu`` and of K8 in ``csrc/legendre_dense2_dir.cu``)
+run for CUDA tensors; CPU tensors take
 the plain PyTorch versions (``torch.bmm`` per group in the working dtype).
 A bf16 table (the "bf16" tier) takes fp32 operands rounded to bf16, so
 every product is exact in fp32, as the TPU kernels' mode "bf16" computes:
@@ -157,20 +158,26 @@ def group_inv_dense2(d4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:
 group_inv_dense2.launches = 0
 
 
-def group_inv_dense2_shape(gm: int, fc4: int, ig: int,
-                           table_dtype: torch.dtype = torch.float32) -> dict:
-    """K7's launch for one group on the current CUDA device: blocks per
-    launch, threads per block, dynamic shared bytes, resident blocks per SM
-    (occupancy API), the device's SMs, and the waves these make."""
+def _launch_shape(stem: str, table_dtype: torch.dtype, *dims: int) -> dict:
+    """A pipelined kernel's launch for one group on the current CUDA device:
+    blocks per launch, threads per block, dynamic shared bytes, resident
+    blocks per SM (occupancy API), the device's SMs, and the waves these
+    make."""
     info = (ctypes.c_int * 5)()
-    name = "ect_inv_dense2_shape" + _build._SUFFIX[table_dtype]
-    rc = getattr(_build.lib(), name)(gm, fc4, ig, info)
+    name = stem + _build._SUFFIX[table_dtype]
+    rc = getattr(_build.lib(), name)(*dims, info)
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc}")
     blocks, threads, smem, per_sm, sms = info
     return dict(blocks=blocks, threads=threads, smem_bytes=smem,
                 blocks_per_sm=per_sm, sms=sms,
                 waves=blocks / max(1, per_sm * sms))
+
+
+def group_inv_dense2_shape(gm: int, fc4: int, ig: int,
+                           table_dtype: torch.dtype = torch.float32) -> dict:
+    """K7's launch for one group (``_launch_shape``)."""
+    return _launch_shape("ect_inv_dense2_shape", table_dtype, gm, fc4, ig)
 
 
 def group_dir_dense2_plain(f4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:
@@ -202,6 +209,12 @@ def group_dir_dense2(f4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:
 
 
 group_dir_dense2.launches = 0
+
+
+def group_dir_dense2_shape(gm: int, fc4: int, J: int,
+                           table_dtype: torch.dtype = torch.float32) -> dict:
+    """K8's launch for one group (``_launch_shape``)."""
+    return _launch_shape("ect_dir_dense2_shape", table_dtype, gm, fc4, J)
 
 
 def group_rows(x: torch.Tensor, g) -> torch.Tensor:

@@ -53,3 +53,34 @@ def test_ptxas_report_reads_registers_and_spills(smoke, tmp_path,
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     assert smoke.ptxas_report("k7kernA") == {"_ZN2k7kernAIfEEv": dict(
         stack=8, spill_stores=12, spill_loads=4, registers=168)}
+
+
+K8_LOG = (
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k717inv_dense2_kernelIfEEvPKfPKT_Pfiiiii' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 168 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k817dir_dense2_kernelI13__nv_bfloat16EEvPKfPKT_Pfiiiii' for "
+    "'sm_90a'\n"
+    "    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill "
+    "loads\n"
+    "ptxas info    : Used 250 registers, used 16 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k817dir_dense2_kernelIfEEvPKfPKT_Pfiiiii' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 254 registers, used 16 barriers\n")
+
+
+@pytest.mark.parametrize("spill", [0, 8])
+def test_registers_of_k8_refuse_a_spill(smoke, tmp_path, monkeypatch, spill):
+    """K8's line reads its two variants' registers, and not K7's, from
+    build.log; a spill in either fails the run."""
+    (tmp_path / "build.log").write_text(K8_LOG.format(spill=spill))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    needle = smoke.REDESIGNED["K8"][0]
+    if spill:
+        with pytest.raises(RuntimeError, match="spills"):
+            smoke.registers("K8", needle)
+    else:
+        assert smoke.registers("K8", needle) == {"fp32": 254, "bf16": 250}

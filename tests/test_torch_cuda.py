@@ -90,12 +90,30 @@ def k7_edge_cases(dev, dtype, tdt, fc4, g):
            buf.to(tdt)[1:].view(2, 82, 200))
 
 
+def k8_edge_cases(dev, dtype, tdt, fc4, g):
+    """Synthetic K8 operands at the edges of its tiles: ig % 4 in {0, 1, 2,
+    3} (the copy widths; none a multiple of the 32-latitude stage), J = 70
+    and 129 (not a multiple of the 64-degree tile), a table whose base is
+    only 4-byte aligned, and f4 rows that start unaligned.  Small launches
+    split each block's latitudes between two sub-blocks; the last, 150
+    groups of 2 degree tiles (300 blocks, one round at 4 an SM on an H100),
+    takes whole blocks."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+
+    for J, ig in ((70, 200), (70, 201), (70, 202), (129, 203)):
+        yield rnd(2, fc4, ig), rnd(2, J, ig).to(tdt)
+    yield rnd(2, fc4, 200), rnd(2 * 70 * 200 + 1).to(tdt)[1:].view(2, 70, 200)
+    yield rnd(2 * fc4 * 200 + 1)[1:].view(2, fc4, 200), rnd(2, 70, 200).to(tdt)
+    yield rnd(150, fc4, 201), rnd(150, 70, 201).to(tdt)
+
+
 @pytest.mark.parametrize("fc2", [20, 32, 40])
 @pytest.mark.parametrize("dtype,tdt", VARIANTS)
 def test_legendre_kernels_match_plain(dev, dtype, tdt, fc2):
     """K1, K2 and the hemisphere-packed K7, K8 (on the rows the dense engine
     stacks, fc4 = 2 fc2 = 40, 64, 80) per table variant, on the O160 groups;
-    and K7 on synthetic groups at the edges of its tiles."""
+    and K7 and K8 on synthetic groups at the edges of their tiles."""
     res = ett.setup("O160", 159)
     fl = res.full_legendre(tdt, dev)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -120,6 +138,10 @@ def test_legendre_kernels_match_plain(dev, dtype, tdt, fc2):
         got = ld.group_inv_dense2(d4, pn)
         assert got.shape == (2, 2 * fc2, pn.shape[2])
         assert rel_err(got, ld.group_inv_dense2_plain(d4, pn)) <= LT_TOL[tdt]
+    for f4, pn in k8_edge_cases(dev, dtype, tdt, 2 * fc2, g):
+        got = ld.group_dir_dense2(f4, pn)
+        assert got.shape == (len(f4), 2 * fc2, pn.shape[1])
+        assert rel_err(got, ld.group_dir_dense2_plain(f4, pn)) <= LT_TOL[tdt]
 
 
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
@@ -140,6 +162,28 @@ def test_k7_error_within_k1s(dev, tdt):
     e1 = (k1.double() - want).abs().max().item()
     e7 = (k7.double() - want).abs().max().item()
     assert 0 < e7 <= 1.5 * e1, (e7, e1)
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_k8_error_within_k2s(dev, tdt):
+    """K8 on [fn ; fs], its raw dots combined as the dense engine combines
+    them (a + b sgn), against an fp64 torch.bmm of the same (rounded)
+    operands: its largest error is at most 1.5x K2's on the same rows and
+    table, at TCO1279 group 2's widths (J 1122, ig 1203: unaligned rows)
+    with gm cut to 4, on a synthetic table."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    gm, J, ig = 4, 1122, 1203
+    pn = torch.randn(gm, J, ig, generator=g, device=dev).to(tdt)
+    fn, fs = (torch.randn(gm, 20, ig, generator=g, device=dev)
+              for _ in range(2))
+    pf, fnr, fsr = (x.double() for x in ld.plain_operands(pn, fn, fs))
+    pt = pf.transpose(1, 2)
+    want = torch.bmm(fnr, pt) + torch.bmm(fsr, pt) * ld._jsgn(J, pf)
+    raw = ld.group_dir_dense2(torch.cat([fn, fs], dim=1), pn)
+    k8 = raw[:, :20] + raw[:, 20:] * ld._jsgn(J, raw)
+    e2 = (ld.group_dir_dense(fn, fs, pn).double() - want).abs().max().item()
+    e8 = (k8.double() - want).abs().max().item()
+    assert 0 < e8 <= 1.5 * e2, (e8, e2)
 
 
 @pytest.mark.parametrize("dtype,tdt", VARIANTS)

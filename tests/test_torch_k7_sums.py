@@ -1,23 +1,30 @@
-"""The summation order of K7 (``csrc/legendre_dense2.cu``) against K1's, in
-an fp32 emulation on the CPU: the CUDA kernels cannot run here, and their
-accuracy contract rests on the order in which they add.
+"""The summation order of the pipelined hemisphere-packed kernels K7
+(``csrc/legendre_dense2.cu``) and K8 (``csrc/legendre_dense2_dir.cu``)
+against the kernels they stand beside, K1 and K2, in an fp32 emulation on
+the CPU: the CUDA kernels cannot run here, and their accuracy contract rests
+on the order in which they add.
 
 K1 (``csrc/legendre_dense.cu``) sums each 32-degree stage as two 16-term
-FMA chains (even and odd degrees) and folds each into a TwoSum total; K7
-sums 16-degree FMA chains, adds 4 of them in plain fp32 and folds that into
-a TwoSum total every 64 degrees.  Both are held against an fp64 product on
-the rows the dense engine stacks, [d2 ; d2 sgn], at TCO1279 group 2's J
-(1122) with a cut latitude count: K7's largest error must stay within 1.5x
-K1's, the bound the card's test (``test_k7_error_within_k1s``) holds the
-kernels to, and one running fp32 sum (torch.bmm's order) must be worse.
-FMA is emulated exactly: the product of two fp32 values is exact in fp64.
+FMA chains (even and odd degrees) and folds each into a TwoSum total; K2
+rounds fn +- fs to fp32 and sums each 32-latitude stage as one FMA chain
+folded into a TwoSum total.  K7 and K8 sum 16-term FMA chains, add 4 of them
+in plain fp32 and fold that into a TwoSum total every 64 terms; a K8 block
+of two sub-blocks sums each half of the latitudes so and adds the halves'
+totals by TwoSum.  Each is held against an fp64 product: K7 on the rows the
+dense engine stacks, [d2 ; d2 sgn], at TCO1279 group 2's J (1122) with a cut
+latitude count; K8 on [fn ; fs] combined as the dense engine combines its
+raw dots, a + b sgn, at TCO1279 group 0's ig (1280) with J cut to 48.  K7's
+and K8's largest errors must stay within 1.5x K1's and K2's, the bound the
+card's tests (``test_k7_error_within_k1s``, ``test_k8_error_within_k2s``)
+hold the kernels to, and one running fp32 sum (torch.bmm's order) must be
+worse.  FMA is emulated exactly: the product of two fp32 values is exact in
+fp64.
 """
 
 import numpy as np
 import pytest
 
 F32 = np.float32
-J, IG, FC2 = 1122, 301, 32
 
 
 def fma(acc, a, b):
@@ -25,15 +32,20 @@ def fma(acc, a, b):
 
 
 def two_sum(s, c, x):
-    """K1/K7's add_compensated: s + c += x (legendre_common.cuh)."""
+    """The kernels' add_compensated: s + c += x (legendre_common.cuh)."""
     t = (s + x).astype(F32)
     bb = (t - s).astype(F32)
     c = (c + ((s - (t - bb)).astype(F32) + (x - bb).astype(F32))).astype(F32)
     return t, c
 
 
+def sgn(n):
+    return (1 - 2 * (np.arange(n) & 1)).astype(F32)
+
+
 def k1_order(d2, pn):
     """north, south stacked: even/odd 16-term chains per 32-degree stage."""
+    J = pn.shape[0]
     shape = (d2.shape[0], pn.shape[1])
     ev, od, evc, odc = (np.zeros(shape, F32) for _ in range(4))
     for j0 in range(0, J, 32):
@@ -47,37 +59,91 @@ def k1_order(d2, pn):
     return np.concatenate([(e + o).astype(F32), (e - o).astype(F32)])
 
 
-def k7_order(d4, pn):
-    """16-term chains, 4 added in fp32, one TwoSum fold every 64 degrees."""
-    shape = (d4.shape[0], pn.shape[1])
-    s, c, held = (np.zeros(shape, F32) for _ in range(3))
-    for h in range(0, J, 16):
-        part = np.zeros(shape, F32)
-        for j in range(h, min(J, h + 16)):
-            part = fma(part, d4[:, j, None], pn[None, j])
-        held = (held + part).astype(F32)
-        if (h // 16) % 4 == 3 or h + 16 >= J:
-            s, c = two_sum(s, c, held)
-            held = np.zeros(shape, F32)
+def k2_order(fn, fs, pn):
+    """Rows fn +- fs rounded to fp32 (+ for even degrees), one 32-term chain
+    per 32-latitude stage folded into a TwoSum total."""
+    J, ig = pn.shape
+    x = (fn[:, None] + sgn(J)[None, :, None] * fs[:, None]).astype(F32)
+    s, c = (np.zeros((fn.shape[0], J), F32) for _ in range(2))
+    for i0 in range(0, ig, 32):
+        part = np.zeros_like(s)
+        for i in range(i0, min(ig, i0 + 32)):
+            part = fma(part, x[:, :, i], pn[None, :, i])
+        s, c = two_sum(s, c, part)
     return (s + c).astype(F32)
 
 
-def running_order(d4, pn):
-    acc = np.zeros((d4.shape[0], pn.shape[1]), F32)
-    for j in range(J):
-        acc = fma(acc, d4[:, j, None], pn[None, j])
+def packed_sums(a, b):
+    """K7's and K8's a @ b as (sum, compensation): 16-term chains, 4 added in
+    fp32, one TwoSum fold every 64 terms."""
+    n = a.shape[1]
+    shape = (a.shape[0], b.shape[1])
+    s, c, held = (np.zeros(shape, F32) for _ in range(3))
+    for h in range(0, n, 16):
+        part = np.zeros(shape, F32)
+        for t in range(h, min(n, h + 16)):
+            part = fma(part, a[:, t, None], b[None, t])
+        held = (held + part).astype(F32)
+        if (h // 16) % 4 == 3 or h + 16 >= n:
+            s, c = two_sum(s, c, held)
+            held = np.zeros(shape, F32)
+    return s, c
+
+
+def packed_order(a, b, split=1):
+    """packed_sums; with split, K8's order when a block splits the terms
+    among sub-blocks at 32-term stages: each sub-block's own sums, added to
+    the first's by TwoSum, the compensations plainly."""
+    ns = -(-a.shape[1] // 32)
+    cuts = [32 * (k * ns // split) for k in range(split + 1)]
+    s, c = packed_sums(a[:, :cuts[1]], b[:cuts[1]])
+    for lo, hi in zip(cuts[1:], cuts[2:]):
+        sk, ck = packed_sums(a[:, lo:hi], b[lo:hi])
+        s, c = two_sum(s, c, sk)
+        c = (c + ck).astype(F32)
+    return (s + c).astype(F32)
+
+
+def running_order(a, b):
+    acc = np.zeros((a.shape[0], b.shape[1]), F32)
+    for t in range(a.shape[1]):
+        acc = fma(acc, a[:, t, None], b[None, t])
     return acc
+
+
+def combine(raw, J):
+    """The dense engine's combination of K8's raw dots: a + b sgn(j)."""
+    half = raw.shape[0] // 2
+    return (raw[:half] + raw[half:] * sgn(J)).astype(F32)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_k7_order_within_k1s(seed):
+    J, ig, fc2 = 1122, 301, 32
     rng = np.random.default_rng(seed)
-    pn = rng.standard_normal((J, IG)).astype(F32)
-    d2 = rng.standard_normal((FC2, J)).astype(F32)
-    d4 = np.concatenate([d2, d2 * (1 - 2 * (np.arange(J) & 1)).astype(F32)])
+    pn = rng.standard_normal((J, ig)).astype(F32)
+    d2 = rng.standard_normal((fc2, J)).astype(F32)
+    d4 = np.concatenate([d2, d2 * sgn(J)])
     want = d4.astype(np.float64) @ pn.astype(np.float64)
     e1 = np.abs(k1_order(d2, pn) - want).max()
-    e7 = np.abs(k7_order(d4, pn) - want).max()
+    e7 = np.abs(packed_order(d4, pn) - want).max()
     e_run = np.abs(running_order(d4, pn) - want).max()
     assert 0 < e7 <= 1.5 * e1, (e7, e1)
     assert e_run > e7, (e_run, e7)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k8_order_within_k2s(seed):
+    J, ig, fc2 = 48, 1280, 20
+    rng = np.random.default_rng(seed)
+    pn = rng.standard_normal((J, ig)).astype(F32)
+    fn, fs = (rng.standard_normal((fc2, ig)).astype(F32) for _ in range(2))
+    f4 = np.concatenate([fn, fs])
+    p64 = pn.T.astype(np.float64)
+    want = fn.astype(np.float64) @ p64 + (fs.astype(np.float64) @ p64) * sgn(J)
+    e2 = np.abs(k2_order(fn, fs, pn) - want).max()
+    e_run = np.abs(combine(running_order(f4, pn.T), J) - want).max()
+    for split in (1, 2):      # whole blocks, and blocks of two sub-blocks
+        e8 = np.abs(combine(packed_order(f4, pn.T, split), J) - want).max()
+        assert 0 < e8 <= 1.5 * e2, (split, e8, e2)
+        assert e_run > e8, (split, e_run, e8)
