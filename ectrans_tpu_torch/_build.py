@@ -48,7 +48,9 @@ _ENTRIES = {
     "ect_dir_dense": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
     "ect_inv_dense2": ([_P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
     "ect_dir_dense2": ([_P, _P, _P, _I, _I, _I, _I, _P], _TABLES),
+    "ect_inv_dense_shape": ([_I, _I, _I, _P], _FP32_OPS),
     "ect_inv_dense2_shape": ([_I, _I, _I, _P], _FP32_OPS),
+    "ect_dir_dense_shape": ([_I, _I, _I, _P], _FP32_OPS),
     "ect_dir_dense2_shape": ([_I, _I, _I, _P], _FP32_OPS),
     "ect_inv_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                         _TABLES),

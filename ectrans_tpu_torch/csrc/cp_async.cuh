@@ -1,5 +1,5 @@
 // Staging of row-major tiles into shared memory with cp.async, shared by the
-// pipelined hemisphere-packed Legendre kernels K7 (legendre_dense2.cu) and
+// pipelined dense-row Legendre kernels K1 and K7 (legendre_dense2.cu), K2 and
 // K8 (legendre_dense2_dir.cu).
 //
 // Both stream rows of ig latitudes (a table row, a Fourier row) whose start
@@ -53,10 +53,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // Copies a tile of NR rows x NC floats, V floats a copy, from global rows of
 // length ld (first element src) into shared rows of length dld, with THREADS
 // threads (tid the caller's among them): thread tid copies columns ct ..
-// ct + V - 1 of rows rt, rt + RSTEP, ...  By cp.async, or with SYNC through
-// registers, each value passed through cvt.  FULL: the tile lies inside the
-// source, nothing is tested; else rows from nrow and columns from ncol on
-// are zero-filled.
+// ct + V - 1 of rows rt, rt + RSTEP, ... below NR.  By cp.async, or with
+// SYNC through registers, each value passed through cvt.  FULL: the tile
+// lies inside the source, nothing is tested; else rows from nrow and columns
+// from ncol on are zero-filled.
 template <int THREADS, typename S, int V, int NR, int NC, bool FULL,
           bool SYNC, typename Cvt>
 __device__ __forceinline__ void copy_tile(float* dst, int dld, const S* src,
@@ -64,7 +64,8 @@ __device__ __forceinline__ void copy_tile(float* dst, int dld, const S* src,
                                           const S* base, Cvt cvt, int tid) {
   constexpr int PER_ROW = NC / V;              // copies per row
   constexpr int RSTEP = THREADS / PER_ROW;     // rows a pass
-  static_assert(THREADS % PER_ROW == 0 && NR % RSTEP == 0, "");
+  constexpr int PASSES = (NR + RSTEP - 1) / RSTEP;
+  static_assert(THREADS % PER_ROW == 0, "");
   const int rt = tid / PER_ROW, ct = tid % PER_ROW * V;
   const bool cok = FULL || ct < ncol;          // ncol % V == 0: whole copies
   src += (size_t)rt * ld + ct;
@@ -74,7 +75,9 @@ __device__ __forceinline__ void copy_tile(float* dst, int dld, const S* src,
   size_t step = (size_t)RSTEP * ld;
   asm volatile("" : "+l"(step));
 #pragma unroll
-  for (int k = 0; k < NR / RSTEP; ++k) {
+  for (int k = 0; k < PASSES; ++k) {
+    // a last pass that reaches past NR (NR % RSTEP != 0) copies fewer rows
+    if (NR % RSTEP != 0 && k == PASSES - 1 && rt + k * RSTEP >= NR) break;
     const bool ok = FULL || (cok && rt + k * RSTEP < nrow);
     const S* sk = src;
     src += step;

@@ -1,5 +1,5 @@
-// Dense-row Legendre transforms for Hopper (sm_90a): kernels K1, K2, K8,
-// and the fp64 variant of K7.
+// The fp64 dense-row Legendre transforms for Hopper (sm_90a): the fp64
+// variants of kernels K1, K2, K7 and K8, off the benchmark path.
 //
 // K1 replaces ectrans_tpu/ops/legendre_pallas.py group_inv_dense
 // (_inv_dense_kernel); K2 replaces group_dir_dense (_dir_dense_kernel); K7
@@ -13,41 +13,31 @@
 //   K7: out = d4 . pn for caller-stacked rows d4 = [d2 ; d2 sgn] (2 fc2 rows);
 //   K8: out_j = sum_i f4_i P_ji for caller-stacked rows f4 = [fn ; fs], the
 //       raw dots (the caller combines out[:fc2] + out[fc2:] sgn).
-// The fp32 and bf16-table variants of K7 and K8 are kernels of their own,
-// register-tiled and pipelined (legendre_dense2.cu, legendre_dense2_dir.cu);
-// their fp64 variants, off the benchmark path, are K1's and K2's templates
-// without the sign (STACKED), below.
+// The fp32 and bf16-table variants of all four are pipelined, register-tiled
+// kernels of their own: K1 and K7 in legendre_dense2.cu, K2 and K8 in
+// legendre_dense2_dir.cu.  This file keeps their first design, in fp64
+// alone; fp64 K7 and K8 are K1 and K2 without the sign (STACKED).
 //
 // What bounds them: each table element is read once per transform and
-// feeds fc2 fused multiply-adds (fc2 = 2 * fields, 20-32 on the benchmark
-// path), i.e. fc2/2 FLOP per byte in fp32 -- near the H100's fp32 CUDA-core
-// ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte).  The design therefore
-// (a) reads the table exactly once per row chunk, coalesced along latitude
-// i, through shared memory, (b) keeps the small coefficient operand in
-// shared memory and the sums in registers, and (c) halves the multiply-adds
-// by splitting each sum over even and odd j: north = E + O, south = E - O
-// (K1), and by pre-combining fn +- fs so each output column takes one sum
-// (K2).  The TPU stacked the hemispheres (K7, K8) to fill more rows of its
-// 128-row matrix unit; fp64 K8 and K7 are K2 and K1 without the sign
-// (STACKED).  Row chunks are the fastest grid axis, so the chunks of one
-// table tile run together and the second reads it from L2.
-// Arithmetic is plain FMA in the working type (fp32 or fp64), no tensor
-// cores: fp32 FMA is the "highest" tier's accuracy contract, and "high" is
-// served by it too.  The "bf16" tier reads bf16 tables and rounds the
-// operand to bf16 (legendre_common.cuh).  Each staged chunk (16-32 terms) is
-// summed in registers and folded into a compensated total, so the rounding
-// error grows with the chunk length and not with J or ig.  Pipelining
-// (cp.async/TMA) and tensor-core variants of K1, K2 and K8 are left for
-// later work.
+// feeds fc2 fused multiply-adds; in fp64 the card's 34 TFLOP/s of fp64 FMA
+// and 8-byte table entries.  The design (a) reads the table exactly once per
+// row chunk, coalesced along latitude i, through shared memory, (b) keeps
+// the small coefficient operand in shared memory and the sums in registers,
+// and (c) halves the multiply-adds by splitting each sum over even and odd
+// j: north = E + O, south = E - O (K1), and by pre-combining fn +- fs so
+// each output column takes one sum (K2).  Row chunks are the fastest grid
+// axis, so the chunks of one table tile run together and the second reads
+// it from L2.  Each staged chunk (16-32 terms) is summed in registers and
+// folded into a compensated total (legendre_common.cuh), so the rounding
+// error grows with the chunk length and not with J or ig.
 
 #include "legendre_common.cuh"
 
 namespace {
 
 using ect::add_compensated;
-using ect::bf16;
-using ect::operand;
-using ect::table_value;
+
+typedef double T;                  // operands, table, sums and outputs
 
 constexpr int NY = 4;              // thread rows of a block
 constexpr int RPT = 8;             // coefficient rows per thread
@@ -61,9 +51,9 @@ constexpr int THREADS = 256;       // = TI * NY = DJ * NY
 // north[m, r, i] = sum_j d2[m, r, j] pn[m, j, i]
 // south[m, r, i] = sum_j (-1)^j d2[m, r, j] pn[m, j, i]   (not STACKED)
 // Block (row chunk, i-tile, m); thread (tx = latitude, ty = row phase).
-template <typename T, typename P, bool STACKED>
+template <bool STACKED>
 __global__ void __launch_bounds__(THREADS)
-inv_dense_kernel(const T* __restrict__ d2, const P* __restrict__ pn,
+inv_dense_kernel(const T* __restrict__ d2, const T* __restrict__ pn,
                  T* __restrict__ north, T* __restrict__ south,
                  int fc2, int J, int ig) {
   __shared__ T ds[ROWS][TJ];
@@ -74,7 +64,7 @@ inv_dense_kernel(const T* __restrict__ d2, const P* __restrict__ pn,
   const int tx = threadIdx.x % TI;
   const int ty = threadIdx.x / TI;
   const T* d2m = d2 + (size_t)m * fc2 * J;
-  const P* pnm = pn + (size_t)m * J * ig;
+  const T* pnm = pn + (size_t)m * J * ig;
 
   // per-chunk partial sums, folded into compensated running totals
   T ev[RPT], od[RPT], evc[RPT], odc[RPT];
@@ -87,14 +77,12 @@ inv_dense_kernel(const T* __restrict__ d2, const P* __restrict__ pn,
     for (int e = threadIdx.x; e < ROWS * TJ; e += THREADS) {
       const int r = e / TJ, j = e % TJ;
       const int row = r0 + r, jj = j0 + j;
-      ds[r][j] = (row < fc2 && jj < J)
-                     ? operand<T, P>(d2m[(size_t)row * J + jj]) : T(0);
+      ds[r][j] = (row < fc2 && jj < J) ? d2m[(size_t)row * J + jj] : T(0);
     }
     for (int e = threadIdx.x; e < TJ * TI; e += THREADS) {
       const int j = e / TI, i = e % TI;
       const int jj = j0 + j, ii = i0 + i;
-      ps[j][i] = (jj < J && ii < ig) ? table_value(pnm[(size_t)jj * ig + ii])
-                                     : T(0);
+      ps[j][i] = (jj < J && ii < ig) ? pnm[(size_t)jj * ig + ii] : T(0);
     }
     __syncthreads();
     T pe_sum[RPT], po_sum[RPT];
@@ -136,10 +124,10 @@ inv_dense_kernel(const T* __restrict__ d2, const P* __restrict__ pn,
 //             = sum_i (fn +- fs)[m, r, i] pn[m, j, i]   (+ for even j);
 // STACKED: out[m, r, j] = sum_i fn[m, r, i] pn[m, j, i] (fs is not read).
 // Block (row chunk, j-tile, m); thread (tx = degree, ty = row phase).
-template <typename T, typename P, bool STACKED>
+template <bool STACKED>
 __global__ void __launch_bounds__(THREADS)
 dir_dense_kernel(const T* __restrict__ fn, const T* __restrict__ fs,
-                 const P* __restrict__ pn, T* __restrict__ out,
+                 const T* __restrict__ pn, T* __restrict__ out,
                  int fc2, int J, int ig) {
   // sx[r][0][i] = fn + fs, sx[r][1][i] = fn - fs (STACKED: sx[r][0][i] = fn
   // alone); the +1 pad puts the two halves read by one warp (even and odd j
@@ -155,7 +143,7 @@ dir_dense_kernel(const T* __restrict__ fn, const T* __restrict__ fs,
   const int par = STACKED ? 0 : (j & 1);
   const T* fnm = fn + (size_t)m * fc2 * ig;
   const T* fsm = STACKED ? nullptr : fs + (size_t)m * fc2 * ig;
-  const P* pnm = pn + (size_t)m * J * ig;
+  const T* pnm = pn + (size_t)m * J * ig;
 
   T acc[RPT], accc[RPT];
 #pragma unroll
@@ -167,8 +155,8 @@ dir_dense_kernel(const T* __restrict__ fn, const T* __restrict__ fs,
       const int row = r0 + r, ii = i0 + i;
       T a = T(0), b = T(0);
       if (row < fc2 && ii < ig) {
-        a = operand<T, P>(fnm[(size_t)row * ig + ii]);
-        if (!STACKED) b = operand<T, P>(fsm[(size_t)row * ig + ii]);
+        a = fnm[(size_t)row * ig + ii];
+        if (!STACKED) b = fsm[(size_t)row * ig + ii];
       }
       sx[r][0][i] = a + b;
       if (!STACKED) sx[r][1][i] = a - b;
@@ -176,8 +164,7 @@ dir_dense_kernel(const T* __restrict__ fn, const T* __restrict__ fs,
     for (int e = threadIdx.x; e < DJ * DI; e += THREADS) {
       const int jl = e / DI, i = e % DI;
       const int jj = j0 + jl, ii = i0 + i;
-      ps[i][jl] = (jj < J && ii < ig) ? table_value(pnm[(size_t)jj * ig + ii])
-                                      : T(0);
+      ps[i][jl] = (jj < J && ii < ig) ? pnm[(size_t)jj * ig + ii] : T(0);
     }
     __syncthreads();
     T part[RPT];
@@ -203,53 +190,44 @@ dir_dense_kernel(const T* __restrict__ fn, const T* __restrict__ fs,
   }
 }
 
-template <typename T, typename P, bool STACKED>
+template <bool STACKED>
 int launch_inv(const void* d2, const void* pn, void* north, void* south,
                int gm, int fc2, int J, int ig, void* stream) {
   dim3 grid((fc2 + ROWS - 1) / ROWS, (ig + TI - 1) / TI, gm);
-  inv_dense_kernel<T, P, STACKED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)d2, (const P*)pn, (T*)north, (T*)south, fc2, J, ig);
+  inv_dense_kernel<STACKED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)d2, (const T*)pn, (T*)north, (T*)south, fc2, J, ig);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename P, bool STACKED>
+template <bool STACKED>
 int launch_dir(const void* fn, const void* fs, const void* pn, void* out,
                int gm, int fc2, int J, int ig, void* stream) {
   dim3 grid((fc2 + ROWS - 1) / ROWS, (J + DJ - 1) / DJ, gm);
-  dir_dense_kernel<T, P, STACKED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)fn, (const T*)fs, (const P*)pn, (T*)out, fc2, J, ig);
+  dir_dense_kernel<STACKED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)fn, (const T*)fs, (const T*)pn, (T*)out, fc2, J, ig);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entries per variant: _f32 and _f64 (the working type throughout) and
-// _bf16 (fp32 operands and outputs, bf16 table); K7 and K8 only _f64 here
-#define ECT_DENSE_ENTRIES(SUFFIX, T, P)                                       \
-  int ect_inv_dense##SUFFIX(const void* d2, const void* pn, void* north,      \
-                            void* south, int gm, int fc2, int J, int ig,      \
-                            void* stream) {                                   \
-    return launch_inv<T, P, false>(d2, pn, north, south, gm, fc2, J, ig,      \
-                                   stream);                                   \
-  }                                                                           \
-  int ect_dir_dense##SUFFIX(const void* fn, const void* fs, const void* pn,   \
-                            void* out, int gm, int fc2, int J, int ig,        \
-                            void* stream) {                                   \
-    return launch_dir<T, P, false>(fn, fs, pn, out, gm, fc2, J, ig, stream);  \
-  }
-
+// C entries: the fp64 variants of K1, K2, K7 and K8
 extern "C" {
-ECT_DENSE_ENTRIES(_f32, float, float)
-ECT_DENSE_ENTRIES(_f64, double, double)
-ECT_DENSE_ENTRIES(_bf16, float, bf16)
+int ect_inv_dense_f64(const void* d2, const void* pn, void* north,
+                      void* south, int gm, int fc2, int J, int ig,
+                      void* stream) {
+  return launch_inv<false>(d2, pn, north, south, gm, fc2, J, ig, stream);
+}
+int ect_dir_dense_f64(const void* fn, const void* fs, const void* pn,
+                      void* out, int gm, int fc2, int J, int ig,
+                      void* stream) {
+  return launch_dir<false>(fn, fs, pn, out, gm, fc2, J, ig, stream);
+}
 int ect_inv_dense2_f64(const void* d4, const void* pn, void* out, int gm,
                        int fc4, int J, int ig, void* stream) {
-  return launch_inv<double, double, true>(d4, pn, out, nullptr, gm, fc4, J,
-                                          ig, stream);
+  return launch_inv<true>(d4, pn, out, nullptr, gm, fc4, J, ig, stream);
 }
 int ect_dir_dense2_f64(const void* f4, const void* pn, void* out, int gm,
                        int fc4, int J, int ig, void* stream) {
-  return launch_dir<double, double, true>(f4, nullptr, pn, out, gm, fc4, J,
-                                          ig, stream);
+  return launch_dir<true>(f4, nullptr, pn, out, gm, fc4, J, ig, stream);
 }
 }  // extern "C"

@@ -12,9 +12,11 @@ identity P̄_n^m(-mu) = (-1)^(n-m) P̄_n^m(mu) inside K1/K2; with ``pack2``
 both hemispheres on the row axis instead, [d2 ; d2 sgn] and [fn ; fs], for
 the hemisphere-packed K7/K8, and combines their raw dots.
 
-Kernels (``csrc/legendre_dense.cu``; the fp32 and bf16-table variants of
-K7 in ``csrc/legendre_dense2.cu`` and of K8 in ``csrc/legendre_dense2_dir.cu``)
-run for CUDA tensors; CPU tensors take
+Kernels run for CUDA tensors: the fp32 and bf16-table variants of K1 and
+K7 in ``csrc/legendre_dense2.cu`` and of K2 and K8 in
+``csrc/legendre_dense2_dir.cu`` (one pipelined kernel body each, K1 and K2
+its parity mode), the fp64 variants of all four in
+``csrc/legendre_dense.cu``; CPU tensors take
 the plain PyTorch versions (``torch.bmm`` per group in the working dtype).
 A bf16 table (the "bf16" tier) takes fp32 operands rounded to bf16, so
 every product is exact in fp32, as the TPU kernels' mode "bf16" computes:
@@ -91,6 +93,12 @@ def group_inv_dense(d2: torch.Tensor, pn: torch.Tensor):
 group_inv_dense.launches = 0
 
 
+def group_inv_dense_shape(gm: int, fc2: int, ig: int,
+                          table_dtype: torch.dtype = torch.float32) -> dict:
+    """K1's launch for one group (``_launch_shape``)."""
+    return _launch_shape("ect_inv_dense_shape", table_dtype, gm, fc2, ig)
+
+
 def group_dir_dense_plain(fn: torch.Tensor, fs: torch.Tensor,
                           pn: torch.Tensor) -> torch.Tensor:
     """Plain version of K2: fn, fs (gm, fc2, ig) x pn (gm, J, ig) -> (gm, fc2, J)."""
@@ -125,6 +133,12 @@ def group_dir_dense(fn: torch.Tensor, fs: torch.Tensor,
 
 
 group_dir_dense.launches = 0
+
+
+def group_dir_dense_shape(gm: int, fc2: int, J: int,
+                          table_dtype: torch.dtype = torch.float32) -> dict:
+    """K2's launch for one group (``_launch_shape``)."""
+    return _launch_shape("ect_dir_dense_shape", table_dtype, gm, fc2, J)
 
 
 def group_inv_dense2_plain(d4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:

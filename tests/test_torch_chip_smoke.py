@@ -84,3 +84,85 @@ def test_registers_of_k8_refuse_a_spill(smoke, tmp_path, monkeypatch, spill):
             smoke.registers("K8", needle)
     else:
         assert smoke.registers("K8", needle) == {"fp32": 254, "bf16": 250}
+
+
+DENSE_LOG = (
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k116inv_dense_kernelI13__nv_bfloat16EEvPKfPKT_PfS7_iiiii' for "
+    "'sm_90a'\n"
+    "    0 bytes stack frame, {k1} bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 128 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k116inv_dense_kernelIfEEvPKfPKT_PfS6_iiiii' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 138 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k216dir_dense_kernelIfEEvPKfS2_PKT_Pfiiiii' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, {k2} bytes spill loads\n"
+    "ptxas info    : Used 254 registers, used 16 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k216dir_dense_kernelI13__nv_bfloat16EEvPKfS3_PKT_Pfiiiii' for "
+    "'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 253 registers, used 16 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_116inv_dense_kernelIddLb0EEEvPKT_PKT0_PS0_S6_iii' "
+    "for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 90 registers, used 1 barriers\n") + K8_LOG
+
+
+@pytest.mark.parametrize("key,regs", [("K1", {"fp32": 138, "bf16": 128}),
+                                      ("K2", {"fp32": 254, "bf16": 253})])
+@pytest.mark.parametrize("spill", [0, 8])
+def test_registers_of_k1_k2_refuse_a_spill(smoke, tmp_path, monkeypatch, key,
+                                           regs, spill):
+    """K1's and K2's lines read their two variants' registers, and not the
+    fp64 template's or K7's and K8's, from build.log; a spill in either
+    fails the run."""
+    log = DENSE_LOG.format(k1=spill if key == "K1" else 0,
+                           k2=spill if key == "K2" else 0, spill=0)
+    (tmp_path / "build.log").write_text(log)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    needle = smoke.REDESIGNED[key][0]
+    if spill:
+        with pytest.raises(RuntimeError, match="spills"):
+            smoke.registers(key, needle)
+    else:
+        assert smoke.registers(key, needle) == regs
+
+
+def test_bench_inputs_zero_the_m0_imaginary_parts_and_the_mean(smoke):
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup("O48", 47)
+    sp = smoke.bench_inputs(res.nspec2, res.nsmax)
+    assert [tuple(x.shape) for x in sp] == [(2, res.nspec2), (2, res.nspec2),
+                                           (6, res.nspec2)]
+    for x in sp:
+        assert x.dtype == torch.float32
+        assert not x[:, 1: 2 * (res.nsmax + 1): 2].any() and not x[:, 0].any()
+    again = smoke.bench_inputs(res.nspec2, res.nsmax)
+    assert all(torch.equal(a, b) for a, b in zip(sp, again))   # seed 0
+
+
+def test_round_trip_is_inside_the_gate(smoke):
+    """The bench round trip at O48/T47 in fp64 sits far inside the 100·eps
+    (fp32) gate, and family_errors refuses a malformed output."""
+    import numpy as np
+
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup("O48", 47)
+    sp = [x.double() for x in smoke.bench_inputs(res.nspec2, res.nsmax)]
+    grid, out = smoke.round_trip(res, sp, torch.float64)
+    assert tuple(grid.shape) == (26, res.ndgl, res.grid.ndlon)
+    gate = 100 * float(np.finfo(np.float32).eps)
+    ratios = [e / (gate * m) for e, m in smoke.family_errors(out, sp)]
+    assert len(ratios) == 3 and max(ratios) < 1e-3, ratios
+    with pytest.raises(RuntimeError, match="shape"):
+        smoke.family_errors([out[0][:1], *out[1:]], sp)
+    bad = [o.clone() for o in out]
+    bad[2][0, 5] = np.nan
+    with pytest.raises(RuntimeError, match="non-finite"):
+        smoke.family_errors(bad, sp)

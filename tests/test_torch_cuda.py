@@ -8,7 +8,9 @@ those are not installed:
 
 Tolerances: K1/K2/K5/K6/K7/K8 5e-6 (fp32, and on bf16 tables, whose
 products of rounded operands are exact in fp32) / 1e-12 (fp64) relative to
-the output's max, K9/K10 5e-6 (fp32 sums of exact bf16 products); K4 1e-7
+the output's max, and K1/K2/K7/K8 within 1.5x the error of the template
+K1's and K2's summation order (its fp32 emulation in test_torch_k7_sums.py)
+against an fp64 product, K9/K10 5e-6 (fp32 sums of exact bf16 products); K4 1e-7
 of the table scale; K3 and K11 bit-exact; K12 1e-6 relative; the slice as
 in test_torch_transform.py (fp64 1e-10 relative, fp32 2e-5 + 1e-5
 relative).
@@ -25,6 +27,7 @@ from ectrans_tpu_torch.ops import legendre_grouped as lg
 from ectrans_tpu_torch.ops import legendre_planes as lp
 from ectrans_tpu_torch.ops import legendre_tablegen as tg
 from ectrans_tpu_torch.ops import pack
+from test_torch_k7_sums import template_k1_order, template_k2_order
 
 pytestmark = pytest.mark.cuda
 
@@ -77,10 +80,10 @@ def test_tablegen_kernel_matches_plain(dev, dtype):
 
 
 def k7_edge_cases(dev, dtype, tdt, fc4, g):
-    """Synthetic K7 operands at the edges of its tiles: ig % 4 in {0, 1, 2,
-    3} (the table copy widths), J = 82 (not a multiple of the 32-degree
-    stage) and J = 81 (odd: 4-byte copies of the degree chunk), and a table
-    whose base is only 4-byte aligned."""
+    """Synthetic K7 (and K1) operands of fc4 rows at the edges of their
+    tiles: ig % 4 in {0, 1, 2, 3} (the table copy widths), J = 82 (not a
+    multiple of the 32-degree stage) and J = 81 (odd: 4-byte copies of the
+    degree chunk), and a table whose base is only 4-byte aligned."""
     for J, ig in ((82, 200), (82, 201), (82, 202), (82, 203), (81, 203)):
         yield (torch.randn(2, fc4, J, generator=g, device=dev, dtype=dtype),
                torch.randn(2, J, ig, generator=g, device=dev,
@@ -91,13 +94,14 @@ def k7_edge_cases(dev, dtype, tdt, fc4, g):
 
 
 def k8_edge_cases(dev, dtype, tdt, fc4, g):
-    """Synthetic K8 operands at the edges of its tiles: ig % 4 in {0, 1, 2,
-    3} (the copy widths; none a multiple of the 32-latitude stage), J = 70
-    and 129 (not a multiple of the 64-degree tile), a table whose base is
-    only 4-byte aligned, and f4 rows that start unaligned.  Small launches
-    split each block's latitudes between two sub-blocks; the last, 150
-    groups of 2 degree tiles (300 blocks, one round at 4 an SM on an H100),
-    takes whole blocks."""
+    """Synthetic K8 (and K2) operands of fc4 rows at the edges of their
+    tiles: ig % 4 in {0, 1, 2, 3} (the copy widths; none a multiple of the
+    32-latitude stage), J = 70 and 129 (not a multiple of K8's 64-degree or
+    K2's 128-degree tile), a table whose base is only 4-byte aligned, and
+    rows that start unaligned.  Small launches split each block's latitudes
+    between two sub-blocks; the last, 150 groups of 2 K8 degree tiles (300
+    blocks, one round at 4 an SM on an H100; K2: 150 blocks), takes whole
+    blocks."""
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
 
@@ -113,7 +117,7 @@ def k8_edge_cases(dev, dtype, tdt, fc4, g):
 def test_legendre_kernels_match_plain(dev, dtype, tdt, fc2):
     """K1, K2 and the hemisphere-packed K7, K8 (on the rows the dense engine
     stacks, fc4 = 2 fc2 = 40, 64, 80) per table variant, on the O160 groups;
-    and K7 and K8 on synthetic groups at the edges of their tiles."""
+    and all four on synthetic groups at the edges of their tiles."""
     res = ett.setup("O160", 159)
     fl = res.full_legendre(tdt, dev)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -142,48 +146,98 @@ def test_legendre_kernels_match_plain(dev, dtype, tdt, fc2):
         got = ld.group_dir_dense2(f4, pn)
         assert got.shape == (len(f4), 2 * fc2, pn.shape[1])
         assert rel_err(got, ld.group_dir_dense2_plain(f4, pn)) <= LT_TOL[tdt]
+    for d2, pn in k7_edge_cases(dev, dtype, tdt, fc2, g):
+        for a, b in zip(ld.group_inv_dense(d2, pn),
+                        ld.group_inv_dense_plain(d2, pn)):
+            assert a.shape == (2, fc2, pn.shape[2])
+            assert rel_err(a, b) <= LT_TOL[tdt]
+    for fn, pn in k8_edge_cases(dev, dtype, tdt, fc2, g):
+        fs = torch.randn(fn.shape, generator=g, device=dev, dtype=dtype)
+        for a, b in ((fn, fs), (fs, fn)):      # unaligned fn, then fs
+            got = ld.group_dir_dense(a, b, pn)
+            assert got.shape == (len(fn), fc2, pn.shape[1])
+            assert rel_err(got, ld.group_dir_dense_plain(a, b, pn)) \
+                <= LT_TOL[tdt]
+
+
+def inv_error_case(dev, tdt, seed: int):
+    """Rows d2 (32 of them) and a synthetic table at TCO1279 group 2's
+    widths (J 1122, ig 1203: unaligned rows) with gm cut to 2, the fp64
+    product of the (rounded) operands stacked as [d2 ; d2 sgn] (north, then
+    south), and the error of the template K1's summation order on them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gm, J, ig = 2, 1122, 1203
+    pn = torch.randn(gm, J, ig, generator=g, device=dev).to(tdt)
+    d2 = torch.randn(gm, 32, J, generator=g, device=dev)
+    pf, d2r = ld.plain_operands(pn, d2)
+    want = torch.bmm(torch.cat([d2r, d2r * ld._jsgn(J, d2r)], dim=1).double(),
+                     pf.double())
+    tpl = np.stack([template_k1_order(a, p) for a, p in
+                    zip(d2r.cpu().numpy(), pf.cpu().numpy())])
+    return d2, pn, want, np.abs(tpl - want.cpu().numpy()).max()
+
+
+def dir_error_case(dev, tdt, seed: int):
+    """Rows fn, fs (20 each) and a synthetic table at TCO1279 group 2's
+    widths with gm cut to 2, the fp64 fn . P + sgn fs . P of the (rounded)
+    operands, and the error of the template K2's summation order on them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gm, J, ig = 2, 1122, 1203
+    pn = torch.randn(gm, J, ig, generator=g, device=dev).to(tdt)
+    fn, fs = (torch.randn(gm, 20, ig, generator=g, device=dev)
+              for _ in range(2))
+    pf, fnr, fsr = ld.plain_operands(pn, fn, fs)
+    pt = pf.double().transpose(1, 2)
+    want = torch.bmm(fnr.double(), pt) + torch.bmm(fsr.double(), pt) * \
+        ld._jsgn(J, pt)
+    tpl = np.stack([template_k2_order(a, b, p) for a, b, p in
+                    zip(fnr.cpu().numpy(), fsr.cpu().numpy(),
+                        pf.cpu().numpy())])
+    return fn, fs, pn, want, np.abs(tpl - want.cpu().numpy()).max()
+
+
+def max_err(got, want) -> float:
+    return (got.double() - want).abs().max().item()
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_k1_error_within_template(dev, tdt):
+    """K1's north and south against the fp64 product: at most 1.5x the
+    error of the template K1's order on the same operands."""
+    d2, pn, want, e_tpl = inv_error_case(dev, tdt, 4)
+    e1 = max_err(torch.cat(ld.group_inv_dense(d2, pn), dim=1), want)
+    assert 0 < e1 <= 1.5 * e_tpl, (e1, e_tpl)
 
 
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
 def test_k7_error_within_k1s(dev, tdt):
-    """K7 on [d2 ; d2 sgn] against an fp64 torch.bmm of the same (rounded)
-    operands: its largest error is at most 1.5x K1's on the same rows and
-    table, at TCO1279 group 2's widths (J 1122, ig 1203: unaligned rows)
-    with gm cut to 4, on a synthetic table."""
-    g = torch.Generator(device=dev).manual_seed(4)
-    gm, J, ig = 4, 1122, 1203
-    pn = torch.randn(gm, J, ig, generator=g, device=dev).to(tdt)
-    d2 = torch.randn(gm, 32, J, generator=g, device=dev)
-    d4 = torch.cat([d2, d2 * ld._jsgn(J, d2)], dim=1)
-    pf, d4r = ld.plain_operands(pn, d4)
-    want = torch.bmm(d4r.double(), pf.double())
-    k1 = torch.cat(ld.group_inv_dense(d2, pn), dim=1)
-    k7 = ld.group_inv_dense2(d4, pn)
-    e1 = (k1.double() - want).abs().max().item()
-    e7 = (k7.double() - want).abs().max().item()
-    assert 0 < e7 <= 1.5 * e1, (e7, e1)
+    """K7 on [d2 ; d2 sgn] against the fp64 product: at most 1.5x the error
+    of the template K1's order on the same operands."""
+    d2, pn, want, e_tpl = inv_error_case(dev, tdt, 4)
+    d4 = torch.cat([d2, d2 * ld._jsgn(d2.shape[-1], d2)], dim=1)
+    e7 = max_err(ld.group_inv_dense2(d4, pn), want)
+    assert 0 < e7 <= 1.5 * e_tpl, (e7, e_tpl)
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_k2_error_within_template(dev, tdt):
+    """K2 against the fp64 fn . P + sgn fs . P: at most 1.5x the error of
+    the template K2's order on the same operands."""
+    fn, fs, pn, want, e_tpl = dir_error_case(dev, tdt, 6)
+    e2 = max_err(ld.group_dir_dense(fn, fs, pn), want)
+    assert 0 < e2 <= 1.5 * e_tpl, (e2, e_tpl)
 
 
 @pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
 def test_k8_error_within_k2s(dev, tdt):
     """K8 on [fn ; fs], its raw dots combined as the dense engine combines
-    them (a + b sgn), against an fp64 torch.bmm of the same (rounded)
-    operands: its largest error is at most 1.5x K2's on the same rows and
-    table, at TCO1279 group 2's widths (J 1122, ig 1203: unaligned rows)
-    with gm cut to 4, on a synthetic table."""
-    g = torch.Generator(device=dev).manual_seed(6)
-    gm, J, ig = 4, 1122, 1203
-    pn = torch.randn(gm, J, ig, generator=g, device=dev).to(tdt)
-    fn, fs = (torch.randn(gm, 20, ig, generator=g, device=dev)
-              for _ in range(2))
-    pf, fnr, fsr = (x.double() for x in ld.plain_operands(pn, fn, fs))
-    pt = pf.transpose(1, 2)
-    want = torch.bmm(fnr, pt) + torch.bmm(fsr, pt) * ld._jsgn(J, pf)
+    them (a + b sgn), against the fp64 fn . P + sgn fs . P: at most 1.5x the
+    error of the template K2's order on the same operands."""
+    fn, fs, pn, want, e_tpl = dir_error_case(dev, tdt, 6)
     raw = ld.group_dir_dense2(torch.cat([fn, fs], dim=1), pn)
-    k8 = raw[:, :20] + raw[:, 20:] * ld._jsgn(J, raw)
-    e2 = (ld.group_dir_dense(fn, fs, pn).double() - want).abs().max().item()
-    e8 = (k8.double() - want).abs().max().item()
-    assert 0 < e8 <= 1.5 * e2, (e8, e2)
+    e8 = max_err(raw[:, :20] + raw[:, 20:] * ld._jsgn(raw.shape[-1], raw),
+                 want)
+    assert 0 < e8 <= 1.5 * e_tpl, (e8, e_tpl)
 
 
 @pytest.mark.parametrize("dtype,tdt", VARIANTS)
