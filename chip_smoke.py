@@ -9,29 +9,36 @@ Phases, each printing a line:
    card's name and power limit (nvidia-smi);
 2. hold each kernel against its plain PyTorch version on the card, at the
    TCO1279 shapes of the benchmark round trip, all groups: K4 (table
-   generator, against the plain fp64 recurrence), K1 and K2 (dense-row
-   Legendre), K7 and K8 (hemisphere-packed, at twice K1's and K2's rows),
-   K5 and K6 (parity-split Legendre, on the parity tables derived on the
-   card), K9 and K10 (bf16 limb-plane Legendre, at 3 planes and at 1, on
-   planes derived on the card), the bf16-table variants of K1, K2, K5, K6,
-   K7 and K8 (on the "bf16" tier's tables made on the card), with fields as
-   in the round trip, K3 (packing, bit-exact), and at the roofline probe's
-   512 MiB shape K11 (copy, bit-exact) and K12 (read-reduce); kernel and
-   plain times with CUDA events (mean of 3 calls, the host's launch cost
-   included where it outlasts the kernel), each kernel's bound (the larger
-   of its bytes over 3.35 TB/s and its operations over the data sheet's
-   peak) and, for K7, K8 (fp32), K11 and K12, the one PyTorch call that
-   computes the same function (torch.bmm, clone, sum), timed in turns with
-   the kernel.
-   K1, K2, K7 and K8, the kernels redesigned for the card, get a line each:
-   the time against torch.bmm's on the stacked rows (K7's and K8's one-call
-   counterpart, timed in their turns; for K1 and K2 a reference at twice
-   their FLOP, not a route), the share of the bound (K1 1.231 ms, K2
-   1.184 ms, K7 1.77 ms, K8 1.205 ms), the table's streaming rate, beside
+   generator, every group in one launch, against the plain fp64
+   recurrence; its bf16 tables must be the fp32 tables rounded), K1 and K2
+   (dense-row Legendre), K7 and K8 (hemisphere-packed, at twice K1's and
+   K2's rows), K5 and K6 (parity-split Legendre, on the parity tables
+   derived on the card), K9 and K10 (bf16 limb-plane Legendre, at 3 planes
+   and at 1, on planes derived on the card), the bf16-table variants of K1,
+   K2, K5, K6, K7 and K8 (on the "bf16" tier's tables made on the card),
+   with fields as in the round trip, K3 (packing, one launch, bit-exact),
+   and at the roofline probe's 512 MiB shape K11 (copy, bit-exact) and K12
+   (read-reduce); kernel and plain times with CUDA events (mean of 3
+   calls, the host's launch cost included where it outlasts the kernel),
+   each kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the data sheet's peak; the bytes each input read once
+   and each output written once, so K3's count each packed value twice
+   and K4's the tables and the inputs its columns read; K4's operations
+   are the fp64-pipe issue slots of its loop) and, for K5, K6, K7, K8
+   (fp32), K11 and K12, the one PyTorch call that computes the same
+   function (torch.bmm: for K5 on the rows [sym, asym; sym, -asym] against
+   [psym, pasym], which gives north and south at twice K5's FLOP, for K6
+   on its parity operands stacked along the batch; clone, sum), timed in
+   turns with the kernel.
+   K1, K2, K3, K4, K7 and K8, the kernels redesigned for the card, get a
+   line each (``redesign_report``): the time (for K1, K2, K7, K8 against
+   torch.bmm's on the stacked rows: K7's and K8's one-call counterpart,
+   timed in their turns; for K1 and K2 a reference at twice their FLOP,
+   not a route), the bound with both its terms and the share of it, beside
    them a second measure (the device time with the calls enqueued behind a
    spin kernel, and the host's time to enqueue a call), the blocks per
-   launch, threads and waves, and the registers, shared memory and spills
-   from ``build.log`` (a spill fails the run);
+   launch, threads and waves, and the registers and spills from
+   ``build.log`` (a spill fails the run);
 3. the whole inv_trans + dir_trans at T159 (O160 grid) on the card through
    every Legendre engine ("dense", "xla", "pallas", "planes"), in fp32 and
    fp64, against the same engine's plain path on the CPU in fp64;
@@ -40,15 +47,17 @@ Phases, each printing a line:
    of u, v and the scalars in fp32, "dense" engine; the 100*eps round-trip
    gate on every field family, of which the worst may take at most 0.65 (the
    margin that K1's and K2's summation order must keep); setup and
-   round-trip times; the launch count
-   of every kernel of that path (K1-K4) must be above 0;
+   round-trip times; every kernel of that path (K1-K4) must have been
+   launched, K3 once (the direct transform) and K4 once (the setup's
+   full_legendre build);
 5. the same round trip on phase 4's inputs (so the cuFFT plans are reused)
    through "pallas" and "planes" at "highest", "dense" with
    ECTRANS_TPU_LEG_DENSE_PACK=1 (K7 once per m-group, K8, K3 launched and
    K1, K2 not) and
    "dense" with ECTRANS_TPU_PACK_KERNEL=xla (K1, K2 and not K3), all with
    the 100*eps gate on every family; then "planes", "dense" and "pallas"
-   at "bf16" (the 1e6*eps gate on the scalars, the vor/div ratio printed).
+   at "bf16" (the 1e6*eps gate on the scalars, the vor/div ratio printed;
+   "dense" makes its bf16 tables in one K4 launch). K3 runs once a row.
    First call, median of 3, peak memory, and the launch counts of that
    path's kernels.  Each engine's derived tables are freed after its run,
    and the "dense" fp32 tables before the "bf16" rows of "dense" and
@@ -56,7 +65,11 @@ Phases, each printing a line:
 6. the roofline probes of ``ectrans_tpu_torch.roofline`` (torch's ``x + 1``,
    K11 and K12 streaming rates, K1 against K7 and K2 against K8 at the JAX
    roofline tool's dense shape, J 2562: twice TCO1279 group 0's J of
-   1282); K11 and K12 must have been launched.
+   1282); K11 and K12 must have been launched;
+7. bench.py's second configuration, TCO639, through the default "dense"
+   fp32 path on inputs made as phase 4's: the 100*eps gate (at most 1.0 of
+   it), setup, first call, median of 3, and K1-K4's launches (K3 and K4
+   once).
 
 Between phases 5 and 6, the DENSE_PACK A/B line: K7 + K8 against K1 + K2
 from phase 2 (the same call), and the two round trips' gate ratios, medians
@@ -92,7 +105,7 @@ KERNELS = {
     "K3": dict(name="packed_from_group_rows", route="cuda",
                source="ectrans_tpu_torch/csrc/pack.cu",
                replaces="ectrans_tpu/ops/pack_pallas.py:96"),
-    "K4": dict(name="gen_group", route="cuda",
+    "K4": dict(name="gen_groups", route="cuda",
                source="ectrans_tpu_torch/csrc/tablegen.cu",
                replaces="ectrans_tpu/ops/legendre_tablegen.py:148"),
     "K5": dict(name="group_inv", route="cuda",
@@ -124,6 +137,14 @@ NFLD_UV, NFLD_SC = 2, 6          # bench.py's field counts
 # the card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): device memory,
 # fp32 FMA outside the tensor cores, and fp64 outside them (K4's recurrence)
 HBM_BPS, FP32_FLOPS, FP64_FLOPS = 3.35e12, 67e12, 34e12
+# fp64 instructions a second: the FLOP rate counts an FMA as 2 operations
+FP64_INSTR = FP64_FLOPS / 2
+# K4's fp64-pipe issue slots per fp32 table entry (csrc/tablegen.cu): 3
+# multiplies and 1 subtraction of the recurrence and 1 multiply by 2^E, each
+# one slot, and the fp64 -> fp32 conversion, which issues at a quarter of the
+# multiply rate (CUDA C++ Programming Guide, throughput of conversions from
+# 64-bit types on compute capability 9.0): 4 slots
+K4_FP64_PER_ENTRY, K4_CVT_PER_ENTRY, CVT_SLOTS = 5, 1, 4
 FC2_INV, FC2_DIR = 32, 20        # kernel rows: 2 x (16 inverse, 10 direct)
 SPIN_CYCLES = 2_000_000          # spin_ms's spin kernel: ~1 ms on an H100
 # the largest share of the 100*eps gate the default round trip may take:
@@ -182,7 +203,7 @@ def launch_counters():
     return {"K1": legendre_dense.group_inv_dense,
             "K2": legendre_dense.group_dir_dense,
             "K3": pack.packed_from_group_rows,
-            "K4": legendre_tablegen.gen_group,
+            "K4": legendre_tablegen.gen_groups,
             "K5": legendre_grouped.group_inv,
             "K6": legendre_grouped.group_dir,
             "K7": legendre_dense.group_inv_dense2,
@@ -236,54 +257,79 @@ def tensor_bytes(*xs) -> int:
 
 def bound(flop: float, nbytes: float, rate: float = FP32_FLOPS) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over their peak rate."""
+    memory rate and the operations over their peak rate (both terms kept)."""
     t_b, t_f = nbytes / HBM_BPS * 1e3, flop / rate * 1e3
     return dict(bound_ms=max(t_b, t_f),
-                bound_by="bytes" if t_b >= t_f else "operations")
+                bound_by="bytes" if t_b >= t_f else "operations",
+                bytes_ms=t_b, ops_ms=t_f)
+
+
+def compare(key: str, got, want) -> tuple:
+    """(max abs difference, max |want|, bit-identical) of a kernel's output
+    and its plain version's: tensors, or tuples or lists of them."""
+    pairs = (zip(got, want) if isinstance(got, (tuple, list))
+             else [(got, want)])
+    d, scale, exact = 0.0, 0.0, True
+    for g, w in pairs:
+        check(bool(torch.isfinite(g).all()), f"{key}: non-finite output")
+        d = max(d, (g - w).abs().max().item())
+        scale = max(scale, w.abs().max().item())
+        exact = exact and torch.equal(g, w)
+    return d, scale, exact
 
 
 def hold(key: str, kern, plain, args_list, tol: float = 5e-6, flop=None,
-         library=None, spin=False) -> dict:
+         library=None, spin=False, nbytes=None, rate: float = FP32_FLOPS,
+         reps: int = 3, plain_reps: int = 3) -> dict:
     """A kernel against its plain version on each argument tuple (one per
-    m-group): max abs error, the largest error relative to the plain
-    output's max (must be <= tol), and both times summed over the groups;
-    the bound from ``flop(*args)`` (fp32) and the bytes of the arguments and
-    the output; with ``library``, the time of that one PyTorch call on the
-    same arguments, taken in turns with the kernel's (kernel, library,
-    kernel, library; each kernel time is the mean of its two); with
-    ``spin``, also the kernel's device time behind a spin kernel
-    (``spin_ms``, summed) and its host time a call (the mean over the
-    groups)."""
-    err, rel, t_k, t_p, t_l, nflop, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
-    t_dev, t_host = 0.0, 0.0
+    m-group, or one for a kernel that takes every group in one launch): max
+    abs error, the largest error relative to the plain output's max (must
+    be <= tol; tol 0 asks for bit-exact outputs), whether every output is
+    bit-identical, and both times summed over the tuples (means of ``reps``
+    and ``plain_reps`` calls); the bound from ``flop(*args)`` operations at
+    ``rate`` (fp32 FMA by default) and ``nbytes(args, got)`` bytes (by
+    default the bytes of the arguments and the output); with ``library``,
+    the time of that one PyTorch call on the same arguments, taken in turns
+    with the kernel's (kernel, library, kernel, library; each kernel time is
+    the mean of its two); with ``spin``, also the kernel's device time
+    behind a spin kernel (``spin_ms``, summed) and its host time a call (the
+    mean over the tuples).  ``library`` may be a pair (prepare, call): the
+    call times on ``prepare(*args)``, made before the timing."""
+    err, rel, t_k, t_p, t_l, nflop, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0
+    t_dev, t_host, exact = 0.0, 0.0, True
     for args in args_list:
         got, want = kern(*args), plain(*args)
-        nbytes += tensor_bytes(args, got)
+        moved += nbytes(args, got) if nbytes else tensor_bytes(args, got)
         nflop += flop(*args) if flop else 0
-        if isinstance(got, tuple):
-            got, want = torch.cat(got), torch.cat(want)
-        check(bool(torch.isfinite(got).all()), f"{key}: non-finite output")
-        d = (got - want).abs().max().item()
-        err = max(err, d)
-        rel = max(rel, d / want.abs().max().item())
+        d, scale, same = compare(key, got, want)
         del got, want
+        err, rel, exact = max(err, d), max(rel, d / scale), exact and same
         if library is None:
-            t_k += cuda_ms(lambda: kern(*args))
+            t_k += cuda_ms(lambda: kern(*args), reps)
         else:
-            turns = [cuda_ms(lambda: f(*args))
-                     for f in (kern, library, kern, library)]
+            prep, call = (library if isinstance(library, tuple)
+                          else (lambda *a: a, library))
+            largs = prep(*args)
+            turns = [cuda_ms(lambda: f(*a), reps) for f, a in
+                     ((kern, args), (call, largs), (kern, args),
+                      (call, largs))]
+            del largs
             t_k += (turns[0] + turns[2]) / 2
             t_l += (turns[1] + turns[3]) / 2
-        t_p += cuda_ms(lambda: plain(*args))
+        t_p += cuda_ms(lambda: plain(*args), plain_reps)
         if spin:
-            d, h = spin_ms(lambda: kern(*args))
+            d, h = spin_ms(lambda: kern(*args), reps)
             t_dev += d
             t_host += h / len(args_list)
-    check(rel <= tol, f"{key} vs plain: {rel:.3e} > {tol:g} relative")
-    return dict(max_abs_err=err, rel=rel, ms=t_k, plain_ms=t_p,
-                library_ms=t_l if library else None, tol=f"{tol:g} rel",
+    if tol == 0:
+        check(exact, f"{key} vs plain: not bit-exact")
+    else:
+        check(rel <= tol, f"{key} vs plain: {rel:.3e} > {tol:g} relative")
+    return dict(max_abs_err=err, rel=rel, exact=exact, ms=t_k, plain_ms=t_p,
+                library_ms=t_l if library else None, reps=reps,
+                tol="bit-exact" if tol == 0 else f"{tol:g} rel",
                 spin_ms=t_dev if spin else None,
-                host_ms=t_host if spin else None, **bound(nflop, nbytes))
+                host_ms=t_host if spin else None, **bound(nflop, moved, rate))
 
 
 def ptxas_report(needle: str) -> dict:
@@ -307,78 +353,194 @@ def ptxas_report(needle: str) -> dict:
     return out
 
 
-def registers(key: str, needle: str) -> dict:
-    """A kernel's registers by variant (fp32, bf16) from ``build.log``; its
-    two variants must be there, and neither may spill."""
+def registers(key: str, needle: str, variants: int = 2) -> dict:
+    """A kernel's registers by variant (fp32, fp64, bf16) from
+    ``build.log``; its ``variants`` variants must be there, and none may
+    spill."""
     rep = ptxas_report(needle)
-    check(len(rep) == 2, f"{key}: {len(rep)} kernels in build.log, expected 2")
+    check(len(rep) == variants,
+          f"{key}: {len(rep)} kernels in build.log, expected {variants}")
     for name, r in rep.items():
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
               f"{key} {name} spills: {r}")
-    return {("bf16" if "bfloat16" in name else "fp32"): r["registers"]
+    return {("bf16" if "bfloat16" in name else
+             "fp64" if needle + "Id" in name else "fp32"): r["registers"]
             for name, r in rep.items()}
 
 
-# the kernels redesigned for the card: mangled-name needle in build.log,
-# rows at the bench shapes, the launch-shape report in legendre_dense, the
-# table axis (ig or J) it takes last, and the kernel whose torch.bmm on the
-# stacked rows is the line's yardstick (its own library call, or K7's and
-# K8's for K1 and K2: the same outputs at twice the FLOP, a reference only)
-REDESIGNED = {"K1": ("k116inv_dense_kernel", FC2_INV,
-                     "group_inv_dense_shape", 2, "K7"),
-              "K2": ("k216dir_dense_kernel", FC2_DIR,
-                     "group_dir_dense_shape", 1, "K8"),
-              "K7": ("k717inv_dense2_kernel", 2 * FC2_INV,
-                     "group_inv_dense2_shape", 2, "K7"),
-              "K8": ("k817dir_dense2_kernel", 2 * FC2_DIR,
-                     "group_dir_dense2_shape", 1, "K8")}
+# the kernels redesigned for the card: mangled-name needle in build.log, the
+# variants compiled, and the kernel whose torch.bmm on the stacked rows is
+# the line's yardstick (its own library call, or K7's and K8's for K1 and K2:
+# the same outputs at twice the FLOP, a reference only; None: no one call)
+REDESIGNED = {"K1": ("k116inv_dense_kernel", ("fp32", "bf16"), "K7"),
+              "K2": ("k216dir_dense_kernel", ("fp32", "bf16"), "K8"),
+              "K3": ("14k3_pack_kernel", ("fp32", "fp64"), None),
+              "K4": ("18k4_tablegen_kernel", ("fp32", "fp64", "bf16"), None),
+              "K7": ("k717inv_dense2_kernel", ("fp32", "bf16"), "K7"),
+              "K8": ("k817dir_dense2_kernel", ("fp32", "bf16"), "K8")}
+# K1's, K2's, K7's and K8's launch-shape reports in legendre_dense, their
+# rows at the bench shapes, and the table axis (ig or J) they take last
+DENSE_SHAPES = {"K1": ("group_inv_dense_shape", FC2_INV, 2),
+                "K2": ("group_dir_dense_shape", FC2_DIR, 1),
+                "K7": ("group_inv_dense2_shape", 2 * FC2_INV, 2),
+                "K8": ("group_dir_dense2_shape", 2 * FC2_DIR, 1)}
 
 
-def redesign_report(key: str, groups, out: dict) -> None:
-    """Phase 2's line for K1, K2, K7 or K8: the kernel against torch.bmm on
-    the stacked rows from the same call, its bound and the share of it, the
-    table's streaming rate, its device time behind a spin kernel and host
-    time a call (a separate measure, labelled so), its launch shapes and
-    waves per group, and the compiler's registers and spills; no spill is
-    allowed."""
-    from ectrans_tpu_torch.ops import legendre_dense as ld
-
+def redesign_report(key: str, out: dict) -> None:
+    """Phase 2's line for a kernel of REDESIGNED, from its ``hold`` in
+    ``out`` and what phase 2 added to it (``what``: the call; ``shapes``:
+    each launch's shape; ``moved``: a label and the bytes whose rate the line
+    gives; ``note``, optional): the table measure (against torch.bmm where
+    there is a yardstick), the bound with both its terms and the share of
+    it, the rate, the device time behind a spin kernel and the host time a
+    call (a separate measure, labelled so), blocks, threads and waves, and
+    the compiler's registers and spills; no spill is allowed."""
     k = out[key]
-    needle, rows, shape_of, axis, ref = REDESIGNED[key]
-    shapes = [getattr(ld, shape_of)(g.m1 - g.m0, rows, g.pn.shape[axis])
-              for g in groups]
-    bmm = out[ref]["library_ms"]
+    needle, variants, ref = REDESIGNED[key]
+    shapes = k["shapes"]
+    vs = ""
     if ref == key:
-        vs = f"vs torch.bmm {bmm:.3f} ms, in turns ({k['ms'] / bmm:.2f}x)"
-    else:
-        vs = (f"vs torch.bmm on the stacked rows {bmm:.3f} ms ({ref}'s "
+        bmm = out[ref]["library_ms"]
+        vs = f" vs torch.bmm {bmm:.3f} ms, in turns ({k['ms'] / bmm:.2f}x)"
+    elif ref:
+        bmm = out[ref]["library_ms"]
+        vs = (f" vs torch.bmm on the stacked rows {bmm:.3f} ms ({ref}'s "
               f"turns; a reference at twice the FLOP, not a route: "
               f"{k['ms'] / bmm:.2f}x)")
-    table_gbs = tensor_bytes([g.pn for g in groups]) / k["ms"] / 1e6
-    regs = registers(key, needle)
+    label, moved = k["moved"]
+    regs = registers(key, needle, len(variants))
 
     def values(f):
         return "/".join(str(v) for v in sorted({s[f] for s in shapes}))
 
+    def span(xs, fmt="{}"):
+        lo, hi = fmt.format(min(xs)), fmt.format(max(xs))
+        return lo if lo == hi else f"{lo}-{hi}"
+
     wide = [i for i, s in enumerate(shapes)
             if s["threads"] > min(s["threads"] for s in shapes)]
     waves = [s["waves"] for s in shapes]
-    print(f"phase 2 {key} (fp32, {len(groups)} groups, rows {rows}): kernel "
-          f"{k['ms']:.3f} ms {vs}; bound {k['bound_ms']:.3f} ms "
-          f"({k['bound_by']}), {100 * k['bound_ms'] / k['ms']:.1f} % of it; "
-          f"table {table_gbs:.0f} GB/s; behind a spin kernel (device only, "
-          f"not the table's measure) {k['spin_ms']:.3f} ms, "
-          f"{100 * k['bound_ms'] / k['spin_ms']:.1f} % of the bound; host "
-          f"{1e3 * k['host_ms']:.1f} us a call; "
-          f"blocks per launch {min(s['blocks'] for s in shapes)}-"
-          f"{max(s['blocks'] for s in shapes)} of {values('threads')} "
-          f"threads{f' (the more on groups {wide})' if wide else ''}, "
+    first = (f" (groups 0-2: {', '.join(f'{w:.2f}' for w in waves[:3])})"
+             if len(shapes) > 1 else "")
+    err = ("bit-exact" if k["tol"] == "bit-exact" else
+           f"err {k['rel']:.2e} relative (limit {k['tol']}), "
+           f"{'' if k['exact'] else 'not '}bit-identical to the plain version")
+    print(f"phase 2 {key} ({k['what']}): kernel {k['ms']:.3f} ms (table "
+          f"measure, {k['reps']}-call mean){vs}; bound {k['bound_ms']:.4f} ms "
+          f"({k['bound_by']}: bytes {k['bytes_ms']:.4f} ms, operations "
+          f"{k['ops_ms']:.4f} ms), {100 * k['bound_ms'] / k['ms']:.1f} % of "
+          f"it; {label} {moved / k['ms'] / 1e6:.0f} GB/s; behind a spin "
+          f"kernel (device only, not the table's measure) "
+          f"{k['spin_ms']:.3f} ms, {100 * k['bound_ms'] / k['spin_ms']:.1f} % "
+          f"of the bound; host {1e3 * k['host_ms']:.1f} us a call; blocks "
+          f"per launch {span([s['blocks'] for s in shapes])} of "
+          f"{values('threads')} threads"
+          f"{f' (the more on groups {wide})' if wide else ''}, "
           f"{values('blocks_per_sm')} an SM x {shapes[0]['sms']} SMs: "
-          f"{min(waves):.2f}-{max(waves):.2f} waves (groups 0-2: "
-          f"{', '.join(f'{w:.2f}' for w in waves[:3])}); registers "
-          f"{regs['fp32']} (fp32) / {regs['bf16']} (bf16), "
-          f"{values('smem_bytes')} B dynamic shared memory, no spills; err "
-          f"{k['rel']:.2e} relative (limit 5e-6)")
+          f"{span(waves, '{:.2f}')} waves{first}, {values('smem_bytes')} B "
+          f"dynamic shared memory; registers "
+          f"{' / '.join(f'{regs[v]} ({v})' for v in variants)}, no spills; "
+          f"{err}{k.get('note', '')}")
+
+
+def k4_slots(table_dtype=torch.float32) -> int:
+    """K4's fp64-pipe issue slots an entry of a table of ``table_dtype``."""
+    return K4_FP64_PER_ENTRY + (
+        0 if table_dtype == torch.float64 else K4_CVT_PER_ENTRY * CVT_SLOTS)
+
+
+def k4_bound(n_entries: int, nbytes: int, table_dtype=torch.float32) -> dict:
+    """K4's bound: the bytes term and the fp64 term (the fp64-pipe issue
+    slots the kernel's loop takes an entry, at the pipe's instruction rate),
+    in ms, and the larger of the two."""
+    slots = k4_slots(table_dtype)
+    b = bound(n_entries * slots, nbytes, FP64_INSTR)
+    return dict(b, fp64_ms=b["ops_ms"], slots=slots)
+
+
+def k4_input_bytes(groups, ndgnh: int) -> int:
+    """The bytes K4's launch must read for ``groups`` [(m0, m1, i0, J), ...]:
+    for each m, the J recurrence coefficients A and B its columns step
+    through (fp64) and its seeds' mantissas (fp64) and exponents (int32) at
+    the group's latitudes i0 ... ndgnh - 1; and the nodes mu from the first
+    group latitude on (fp64)."""
+    per_m = sum((m1 - m0) * (2 * 8 * J + (8 + 4) * (ndgnh - i0))
+                for m0, m1, i0, J in groups)
+    return per_m + 8 * (ndgnh - min(i0 for _, _, i0, _ in groups))
+
+
+def hold_k4(res, dev: torch.device) -> dict:
+    """K4 at TCO1279: every group in one launch, held against the plain fp64
+    recurrence (1e-7 of the table scale; bit identity reported), on fp32
+    tables and on the "bf16" tier's (which must be the fp32 table rounded to
+    nearest even, bit for bit); times on the table measure (2-call means;
+    plain: 1 call) and behind a spin kernel; its bound counts the tables
+    written and the inputs read (``k4_input_bytes``) against the fp64-pipe
+    slots of its loop."""
+    from ectrans_tpu_torch.ops import legendre_tablegen as tg
+
+    groups = res.legendre_groups()
+    inp = tg._device_inputs(res, dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    n = sum((m1 - m0) * J * (res.ndgnh - i0) for m0, m1, i0, J in groups)
+    in_bytes = k4_input_bytes(groups, res.ndgnh)
+    k = hold("K4", lambda: tg.gen_groups(inp, groups, f32),
+             lambda: [tg.gen_group_plain(inp, m0, m1, J, i0, f32)
+                      for m0, m1, i0, J in groups],
+             [()], tol=1e-7, flop=lambda: n * k4_slots(f32), rate=FP64_INSTR,
+             nbytes=lambda args, got: tensor_bytes(got) + in_bytes, spin=True,
+             reps=2, plain_reps=1)
+    pns, bf = tg.gen_groups(inp, groups, f32), tg.gen_groups(inp, groups, bf16)
+    check(all(torch.equal(b, p.to(bf16)) for b, p in zip(bf, pns)),
+          "K4 bf16 tables are not the fp32 tables rounded to bf16")
+    del pns, bf
+    k["bf16_ms"] = cuda_ms(lambda: tg.gen_groups(inp, groups, bf16), reps=2)
+    b16 = k4_bound(n, 2 * n + in_bytes, bf16)
+    k.update(what=f"fp32 tables, {len(groups)} groups, one launch, {n:,} "
+                  f"entries",
+             shapes=[tg.gen_groups_shape(tg.launch_plan(groups, res.ndgnh)[1])],
+             moved=("writes", 4 * n),
+             note=f"; operations: {k4_slots(f32)} fp64-pipe slots an entry "
+                  f"at {FP64_INSTR:.3g} a second; inputs read "
+                  f"{in_bytes:,} B; bf16 tables {k['bf16_ms']:.3f} ms (bound "
+                  f"{b16['bound_ms']:.4f} ms, {b16['bound_by']}), the fp32 "
+                  f"tables rounded, bit for bit")
+    return k
+
+
+def hold_k3(res, dev: torch.device, gen: torch.Generator) -> dict:
+    """K3 at TCO1279 with bench.py's 10 output fields (vor, div x2, 6
+    scalars), all groups in one launch, bit-exact against the index gather;
+    times on the table measure (3-call means) and behind a spin kernel; its
+    bound counts each packed value read once and written once (the rows
+    past an m's last degree are never read)."""
+    from ectrans_tpu_torch.ops import pack
+
+    nfld = 2 * NFLD_UV + NFLD_SC
+    rows = [torch.randn(m1 - m0, 2 * nfld, J, generator=gen, device=dev)
+            for m0, m1, i0, J in res.legendre_groups()]
+    k = hold("K3", lambda r: pack.packed_from_group_rows(r, res),
+             lambda r: pack.packed_from_group_rows_plain(r, res), [(rows,)],
+             tol=0, nbytes=lambda args, got: 2 * tensor_bytes(got), spin=True)
+    k.update(what=f"fp32, {nfld} fields, {len(rows)} groups, one launch, a "
+                  f"warp a field row of an m",
+             shapes=[pack.packed_from_group_rows_shape(nfld, res.nsmax)],
+             moved=("moves", 2 * 4 * nfld * res.nspec2))
+    return k
+
+
+def k5_library(s, a, ps, pa) -> tuple:
+    """The operands of K5's one-call counterpart: the rows [sym, asym; sym,
+    -asym] (gm, 2 fc2, 2 kg) and the tables [psym, pasym] (gm, 2 kg, ig),
+    whose one torch.bmm is [north; south], at twice K5's FLOP."""
+    return (torch.cat([torch.cat([s, a], 2), torch.cat([s, -a], 2)], 1),
+            torch.cat([ps, pa], 2).transpose(1, 2))
+
+
+def k6_library(fs, fa, ps, pa) -> tuple:
+    """The operands of K6's one-call counterpart: [fsym; fasym] and [psym;
+    pasym] stacked along the batch, whose one torch.bmm is [sym; asym]."""
+    return torch.cat([fs, fa]), torch.cat([ps, pa])
 
 
 def phase_kernels(dev: torch.device) -> dict:
@@ -388,36 +550,12 @@ def phase_kernels(dev: torch.device) -> dict:
     from ectrans_tpu_torch.ops import legendre_dense as ld
     from ectrans_tpu_torch.ops import legendre_grouped as lg
     from ectrans_tpu_torch.ops import legendre_planes as lpl
-    from ectrans_tpu_torch.ops import legendre_tablegen as tg
-    from ectrans_tpu_torch.ops import pack
 
     res = ett.setup("TCO1279")
-    groups = res.legendre_groups()
-    inp = tg._device_inputs(res, dev)
     out = {}
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # K4: all groups, kernel vs the plain fp64 recurrence (fp32 tables)
-    err, scale, t_k, t_p = 0.0, 0.0, 0.0, 0.0
-    for m0, m1, i0, J in groups:
-        t_k += cuda_ms(lambda: tg.gen_group(inp, m0, m1, J, i0, torch.float32),
-                       reps=2)
-        got = tg.gen_group(inp, m0, m1, J, i0, torch.float32)
-        t_p += cuda_ms(lambda: tg.gen_group_plain(inp, m0, m1, J, i0,
-                                                  torch.float32), reps=1)
-        want = tg.gen_group_plain(inp, m0, m1, J, i0, torch.float32)
-        check(bool(torch.isfinite(got).all()), f"K4 group {m0}: non-finite")
-        err = max(err, (got - want).abs().max().item())
-        scale = max(scale, want.abs().max().item())
-        del got, want
-    rel = err / max(1.0, scale)
-    check(rel <= 1e-7, f"K4 vs plain: {rel:.3e} > 1e-7 (table scale)")
-    # writes every table entry once, 3 fp64 operations each (the recurrence)
-    n_out = sum((m1 - m0) * J * (res.ndgnh - i0) for m0, m1, i0, J in groups)
-    out["K4"] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, tol="1e-7 rel",
-                     library_ms=None,
-                     **bound(3 * n_out, 4 * n_out + tensor_bytes(
-                         list(inp.values())), FP64_FLOPS))
+    out["K4"] = hold_k4(res, dev)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -459,20 +597,29 @@ def phase_kernels(dev: torch.device) -> dict:
             library=bmm and (lambda f4, pn: torch.bmm(f4, pn.transpose(1, 2))),
             spin=spin)
         if tdt == torch.float32:
-            for key in REDESIGNED:
-                redesign_report(key, fl.groups, out)
+            for key, (shape_of, rows, axis) in DENSE_SHAPES.items():
+                out[key].update(
+                    what=f"fp32, {len(fl.groups)} groups, rows {rows}",
+                    shapes=[getattr(ld, shape_of)(g.m1 - g.m0, rows,
+                                                  g.pn.shape[axis])
+                            for g in fl.groups],
+                    moved=("table", tensor_bytes([g.pn for g in fl.groups])))
         gl = res.grouped_legendre(tdt, dev)
+        # K5's and K6's one-call counterparts (k5_library, k6_library; their
+        # operands stacked before the timing)
         out["K5" + tag] = hold(
             "K5" + tag, lg.group_inv, lg.group_inv_plain,
             [(rnd(g.m1 - g.m0, FC2_INV, g.kg), rnd(g.m1 - g.m0, FC2_INV, g.kg),
               g.psym, g.pasym) for g in gl.groups],
-            flop=lambda s, a, ps, pa: 4 * s.numel() * ps.shape[1])
+            flop=lambda s, a, ps, pa: 4 * s.numel() * ps.shape[1],
+            library=bmm and (k5_library, bmm))
         out["K6" + tag] = hold(
             "K6" + tag, lg.group_dir, lg.group_dir_plain,
             [(rnd(g.m1 - g.m0, FC2_DIR, g.psym.shape[1]),
               rnd(g.m1 - g.m0, FC2_DIR, g.psym.shape[1]), g.psym, g.pasym)
              for g in gl.groups],
-            flop=lambda fs, fa, ps, pa: 4 * fs.numel() * ps.shape[2])
+            flop=lambda fs, fa, ps, pa: 4 * fs.numel() * ps.shape[2],
+            library=bmm and (k6_library, bmm))
         del gl
         res.drop_cached("grouped_legendre")
     del fl
@@ -501,19 +648,7 @@ def phase_kernels(dev: torch.device) -> dict:
         del ppl
         res.drop_cached("planes_legendre")
 
-    # K3: 10 output fields (vor, div x2, 6 scalars), all groups, bit-exact
-    rows = [torch.randn(m1 - m0, 2 * (2 * NFLD_UV + NFLD_SC), J,
-                        generator=gen, device=dev)
-            for m0, m1, i0, J in groups]
-    got = pack.packed_from_group_rows(rows, res)
-    want = pack.packed_from_group_rows_plain(rows, res)
-    check(torch.equal(got, want), "K3 vs plain: not bit-exact")
-    out["K3"] = dict(max_abs_err=(got - want).abs().max().item(),
-                     ms=cuda_ms(lambda: pack.packed_from_group_rows(rows, res)),
-                     plain_ms=cuda_ms(
-                         lambda: pack.packed_from_group_rows_plain(rows, res)),
-                     tol="bit-exact", library_ms=None,
-                     **bound(0, tensor_bytes(rows, got)))
+    out["K3"] = hold_k3(res, dev, gen)
 
     # K11 (bit-exact) and K12 at the roofline probe's 512 MiB shape
     x = rnd(roofline.N_ROWS, roofline.N_COLS)
@@ -532,6 +667,8 @@ def phase_kernels(dev: torch.device) -> dict:
                       library=lambda x: x.reshape(-1, roofline.OCTET,
                                                   x.shape[-1]).sum(0))
     del x
+    for key in REDESIGNED:
+        redesign_report(key, out)
     print("phase 2 kernels vs plain (TCO1279 shapes): " + "; ".join(
         f"{k} err {v['max_abs_err']:.3e} ({v['tol']}) {v['ms']:.3f} ms vs "
         f"plain {v['plain_ms']:.3f} ms"
@@ -611,11 +748,13 @@ def family_errors(out, sp) -> list:
 
 
 def drive(res, sp, counters: dict, need: tuple, engine="dense",
-          precision="highest", reset=True, absent=()):
+          precision="highest", reset=True, absent=(), once=()):
     """One round trip through an engine's main path with every launch
     counter set to 0 just before (unless the caller did) and read just
-    after; each kernel in ``need`` must have been launched, and none in
-    ``absent``.  Returns (grid, spectra, seconds, launches)."""
+    after; each kernel in ``need`` must have been launched, exactly once
+    for those in ``once`` (K3: one launch a direct transform; K4: one a
+    table build), and none in ``absent``.  Returns (grid, spectra,
+    seconds, launches)."""
     if reset:
         for c in counters.values():
             c.launches = 0
@@ -625,9 +764,10 @@ def drive(res, sp, counters: dict, need: tuple, engine="dense",
     t_first = time.perf_counter() - t0
     launches = {k: counters[k].launches for k in need + absent}
     check(all(launches[k] > 0 for k in need) and
+          all(launches[k] == 1 for k in once) and
           not any(launches[k] for k in absent),
-          f"the {engine} path launched {launches}; expected {need} and not "
-          f"{absent}")
+          f"the {engine} path launched {launches}; expected {need} (once: "
+          f"{once}) and not {absent}")
     check(tuple(grid.shape) == (26, res.ndgl, res.grid.ndlon),
           f"grid shape {tuple(grid.shape)}")
     check(bool(torch.isfinite(grid).all()), "non-finite grid values")
@@ -663,10 +803,11 @@ def phase_bench(dev: torch.device, counters: dict):
     t_setup = time.perf_counter() - t0
     sp = [x.to(dev) for x in bench_inputs(res.nspec2, res.nsmax)]
     torch.cuda.reset_peak_memory_stats()
-    # the counts were set to 0 before the setup, whose tables K4 makes
+    # the counts were set to 0 before the setup, whose tables K4 makes in
+    # one launch; K3 packs the direct transform in one
     grid, out, t_first, launches = drive(res, sp, counters,
                                          ("K1", "K2", "K3", "K4"),
-                                         reset=False)
+                                         reset=False, once=("K3", "K4"))
     del grid
 
     eps32 = float(np.finfo(np.float32).eps)
@@ -688,18 +829,21 @@ def phase_bench(dev: torch.device, counters: dict):
 
 
 # phase 5 rows: engine, tier, environment, kernels that must run, kernels
-# that must not, whether the row's tables are the "bf16" tier's (their run
-# drops every full-n table first, so that the peak shows their own)
+# that must not, kernels that must run exactly once (K3 a direct
+# transform; K4 the "dense" bf16 row's full_legendre build; the "pallas"
+# bf16 row derives its tables one group at a time, a K4 launch each); a
+# "bf16" row of "dense" or "pallas" drops every full-n table first, so that
+# the peak shows its own
 ENGINE_ROWS = (
-    ("pallas", "highest", {}, ("K3", "K5", "K6"), ()),
-    ("planes", "highest", {}, ("K3", "K9", "K10"), ()),
-    ("planes", "bf16", {}, ("K3", "K9", "K10"), ()),
+    ("pallas", "highest", {}, ("K3", "K5", "K6"), (), ("K3",)),
+    ("planes", "highest", {}, ("K3", "K9", "K10"), (), ("K3",)),
+    ("planes", "bf16", {}, ("K3", "K9", "K10"), (), ("K3",)),
     ("dense", "highest", {"ECTRANS_TPU_LEG_DENSE_PACK": "1"},
-     ("K3", "K7", "K8"), ("K1", "K2")),
+     ("K3", "K7", "K8"), ("K1", "K2"), ("K3",)),
     ("dense", "highest", {"ECTRANS_TPU_PACK_KERNEL": "xla"}, ("K1", "K2"),
-     ("K3",)),
-    ("dense", "bf16", {}, ("K1", "K2", "K3"), ()),
-    ("pallas", "bf16", {}, ("K3", "K5", "K6"), ()),
+     ("K3",), ()),
+    ("dense", "bf16", {}, ("K1", "K2", "K3", "K4"), (), ("K3", "K4")),
+    ("pallas", "bf16", {}, ("K3", "K5", "K6"), (), ("K3",)),
 )
 
 
@@ -710,7 +854,7 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
     it (phase 4 for K1-K4).  Returns the DENSE_PACK row's gate ratio, median
     and launches."""
     eps32 = float(np.finfo(np.float32).eps)
-    for engine, precision, env, need, absent in ENGINE_ROWS:
+    for engine, precision, env, need, absent, once in ENGINE_ROWS:
         if precision == "bf16" and engine != "planes":
             res.drop_cached("full_legendre")
         gc.collect()
@@ -718,7 +862,8 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
         torch.cuda.reset_peak_memory_stats()
         with environ(**env):
             grid, out, t_first, got = drive(res, sp, counters, need, engine,
-                                            precision, absent=absent)
+                                            precision, absent=absent,
+                                            once=once)
             del grid
             med, lo, hi = median_ms(res, sp, 3, engine, precision)
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -747,8 +892,7 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
                   f"times, expected {ngroups} each")
             packed = dict(ratio=err / gate, median=med, launches=got)
         for k in need:
-            if k != "K3":
-                launches.setdefault(k, got[k])
+            launches.setdefault(k, got[k])
         knobs = "".join(f" {k}={v}" for k, v in env.items())
         print(f"phase 5 TCO1279 bench round trip ({engine}, {precision}"
               f"{knobs}): {verdict}; first call {t_first:.3f} s; median "
@@ -774,6 +918,48 @@ def ab_report(kern: dict, dense: dict, packed: dict) -> None:
           f"{packed['median']:.1f} ms, launches {packed['launches']}; "
           f"default: {dense['ratio']:.3f} of the gate, median "
           f"{dense['median']:.1f} ms, launches {dense['launches']}")
+
+
+def phase_tco639(dev: torch.device, counters: dict) -> None:
+    """bench.py's second configuration, TCO639 (O640 grid), through the
+    default "dense" fp32 path on inputs made as phase 4's (seed 0): the
+    100*eps gate on every family (at most 1.0 of it), setup time (tables on
+    the card), first call (its own cuFFT plans: a length per NLOEN), median
+    of 3, and K1-K4's launches (K3 and K4 once)."""
+    import ectrans_tpu_torch as ett
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = ett.setup("TCO639")
+    res.full_legendre(torch.float32, dev)
+    res.device_tables(torch.float32, dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    sp = [x.to(dev) for x in bench_inputs(res.nspec2, res.nsmax)]
+    torch.cuda.reset_peak_memory_stats()
+    grid, out, t_first, launches = drive(res, sp, counters,
+                                         ("K1", "K2", "K3", "K4"),
+                                         reset=False, once=("K3", "K4"))
+    del grid
+    eps32 = float(np.finfo(np.float32).eps)
+    err, gate = max(((e, 100 * eps32 * m) for e, m in family_errors(out, sp)),
+                    key=lambda x: x[0] / x[1])
+    check(err <= gate, f"TCO639 round-trip gate: err {err:.4e} > 100*eps*max "
+                       f"{gate:.4e}")
+    med, lo, hi = median_ms(res, sp, 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 7 TCO639 bench round trip (dense, O640 grid, nsmax "
+          f"{res.nsmax}, nspec2 {res.nspec2:,}): err {err:.4e} gate "
+          f"{gate:.4e}, {err / gate:.3f} of it (at most 1.0); setup "
+          f"{t_setup:.2f} s (tables on the card); first round trip "
+          f"{t_first:.3f} s; median {med:.1f} ms (min {lo:.1f}, max "
+          f"{hi:.1f}, n 3); peak {peak:.2f} GiB; launches {launches}; cuFFT "
+          f"plans cached "
+          f"{torch.backends.cuda.cufft_plan_cache[dev.index].size}")
+    res.drop_cached("full_legendre")
 
 
 def phase_roofline(dev: torch.device, counters: dict) -> dict:
@@ -810,6 +996,7 @@ def main() -> int:
     del res, sp
     ab_report(kern, dense, packed)
     launches.update(phase_roofline(dev, counters))
+    phase_tco639(dev, counters)
     print(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k],
              **{f: kern[k][f] for f in ("max_abs_err", "ms", "plain_ms",

@@ -14,6 +14,7 @@ with no CUDA toolkit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,9 +60,11 @@ _ENTRIES = {
     "ect_inv_planes": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                        _SINGLE),
     "ect_dir_planes": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _SINGLE),
-    "ect_compact": ([_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P], _FLOAT),
-    "ect_tablegen": ([_P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-                     _FLOAT),
+    "ect_compact": ([_P, _P, _P, _I, _P, _I, _I, _L, _P], _FLOAT),
+    "ect_compact_shape": ([_I, _I, _P], _SINGLE),
+    "ect_tablegen": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P],
+                     _TABLES),
+    "ect_tablegen_shape": ([_I, _P], _TABLES),
     "ect_copy": ([_P, _P, _L, _P], ("_f32",)),
     "ect_reduce8": ([_P, _P, _P, _L, _I, _I, _P], ("_f32",)),
 }
@@ -150,11 +153,37 @@ def launch(stem: str, dtype: torch.dtype | None, *args) -> None:
     trailing stream."""
     name = stem + ("" if dtype is None else _SUFFIX[dtype])
     fn = getattr(lib(), name)
-    stream = torch.cuda.current_stream().cuda_stream
+    # the raw handle of torch.cuda.current_stream(), without building a
+    # Stream object (a few us a launch)
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def on_device(t: torch.Tensor):
+    """A context in which ``t``'s CUDA device is the current one (nothing to
+    switch, and no cost, when it already is)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def launch_shape(stem: str, dtype: torch.dtype | None, *dims: int) -> dict:
+    """A kernel's launch as C entry ``stem`` (for ``dtype``, as ``launch``)
+    reports it for ``dims`` on the current CUDA device: blocks per launch,
+    threads per block, dynamic shared bytes, resident blocks per SM
+    (occupancy API), the device's SMs, and the waves these make."""
+    info = (ctypes.c_int * 5)()
+    name = stem + ("" if dtype is None else _SUFFIX[dtype])
+    rc = getattr(lib(), name)(*dims, info)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+    blocks, threads, smem, per_sm, sms = info
+    return dict(blocks=blocks, threads=threads, smem_bytes=smem,
+                blocks_per_sm=per_sm, sms=sms,
+                waves=blocks / max(1, per_sm * sms))
 
 
 def check_operand(name: str, t: torch.Tensor, like: torch.Tensor,

@@ -31,8 +31,6 @@ group's kernel operand rows, and the assembly of its outputs) serve the
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
@@ -83,7 +81,7 @@ def group_inv_dense(d2: torch.Tensor, pn: torch.Tensor):
     south = torch.empty_like(north)
     if north.numel() == 0:
         return north.zero_(), south.zero_()
-    with torch.cuda.device(d2.device):
+    with _build.on_device(d2):
         _build.launch("ect_inv_dense", tdt, d2.data_ptr(), pn.data_ptr(),
                       north.data_ptr(), south.data_ptr(), gm, fc2, J, ig)
     group_inv_dense.launches += 1
@@ -95,8 +93,9 @@ group_inv_dense.launches = 0
 
 def group_inv_dense_shape(gm: int, fc2: int, ig: int,
                           table_dtype: torch.dtype = torch.float32) -> dict:
-    """K1's launch for one group (``_launch_shape``)."""
-    return _launch_shape("ect_inv_dense_shape", table_dtype, gm, fc2, ig)
+    """K1's launch for one group (``_build.launch_shape``)."""
+    return _build.launch_shape("ect_inv_dense_shape", table_dtype, gm, fc2,
+                               ig)
 
 
 def group_dir_dense_plain(fn: torch.Tensor, fs: torch.Tensor,
@@ -125,7 +124,7 @@ def group_dir_dense(fn: torch.Tensor, fs: torch.Tensor,
     out = torch.empty((gm, fc2, J), dtype=fn.dtype, device=fn.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(fn.device):
+    with _build.on_device(fn):
         _build.launch("ect_dir_dense", tdt, fn.data_ptr(), fs.data_ptr(),
                       pn.data_ptr(), out.data_ptr(), gm, fc2, J, ig)
     group_dir_dense.launches += 1
@@ -137,8 +136,9 @@ group_dir_dense.launches = 0
 
 def group_dir_dense_shape(gm: int, fc2: int, J: int,
                           table_dtype: torch.dtype = torch.float32) -> dict:
-    """K2's launch for one group (``_launch_shape``)."""
-    return _launch_shape("ect_dir_dense_shape", table_dtype, gm, fc2, J)
+    """K2's launch for one group (``_build.launch_shape``)."""
+    return _build.launch_shape("ect_dir_dense_shape", table_dtype, gm, fc2,
+                               J)
 
 
 def group_inv_dense2_plain(d4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:
@@ -162,7 +162,7 @@ def group_inv_dense2(d4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:
     out = torch.empty((gm, fc4, ig), dtype=d4.dtype, device=d4.device)
     if out.numel() == 0:
         return out.zero_()
-    with torch.cuda.device(d4.device):
+    with _build.on_device(d4):
         _build.launch("ect_inv_dense2", tdt, d4.data_ptr(), pn.data_ptr(),
                       out.data_ptr(), gm, fc4, J, ig)
     group_inv_dense2.launches += 1
@@ -172,26 +172,11 @@ def group_inv_dense2(d4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:
 group_inv_dense2.launches = 0
 
 
-def _launch_shape(stem: str, table_dtype: torch.dtype, *dims: int) -> dict:
-    """A pipelined kernel's launch for one group on the current CUDA device:
-    blocks per launch, threads per block, dynamic shared bytes, resident
-    blocks per SM (occupancy API), the device's SMs, and the waves these
-    make."""
-    info = (ctypes.c_int * 5)()
-    name = stem + _build._SUFFIX[table_dtype]
-    rc = getattr(_build.lib(), name)(*dims, info)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {rc}")
-    blocks, threads, smem, per_sm, sms = info
-    return dict(blocks=blocks, threads=threads, smem_bytes=smem,
-                blocks_per_sm=per_sm, sms=sms,
-                waves=blocks / max(1, per_sm * sms))
-
-
 def group_inv_dense2_shape(gm: int, fc4: int, ig: int,
                            table_dtype: torch.dtype = torch.float32) -> dict:
-    """K7's launch for one group (``_launch_shape``)."""
-    return _launch_shape("ect_inv_dense2_shape", table_dtype, gm, fc4, ig)
+    """K7's launch for one group (``_build.launch_shape``)."""
+    return _build.launch_shape("ect_inv_dense2_shape", table_dtype, gm, fc4,
+                               ig)
 
 
 def group_dir_dense2_plain(f4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:
@@ -215,7 +200,7 @@ def group_dir_dense2(f4: torch.Tensor, pn: torch.Tensor) -> torch.Tensor:
     out = torch.empty((gm, fc4, J), dtype=f4.dtype, device=f4.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(f4.device):
+    with _build.on_device(f4):
         _build.launch("ect_dir_dense2", tdt, f4.data_ptr(), pn.data_ptr(),
                       out.data_ptr(), gm, fc4, J, ig)
     group_dir_dense2.launches += 1
@@ -227,8 +212,9 @@ group_dir_dense2.launches = 0
 
 def group_dir_dense2_shape(gm: int, fc4: int, J: int,
                            table_dtype: torch.dtype = torch.float32) -> dict:
-    """K8's launch for one group (``_launch_shape``)."""
-    return _launch_shape("ect_dir_dense2_shape", table_dtype, gm, fc4, J)
+    """K8's launch for one group (``_build.launch_shape``)."""
+    return _build.launch_shape("ect_dir_dense2_shape", table_dtype, gm, fc4,
+                               J)
 
 
 def group_rows(x: torch.Tensor, g) -> torch.Tensor:

@@ -51,7 +51,7 @@ def group_inv(sym: torch.Tensor, asym: torch.Tensor, psym: torch.Tensor,
     south = torch.empty_like(north)
     if north.numel() == 0:
         return north.zero_(), south.zero_()
-    with torch.cuda.device(sym.device):
+    with _build.on_device(sym):
         _build.launch("ect_inv_grouped", tdt, sym.data_ptr(),
                       asym.data_ptr(), psym.data_ptr(), pasym.data_ptr(),
                       north.data_ptr(), south.data_ptr(), gm, fc2, kg, ig)
@@ -87,7 +87,7 @@ def group_dir(fsym: torch.Tensor, fasym: torch.Tensor, psym: torch.Tensor,
     asym = torch.empty_like(sym)
     if sym.numel() == 0:
         return sym, asym
-    with torch.cuda.device(fsym.device):
+    with _build.on_device(fsym):
         _build.launch("ect_dir_grouped", tdt, fsym.data_ptr(),
                       fasym.data_ptr(), psym.data_ptr(), pasym.data_ptr(),
                       sym.data_ptr(), asym.data_ptr(), gm, fc2, kg, ig)

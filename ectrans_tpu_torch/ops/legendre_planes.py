@@ -138,7 +138,7 @@ def group_inv_planes(a: torch.Tensor, tplanes, nplanes: int, fc2: int):
     if north.numel() == 0:
         return north.zero_(), south.zero_()
     ptrs = [tplanes[min(k, nplanes - 1)].data_ptr() for k in range(3)]
-    with torch.cuda.device(a.device):
+    with _build.on_device(a):
         _build.launch("ect_inv_planes", None, a.data_ptr(), *ptrs,
                       north.data_ptr(), south.data_ptr(), nplanes, gm, fc2,
                       J, ig)
@@ -176,7 +176,7 @@ def group_dir_planes(w: torch.Tensor, tplanes, nplanes: int,
     if out.numel() == 0:
         return out
     ptrs = [tplanes[min(k, nplanes - 1)].data_ptr() for k in range(3)]
-    with torch.cuda.device(w.device):
+    with _build.on_device(w):
         _build.launch("ect_dir_planes", None, w.data_ptr(), *ptrs,
                       out.data_ptr(), nplanes, gm, fc2, J, ig)
     group_dir_planes.launches += 1

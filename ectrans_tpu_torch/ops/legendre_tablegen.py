@@ -12,11 +12,19 @@ The recurrence (``suleg_mod.F90`` / SUPOLF convention)
 
 runs in fp64 per (m, latitude) from the sectoral seed P̄_m^m = mant * 2^E,
 with power-of-two rescaling of the running pair.  ``gen_group_plain`` is the
-same sequence of fp64 operations in PyTorch, vectorized over (m, latitude):
-it is the CPU path and the kernel's reference on the card.
+same sequence of fp64 operations in PyTorch, vectorized over (m, latitude),
+rescaling at every step: it is the CPU path and the kernel's reference on the
+card.  The kernel tests for rescaling every 4 steps, which gives the same
+values (a power-of-two scaling is exact while values stay normal).
+
+``gen_groups`` makes the tables of several groups in one launch (a
+``full_legendre`` build); ``gen_group`` makes one (the one-group-at-a-time
+derivations of ``Resolution._source_groups``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -28,6 +36,9 @@ _RS_HI = 2.0 ** 256
 _RS_LO = 2.0 ** -256
 _RS_SHIFT = 256
 _E_FLUSH = -1400   # |mantissa| <= 2^257: 2^-1400 * 2^257 < fp64 tiny
+THREADS = 128      # K4's block (csrc/tablegen.cu)
+MAX_GROUPS = 16    # groups in one launch (the kernel's parameter block)
+_OUT_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
 def host_inputs(res) -> dict:
@@ -76,12 +87,16 @@ def _emit(p: torch.Tensor, E: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     e1 = torch.div(E, 2, rounding_mode="trunc")
     v = p * _pow2(e1.clamp(min=-700)) * _pow2((E - e1).clamp(min=-700))
     keep = (E >= _E_FLUSH) & (v.abs() >= torch.finfo(dtype).tiny)
-    return torch.where(keep, v, torch.zeros_like(v)).to(dtype)
+    v = torch.where(keep, v, torch.zeros_like(v))
+    if dtype == torch.bfloat16:     # rounded as the fp32 table would be
+        v = v.to(torch.float32)
+    return v.to(dtype)
 
 
 def gen_group_plain(inp: dict, m0: int, m1: int, J: int, i0: int,
                     dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of K4: one group's table (m1-m0, J, ndgnh-i0)."""
+    """Plain version of K4: one group's table (m1-m0, J, ndgnh-i0); a bf16
+    table is the fp32 table rounded to nearest even."""
     x = inp["mu"][i0:]
     p = inp["mant"][m0:m1, i0:].clone()
     E = inp["exp"][m0:m1, i0:].to(torch.int64)
@@ -104,18 +119,40 @@ def gen_group_plain(inp: dict, m0: int, m1: int, J: int, i0: int,
     return out
 
 
-def gen_group(inp: dict, m0: int, m1: int, J: int, i0: int,
-              dtype: torch.dtype) -> torch.Tensor:
-    """One group's table (K4; replaces ``legendre_tablegen._gen_group``) on
-    the device of ``inp``; CPU inputs take ``gen_group_plain``."""
-    if _build.on_cpu(inp["mu"]):
-        return gen_group_plain(inp, m0, m1, J, i0, dtype)
-    ndgnh = inp["mu"].shape[0]
-    M, tc = inp["A"].shape
-    if not (0 <= m0 < m1 <= M and 0 <= i0 < ndgnh and J < tc):
-        raise ValueError(f"group m0={m0} m1={m1} J={J} i0={i0} out of range "
-                         f"(M={M}, ndgnh={ndgnh}, coefficient width {tc})")
+def launch_plan(groups, ndgnh: int) -> tuple:
+    """K4's work order for ``groups`` [(m0, m1, i0, J), ...]: the launch's
+    group descriptors (index into ``groups``, m0, gm, J, i0, ig, first
+    block), longest chains (J) first, each group's gm * ig columns on
+    consecutive blocks of ``THREADS``; and the launch's block count."""
+    if not 1 <= len(groups) <= MAX_GROUPS:
+        raise ValueError(f"{len(groups)} groups in one K4 launch (1 to "
+                         f"{MAX_GROUPS})")
+    order = sorted(range(len(groups)), key=lambda k: -groups[k][3])
+    desc, block = [], 0
+    for k in order:
+        m0, m1, i0, J = groups[k]
+        gm, ig = m1 - m0, ndgnh - i0
+        desc.append((k, m0, gm, J, i0, ig, block))
+        block += -(-gm * ig // THREADS)
+    return tuple(desc), block
+
+
+def gen_groups(inp: dict, groups, dtype: torch.dtype) -> list:
+    """The tables of ``groups`` [(m0, m1, i0, J), ...] (K4; replaces
+    ``legendre_tablegen._gen_group``), one (m1-m0, J, ndgnh-i0) tensor each,
+    in float32, float64 or bfloat16, on the device of ``inp``: one kernel
+    launch for all of them; CPU inputs take ``gen_group_plain`` per group."""
     mu = inp["mu"]
+    if _build.on_cpu(mu):
+        return [gen_group_plain(inp, m0, m1, J, i0, dtype)
+                for m0, m1, i0, J in groups]
+    ndgnh = mu.shape[0]
+    M, tc = inp["A"].shape
+    for m0, m1, i0, J in groups:
+        if not (0 <= m0 < m1 <= M and 0 <= i0 < ndgnh and J < tc):
+            raise ValueError(f"group m0={m0} m1={m1} J={J} i0={i0} out of "
+                             f"range (M={M}, ndgnh={ndgnh}, coefficient "
+                             f"width {tc})")
     _build.check_operand("A", inp["A"], mu, (M, tc))
     _build.check_operand("B", inp["B"], mu, (M, tc))
     _build.check_operand("mant", inp["mant"], mu, (M, ndgnh))
@@ -124,17 +161,34 @@ def gen_group(inp: dict, m0: int, m1: int, J: int, i0: int,
             or sexp.device != mu.device or not sexp.is_contiguous():
         raise ValueError("exp must be a contiguous int32 (M, ndgnh) tensor "
                          "on the device of mu")
-    if dtype not in (torch.float32, torch.float64):
+    if dtype not in _OUT_DTYPES:
         raise TypeError(f"unsupported table dtype {dtype}")
-    gm, ig = m1 - m0, ndgnh - i0
-    out = torch.empty((gm, J, ig), dtype=dtype, device=mu.device)
-    with torch.cuda.device(mu.device):
+    outs = [torch.empty((m1 - m0, J, ndgnh - i0), dtype=dtype,
+                        device=mu.device) for m0, m1, i0, J in groups]
+    desc, nblocks = launch_plan(groups, ndgnh)
+    n = len(desc)
+    ptrs = (ctypes.c_void_p * n)(*(outs[d[0]].data_ptr() for d in desc))
+    ints = (ctypes.c_int * (6 * n))(*(v for d in desc for v in d[1:]))
+    with _build.on_device(mu):
         _build.launch("ect_tablegen", dtype, inp["A"].data_ptr(),
                       inp["B"].data_ptr(), tc, inp["mant"].data_ptr(),
-                      sexp.data_ptr(), ndgnh, mu.data_ptr(), out.data_ptr(),
-                      m0, gm, J, i0, ig)
-    gen_group.launches += 1
-    return out
+                      sexp.data_ptr(), ndgnh, mu.data_ptr(), ptrs, ints, n,
+                      nblocks)
+    gen_groups.launches += 1
+    return outs
 
 
-gen_group.launches = 0
+gen_groups.launches = 0
+
+
+def gen_group(inp: dict, m0: int, m1: int, J: int, i0: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """One group's table: ``gen_groups`` with one group (one K4 launch on a
+    CUDA device, ``gen_group_plain`` on the CPU)."""
+    return gen_groups(inp, [(m0, m1, i0, J)], dtype)[0]
+
+
+def gen_groups_shape(nblocks: int, dtype: torch.dtype = torch.float32) -> dict:
+    """K4's launch of ``nblocks`` blocks on the current CUDA device
+    (``_build.launch_shape``)."""
+    return _build.launch_shape("ect_tablegen_shape", dtype, nblocks)

@@ -12,8 +12,9 @@ The "pallas" engine's direct transform has the dense tensor instead:
 ``dense_to_packed`` realigns it into the same per-group rows (the
 counterpart of ``pack_pallas.dense_to_packed``/``packed_from_mmajor``).
 
-CUDA tensors go through the kernel (``csrc/pack.cu``); CPU tensors through
-the plain index gather.  Both copy values without arithmetic (bit-exact).
+CUDA tensors go through the kernel (``csrc/pack.cu``, one launch for all
+groups); CPU tensors through the plain index gather.  Both copy values
+without arithmetic (bit-exact).
 ``pack_kernel()`` reads ``ECTRANS_TPU_PACK_KERNEL``: at "xla" the direct
 transform of every engine goes to the dense layout and packs with the index
 gather (``layout.dense_to_packed``) instead.
@@ -21,6 +22,7 @@ gather (``layout.dense_to_packed``) instead.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -39,21 +41,23 @@ def pack_kernel() -> str:
             else "kernel")
 
 
-def _segments(res) -> list:
-    """Per group: (m0, m1, seg0, seg1), the packed range of its m-blocks."""
-    nasm0 = res.nasm0
-    out = []
-    for m0, m1, _, _ in res.legendre_groups():
-        seg1 = int(nasm0[m1]) if m1 < res.M else res.nspec2
-        out.append((m0, m1, int(nasm0[m0]), seg1))
-    return out
+def segments(res) -> tuple:
+    """Per group of ``res.legendre_groups()``: (m0, m1, seg0, seg1), the
+    packed range of its m-blocks (cached on the Resolution)."""
+    def build():
+        nasm0 = res.nasm0
+        return tuple((m0, m1, int(nasm0[m0]),
+                      int(nasm0[m1]) if m1 < res.M else res.nspec2)
+                     for m0, m1, _, _ in res.legendre_groups())
+
+    return res.cached(("pack_segments",), build)
 
 
 def _gather_index(res, device: torch.device) -> list:
     """Per group: (m - m0, c, j) of each packed position of its segment."""
     def build():
         out = []
-        for m0, _, seg0, seg1 in _segments(res):
+        for m0, _, seg0, seg1 in segments(res):
             sl = slice(seg0, seg1)
             m = res.packed_gather_m[sl]
             idx = (m - m0, res.packed_gather_c[sl], res.packed_gather_n[sl] - m)
@@ -74,43 +78,85 @@ def packed_from_group_rows_plain(rows_list: list, res) -> torch.Tensor:
     return torch.cat(segs, dim=1)
 
 
+def _launch_groups(res) -> tuple:
+    """K3's per-resolution constants: each group's first m as a C int array
+    (the launch's parameter block), (m0, m1 - m0, the fewest degrees its
+    rows may hold) per group, nsmax and nspec2 (cached on the
+    Resolution)."""
+    def build():
+        segs = segments(res)
+        m0s = (ctypes.c_int * len(segs))(*(m0 for m0, _, _, _ in segs))
+        return (m0s, tuple((m0, m1 - m0, res.nsmax + 1 - m0)
+                           for m0, m1, _, _ in segs), res.nsmax, res.nspec2)
+
+    return res.cached(("pack_launch",), build)
+
+
+def _check_rows(rows_list: list, shapes: tuple) -> None:
+    """Raise on the first group whose rows the kernel does not take."""
+    first = rows_list[0]
+    nfld = first.shape[1] // 2
+    for rows, (m0, gm, need) in zip(rows_list, shapes):
+        _build.check_operand("rows", rows, first,
+                             (gm, 2 * nfld, rows.shape[-1]))
+        if rows.shape[2] < need:
+            raise ValueError(f"rows of group m0={m0} hold {rows.shape[2]} "
+                             f"degrees, need {need}")
+
+
 def packed_from_group_rows(rows_list: list, res) -> torch.Tensor:
     """Per-group c-major m-major realigned rows [(gm, 2*nfld, Jg), ...]
-    (one entry per group of ``res.legendre_groups()``) -> packed
-    (nfld, nspec2).  Replaces ``pack_pallas.packed_from_group_rows``
-    (kernel ``_compact_group``); one kernel launch per group."""
-    segs = _segments(res)
-    if len(rows_list) != len(segs):
-        raise ValueError(f"{len(rows_list)} row groups for {len(segs)} "
+    (one entry per group of ``res.legendre_groups()``, Jg at least the
+    group's nsmax + 1 - m0 degrees) -> packed (nfld, nspec2).  Replaces
+    ``pack_pallas.packed_from_group_rows`` (kernel ``_compact_group``): one
+    kernel launch for all groups, after one cheap shape check a group (the
+    host's time a call shows beside the kernel's ~0.06 ms at TCO1279)."""
+    m0s, shapes, nsmax, nspec2 = _launch_groups(res)
+    if len(rows_list) != len(shapes):
+        raise ValueError(f"{len(rows_list)} row groups for {len(shapes)} "
                          "Legendre groups")
     first = rows_list[0]
     if _build.on_cpu(first):
         return packed_from_group_rows_plain(rows_list, res)
-    nfld = first.shape[1] // 2
-    out = torch.empty((nfld, res.nspec2), dtype=first.dtype,
-                      device=first.device)
-    tables = res.device_tables(first.dtype, first.device)
-    with torch.cuda.device(first.device):
-        for rows, (m0, m1, seg0, seg1) in zip(rows_list, segs):
-            jrow = rows.shape[2]
-            _build.check_operand("rows", rows, first, (m1 - m0, 2 * nfld, jrow))
-            if jrow < res.nsmax + 1 - m0:
-                raise ValueError(f"rows of group m0={m0} hold {jrow} degrees, "
-                                 f"need {res.nsmax + 1 - m0}")
-            _build.launch("ect_compact", first.dtype, rows.data_ptr(),
-                          tables.nasm0.data_ptr(), out.data_ptr(), nfld, jrow,
-                          m0, m1, seg0, seg1 - seg0, res.nspec2)
-            packed_from_group_rows.launches += 1
+    nrow = first.shape[1]
+    dtype, device = first.dtype, first.device
+    ptrs, jrow = [], []
+    for rows, (_, gm, need) in zip(rows_list, shapes):
+        shape = rows.shape
+        if not (len(shape) == 3 and shape[0] == gm and shape[1] == nrow
+                and shape[2] >= need and rows.dtype == dtype
+                and rows.device == device and rows.is_contiguous()):
+            _check_rows(rows_list, shapes)
+        ptrs.append(rows.data_ptr())
+        jrow.append(shape[2])
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"rows have dtype {dtype}, expected float32 or "
+                        "float64")
+    if nrow % 2:
+        raise ValueError(f"rows hold {nrow} field rows, expected 2 * nfld")
+    out = torch.empty((nrow // 2, nspec2), dtype=dtype, device=device)
+    n = len(ptrs)
+    with _build.on_device(first):
+        _build.launch("ect_compact", dtype, (ctypes.c_void_p * n)(*ptrs),
+                      m0s, (ctypes.c_int * n)(*jrow), n, out.data_ptr(),
+                      nrow // 2, nsmax, nspec2)
+    packed_from_group_rows.launches += 1
     return out
 
 
 packed_from_group_rows.launches = 0
 
 
+def packed_from_group_rows_shape(nfld: int, nsmax: int) -> dict:
+    """K3's launch for nfld fields at truncation nsmax on the current CUDA
+    device (``_build.launch_shape``)."""
+    return _build.launch_shape("ect_compact_shape", None, nfld, nsmax)
+
+
 def dense_to_packed(dense: torch.Tensor, res) -> torch.Tensor:
     """(nfld, 2, M, NP) dense -> (nfld, nspec2) packed through K3: realign
-    the diagonals (a pad + reshape), go m-major and c-major, then one launch
-    per group.  Entries of the rows past each m's last degree are
+    the diagonals (a pad + reshape), go m-major and c-major, then K3's one
+    launch.  Entries of the rows past each m's last degree are
     neighbouring rows' data, which the packing never reads."""
     nfld, _, M, NP = dense.shape
     mm = diag_realign(dense).permute(2, 1, 0, 3).reshape(M, 2 * nfld, NP + 1)

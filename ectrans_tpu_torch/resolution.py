@@ -10,9 +10,9 @@ request for one (dtype, device) pair and cached on the Resolution itself:
   pn[m, j, i] = P̄_{m+j}^m(mu_i) streamed by the dense-row kernels, in a
   table dtype (float32, float64, or bfloat16 for the "bf16" tier).  On a
   CUDA device they are generated on the card by the table-generator kernel
-  (``ops.legendre_tablegen``, a few MB of seeds instead of GiBs of host
-  tables); on the CPU they come from the host fp64 recurrence, built only
-  when asked for;
+  (``ops.legendre_tablegen``, one launch for all groups, from a few MB of
+  seeds instead of GiBs of host tables); on the CPU they come from the
+  host fp64 recurrence, built only when asked for;
 * ``grouped_legendre(dtype, device)`` and ``planes_legendre(nplanes,
   device)``: the parity pairs of the "xla"/"pallas" engines and the bf16
   limb planes of the "planes" engine, both derived from those pn tables on
@@ -255,17 +255,15 @@ class Resolution:
 
     def _new_full_groups(self, dtype: torch.dtype, device: torch.device):
         """Each group's full-n table made anew on ``device``, one at a time:
-        by the table kernel (K4) on a GPU, from the host fp64 build on the
-        CPU.  A bf16 group is K4's fp32 group rounded to nearest even (the
-        fp32 group is dropped before the next is made); on the CPU the fp64
-        values are rounded as the JAX package's host tables are."""
+        by the table kernel (K4, one launch a group, bf16 written directly)
+        on a GPU, from the host fp64 build on the CPU (the fp64 values
+        rounded as the JAX package's host tables are)."""
         groups = self.legendre_groups()
         if device.type == "cuda":
             from .ops import legendre_tablegen as tg
 
             inp = tg._device_inputs(self, device)
-            gen = torch.float32 if dtype == torch.bfloat16 else dtype
-            pns = (tg.gen_group(inp, m0, m1, J, i0, gen).to(dtype)
+            pns = (tg.gen_group(inp, m0, m1, J, i0, dtype)
                    for m0, m1, i0, J in groups)
         elif device.type == "cpu":
             pns = (torch.from_numpy(pn).to(dtype)
@@ -284,17 +282,29 @@ class Resolution:
             return iter(fl.groups)
         return self._new_full_groups(dtype, device)
 
+    def _build_full_legendre(self, dtype: torch.dtype,
+                             device: torch.device) -> FullLegendre:
+        groups = self.legendre_groups()
+        if device.type == "cuda":
+            from .ops import legendre_tablegen as tg
+
+            pns = tg.gen_groups(tg._device_inputs(self, device), groups,
+                                dtype)
+            full = tuple(FullGroup(m0=m0, m1=m1, i0=i0, J=J, pn=pn)
+                         for (m0, m1, i0, J), pn in zip(groups, pns))
+        else:
+            full = tuple(self._new_full_groups(dtype, device))
+        return FullLegendre(groups=full, ndgnh=self.ndgnh, kmax=self.kmax)
+
     def full_legendre(self, dtype=torch.float32, device="cpu") -> FullLegendre:
         """Per-m-group full-n tables of table dtype ``dtype`` (float32,
         float64 or bfloat16) on ``device``: generated by the CUDA table
-        kernel on a GPU, copied from the host fp64 build on the CPU."""
+        kernel on a GPU (one launch for all groups), copied from the host
+        fp64 build on the CPU."""
         dtype = check_table_dtype(dtype)
         device = canonical_device(device)
-        return self.cached(
-            ("full_legendre", dtype, str(device)),
-            lambda: FullLegendre(
-                groups=tuple(self._new_full_groups(dtype, device)),
-                ndgnh=self.ndgnh, kmax=self.kmax))
+        return self.cached(("full_legendre", dtype, str(device)),
+                           lambda: self._build_full_legendre(dtype, device))
 
     def grouped_legendre(self, dtype=torch.float32,
                          device="cpu") -> GroupedLegendre:

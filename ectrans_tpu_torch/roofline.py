@@ -68,7 +68,7 @@ def stream_copy(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         _build.launch("ect_copy", torch.float32, x.data_ptr(), out.data_ptr(),
                       x.numel())
     stream_copy.launches += 1
@@ -100,7 +100,7 @@ def read_reduce(x: torch.Tensor) -> torch.Tensor:
     partial = torch.empty((slices, OCTET, cols), dtype=x.dtype,
                           device=x.device)
     out = torch.empty((OCTET, cols), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x):
         _build.launch("ect_reduce8", torch.float32, x.data_ptr(),
                       partial.data_ptr(), out.data_ptr(), rows, cols, slices)
     read_reduce.launches += 1

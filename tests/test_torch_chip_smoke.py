@@ -166,3 +166,201 @@ def test_round_trip_is_inside_the_gate(smoke):
     bad[2][0, 5] = np.nan
     with pytest.raises(RuntimeError, match="non-finite"):
         smoke.family_errors(bad, sp)
+
+
+def test_k4_bound_counts_fp64_issue_slots(smoke):
+    """K4's bound: the table's bytes against the fp64-pipe issue slots of
+    its loop (5 arithmetic instructions and a conversion at a quarter rate
+    an fp32 entry; no conversion for fp64 tables) at 17e12 a second, the
+    34 TFLOP/s data-sheet rate that counts an FMA as two operations."""
+    n = 926_445_600                                  # TCO1279's entries
+    b = smoke.k4_bound(n, 4 * n)
+    assert b["slots"] == 9 and b["bound_by"] == "bytes"
+    assert b["fp64_ms"] == pytest.approx(n * 9 / 17e12 * 1e3)
+    assert b["bytes_ms"] == pytest.approx(4 * n / 3.35e12 * 1e3)
+    assert b["bound_ms"] == b["bytes_ms"]
+    assert smoke.k4_bound(n, 8 * n, torch.float64)["slots"] == 5
+    b16 = smoke.k4_bound(n, 2 * n, torch.bfloat16)
+    assert b16["slots"] == 9 and b16["bound_ms"] == pytest.approx(
+        max(b16["bytes_ms"], b16["fp64_ms"]))
+    assert smoke.k4_bound(n, n // 4)["bound_by"] == "operations"
+
+
+PACK_TABLEGEN_LOG = (
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k314k3_pack_kernelIfEEvNS_6GroupsEPT_iix' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 26 registers, 664 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k314k3_pack_kernelIdEEvNS_6GroupsEPT_iix' for 'sm_90a'\n"
+    "    0 bytes stack frame, {k3} bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 30 registers, 664 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k418k4_tablegen_kernelIfEEvPKdS2_iS2_PKiiS2_NS_6GroupsE' for "
+    "'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 48 registers, 900 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k418k4_tablegen_kernelIdEEvPKdS2_iS2_PKiiS2_NS_6GroupsE' for "
+    "'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, {k4} bytes spill loads\n"
+    "ptxas info    : Used 56 registers, 900 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k418k4_tablegen_kernelI13__nv_bfloat16EEvPKdS3_iS3_PKiiS3_NS_6"
+    "GroupsE' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 50 registers, 900 bytes cmem[0]\n")
+
+
+@pytest.mark.parametrize("key,variants,regs", [
+    ("K3", 2, {"fp32": 26, "fp64": 30}),
+    ("K4", 3, {"fp32": 48, "fp64": 56, "bf16": 50})])
+@pytest.mark.parametrize("spill", [0, 8])
+def test_registers_of_k3_k4_refuse_a_spill(smoke, tmp_path, monkeypatch,
+                                           key, variants, regs, spill):
+    """K3's and K4's lines read their variants' registers (fp32 and fp64;
+    and bf16 for K4) from build.log; a spill in any fails the run."""
+    log = PACK_TABLEGEN_LOG.format(k3=spill if key == "K3" else 0,
+                                   k4=spill if key == "K4" else 0)
+    (tmp_path / "build.log").write_text(log + DENSE_LOG.format(k1=0, k2=0,
+                                                               spill=0))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    needle = smoke.REDESIGNED[key][0]
+    if spill:
+        with pytest.raises(RuntimeError, match="spills"):
+            smoke.registers(key, needle, variants)
+    else:
+        assert smoke.registers(key, needle, variants) == regs
+
+
+class _Event:
+    """A CUDA event on the host clock (the lines' arithmetic, on the CPU)."""
+
+    def __init__(self, **kw):
+        self.t = 0.0
+
+    def record(self):
+        import time
+
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+@pytest.fixture
+def cpu_card(smoke, tmp_path, monkeypatch):
+    """chip_smoke's K3 and K4 holds on the CPU: events on the host clock,
+    a launch report and a build.log of K3's and K4's variants."""
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda *a: None)
+    monkeypatch.setattr(_build, "launch_shape", lambda stem, dt, *d: dict(
+        blocks=1600, threads=256, smem_bytes=0, blocks_per_sm=8, sms=132,
+        waves=1600 / 1056))
+    (tmp_path / "build.log").write_text(PACK_TABLEGEN_LOG.format(k3=0, k4=0))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    return torch.device("cpu")
+
+
+def test_k3_line(smoke, cpu_card, capsys):
+    """K3's hold at O48 (10 fields): bit-exact; its bound counts each packed
+    value read once and written once, and its line prints the bound with
+    both terms and its share, the device and host times, the launch and the
+    registers."""
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup("O48", 47)
+    k = smoke.hold_k3(res, cpu_card, torch.Generator().manual_seed(0))
+    assert k["max_abs_err"] == 0.0 and k["tol"] == "bit-exact" and k["exact"]
+    assert k["bound_by"] == "bytes" and k["spin_ms"] > 0
+    assert k["bound_ms"] == pytest.approx(2 * 10 * res.nspec2 * 4
+                                          / 3.35e12 * 1e3)
+    smoke.redesign_report("K3", {"K3": k})
+    line = capsys.readouterr().out
+    assert line.startswith("phase 2 K3 (fp32, 10 fields, 6 groups, one "
+                           "launch")
+    for part in ("% of it", "operations 0.0000 ms", "moves", "GB/s",
+                 "behind a spin kernel", "us a call",
+                 "blocks per launch 1600 of 256 threads", "1.52 waves",
+                 "registers 26 (fp32) / 30 (fp64), no spills", "bit-exact"):
+        assert part in line, part
+
+
+def test_k4_line(smoke, cpu_card, capsys):
+    """K4's hold at O48: one launch's tables against the plain recurrence
+    (bit-identical), bf16 the rounded fp32; its bound counts the tables and
+    the inputs read, and its line prints both terms of the bound."""
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup("O48", 47)
+    k = smoke.hold_k4(res, cpu_card)
+    groups = res.legendre_groups()
+    n = sum((m1 - m0) * J * (res.ndgnh - i0) for m0, m1, i0, J in groups)
+    assert k["max_abs_err"] == 0.0 and k["exact"]
+    assert k["bytes_ms"] == pytest.approx(
+        (4 * n + smoke.k4_input_bytes(groups, res.ndgnh)) / 3.35e12 * 1e3)
+    assert k["ops_ms"] == pytest.approx(9 * n / 17e12 * 1e3)
+    smoke.redesign_report("K4", {"K4": k})
+    line = capsys.readouterr().out
+    assert f"{n:,} entries" in line
+    for part in ("bound", "bytes", "operations", "9 fp64-pipe slots an "
+                 "entry", "bf16 tables", "registers 48 (fp32) / 56 (fp64) / "
+                 "50 (bf16), no spills", "bit-identical to the plain"):
+        assert part in line, part
+
+
+def test_k4_input_bytes_count_what_its_columns_read(smoke):
+    """k4_input_bytes against a mask of every input entry K4's columns read
+    at O48: A and B at steps 1 ... J of each m, the seeds at the group's
+    latitudes, mu at every latitude a group starts at or after."""
+    import numpy as np
+
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.ops import legendre_tablegen as tg
+
+    res = ett.setup("O48", 47)
+    inp = tg.host_inputs(res)
+    read = {k: np.zeros(v.shape, bool) for k, v in inp.items()}
+    groups = res.legendre_groups()
+    for m0, m1, i0, J in groups:
+        for key in ("A", "B"):
+            read[key][m0:m1, 1:J + 1] = True
+        for key in ("mant", "exp"):
+            read[key][m0:m1, i0:] = True
+        read["mu"][i0:] = True
+    want = sum(int(read[k].sum()) * inp[k].itemsize for k in read)
+    assert smoke.k4_input_bytes(groups, res.ndgnh) == want
+
+
+@pytest.mark.parametrize("key", ["K5", "K6"])
+def test_library_call_computes_the_kernels_function(smoke, key):
+    """K5's and K6's one-call counterparts: one torch.bmm on the operands of
+    k5_library / k6_library gives the plain version's two outputs, stacked
+    ([north; south] along the rows, [sym; asym] along the batch)."""
+    from ectrans_tpu_torch.ops import legendre_grouped as lg
+
+    gen = torch.Generator().manual_seed(0)
+    gm, fc2, kg, ig = 3, 4, 5, 7
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64)
+
+    if key == "K5":
+        args = (rnd(gm, fc2, kg), rnd(gm, fc2, kg), rnd(gm, ig, kg),
+                rnd(gm, ig, kg))
+        want = lg.group_inv_plain(*args)
+        got = torch.bmm(*smoke.k5_library(*args))
+        got = got[:, :fc2], got[:, fc2:]
+    else:
+        args = (rnd(gm, fc2, ig), rnd(gm, fc2, ig), rnd(gm, ig, kg),
+                rnd(gm, ig, kg))
+        want = lg.group_dir_plain(*args)
+        got = torch.bmm(*smoke.k6_library(*args))
+        got = got[:gm], got[gm:]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)

@@ -11,7 +11,8 @@ products of rounded operands are exact in fp32) / 1e-12 (fp64) relative to
 the output's max, and K1/K2/K7/K8 within 1.5x the error of the template
 K1's and K2's summation order (its fp32 emulation in test_torch_k7_sums.py)
 against an fp64 product, K9/K10 5e-6 (fp32 sums of exact bf16 products); K4 1e-7
-of the table scale; K3 and K11 bit-exact; K12 1e-6 relative; the slice as
+of the table scale one group a launch, and bit-exact on the all-groups
+launch; K3 and K11 bit-exact; K12 1e-6 relative; the slice as
 in test_torch_transform.py (fp64 1e-10 relative, fp32 2e-5 + 1e-5
 relative).
 """
@@ -77,6 +78,30 @@ def test_tablegen_kernel_matches_plain(dev, dtype):
         assert got.shape == want.shape and got.dtype == dtype
         assert (got - want).abs().max().item() <= 1e-7 * max(
             1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("name,nsmax", [("O160", 159), ("F160", 159)])
+@pytest.mark.parametrize("dtype", DTYPES + [torch.bfloat16])
+def test_tablegen_all_groups_match_plain(dev, name, nsmax, dtype):
+    """K4 on every group in one launch (a full_legendre build): the plain
+    recurrence's entries bit for bit (the kernel's rescaling every 4 steps
+    and its exponent-bit tests change no value), bf16 tables the fp32
+    tables rounded to nearest even; and full_legendre makes them in one
+    launch."""
+    res = ett.setup(name, nsmax)
+    inp = tg._device_inputs(res, dev)
+    groups = res.legendre_groups()
+    tg.gen_groups.launches = 0
+    got = tg.gen_groups(inp, groups, dtype)
+    assert tg.gen_groups.launches == 1
+    for pn, (m0, m1, i0, J) in zip(got, groups):
+        want = tg.gen_group_plain(inp, m0, m1, J, i0, dtype)
+        assert pn.shape == want.shape and pn.dtype == dtype
+        assert torch.equal(pn, want), (m0, (pn.float() - want.float()).abs().max())
+    tg.gen_groups.launches = 0
+    fl = res.full_legendre(dtype, dev)
+    assert tg.gen_groups.launches == 1
+    assert all(torch.equal(g.pn, pn) for g, pn in zip(fl.groups, got))
 
 
 def k7_edge_cases(dev, dtype, tdt, fc4, g):
@@ -352,15 +377,42 @@ def test_engine_round_trip_launches_its_kernels(dev, monkeypatch, engine,
     sp = [packed(res, n, seed) for n, seed in ((2, 3), (2, 4), (6, 5))]
     round_trip(res, sp, torch.float32, dev, engine)
     ngroups = len(res.legendre_groups())
+    # a Legendre kernel launches once a group, K3 once a direct transform
     assert {k: c.launches for k, c in counters.items()} == {
-        k: ngroups if k in kernels else 0 for k in counters}
+        k: (1 if k == "pack" else ngroups) if k in kernels else 0
+        for k in counters}
 
 
+@pytest.mark.parametrize("nfld", [1, 3, 10])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_pack_kernel_matches_plain(dev, dtype):
+def test_pack_kernel_matches_plain(dev, dtype, nfld):
+    """K3, one launch for all groups, bit-exact against the index gather:
+    rows of the Legendre groups' J, rows longer than that (the kernel reads
+    only the first nsmax + 1 - m degrees of an m), and rows from the dense
+    layout (dense_to_packed: J cut to NP + 1)."""
     res = ett.setup("O160", 159)
     g = torch.Generator(device=dev).manual_seed(1)
-    rows = [torch.randn(m1 - m0, 20, J, generator=g, device=dev, dtype=dtype)
+    for extra in (0, 5):
+        rows = [torch.randn(m1 - m0, 2 * nfld, J + extra, generator=g,
+                            device=dev, dtype=dtype)
+                for m0, m1, _, J in res.legendre_groups()]
+        pack.packed_from_group_rows.launches = 0
+        got = pack.packed_from_group_rows(rows, res)
+        assert pack.packed_from_group_rows.launches == 1
+        assert got.shape == (nfld, res.nspec2) and got.dtype == dtype
+        assert torch.equal(got, pack.packed_from_group_rows_plain(rows, res))
+    dense = torch.randn(nfld, 2, res.M, res.NP, generator=g, device=dev,
+                        dtype=dtype)
+    want = pack.dense_to_packed(dense.cpu(), res)
+    assert torch.equal(pack.dense_to_packed(dense, res).cpu(), want)
+
+
+def test_pack_kernel_at_tco1279(dev):
+    """K3 at the bench's TCO1279 shape (10 fields, 16 groups, 1,280 m):
+    bit-exact against the index gather, in one launch."""
+    res = ett.setup("TCO1279")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = [torch.randn(m1 - m0, 20, J, generator=g, device=dev)
             for m0, m1, _, J in res.legendre_groups()]
     assert torch.equal(pack.packed_from_group_rows(rows, res),
                        pack.packed_from_group_rows_plain(rows, res))
@@ -381,15 +433,17 @@ def test_slice_on_card_matches_cpu(dev, dtype):
 
 
 def test_round_trip_launches_every_kernel(dev):
+    """The default path: K1 and K2 once a group, K3 once a direct
+    transform, K4 once for the full_legendre build."""
     counters = [ld.group_inv_dense, ld.group_dir_dense,
-                pack.packed_from_group_rows, tg.gen_group]
+                pack.packed_from_group_rows, tg.gen_groups]
     for c in counters:
         c.launches = 0
     res = ett.setup("O48", 47)
     sp = [packed(res, n, seed) for n, seed in ((2, 3), (2, 4), (6, 5))]
     round_trip(res, sp, torch.float32, dev)
     ngroups = len(res.legendre_groups())
-    assert [c.launches for c in counters] == [ngroups] * 4
+    assert [c.launches for c in counters] == [ngroups, ngroups, 1, 1]
 
 
 def test_wrappers_reject_bad_operands(dev):
@@ -411,6 +465,21 @@ def test_wrappers_reject_bad_operands(dev):
         roofline.stream_copy(torch.zeros(6, device=dev))
     with pytest.raises(ValueError, match="rows % 8"):
         roofline.read_reduce(torch.zeros(12, 8, device=dev))
+    res = ett.setup("O48", 47)
+    rows = [torch.zeros(m1 - m0, 4, J, device=dev)
+            for m0, m1, _, J in res.legendre_groups()]
+    with pytest.raises(ValueError, match="need"):
+        pack.packed_from_group_rows([r[..., :-3].contiguous() for r in rows],
+                                    res)
+    with pytest.raises(TypeError, match="dtype"):
+        pack.packed_from_group_rows(rows[:-1] + [rows[-1].double()], res)
+    with pytest.raises(ValueError, match="contiguous"):
+        pack.packed_from_group_rows(
+            rows[:-1] + [rows[-1].transpose(0, 1).contiguous()
+                         .transpose(0, 1)], res)
+    with pytest.raises(ValueError, match="1 to 16"):
+        tg.gen_groups(tg._device_inputs(res, dev),
+                      [res.legendre_groups()[0]] * 17, torch.float32)
     planes = (torch.zeros(2, 5, 6, device=dev, dtype=torch.bfloat16),)
     with pytest.raises(TypeError, match="dtype"):
         lp.group_inv_planes(torch.zeros(2, 8, 6, device=dev), planes, 1, 4)
