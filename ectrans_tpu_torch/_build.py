@@ -53,10 +53,12 @@ _ENTRIES = {
     "ect_inv_dense2_shape": ([_I, _I, _I, _P], _FP32_OPS),
     "ect_dir_dense_shape": ([_I, _I, _I, _P], _FP32_OPS),
     "ect_dir_dense2_shape": ([_I, _I, _I, _P], _FP32_OPS),
-    "ect_inv_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ect_inv_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                         _TABLES),
-    "ect_dir_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ect_dir_grouped": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                         _TABLES),
+    "ect_inv_grouped_shape": ([_I, _I, _I, _I, _P], _FP32_OPS),
+    "ect_dir_grouped_shape": ([_I, _I, _I, _I, _P], _FP32_OPS),
     "ect_inv_planes": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
                        _SINGLE),
     "ect_dir_planes": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _SINGLE),
@@ -191,6 +193,28 @@ def check_operand(name: str, t: torch.Tensor, like: torch.Tensor,
     """Validate a kernel operand against the first one (device; dtype, or
     the given ``dtype``) and its expected shape; kernels take contiguous
     tensors only."""
+    _check_kind(name, t, like, shape, dtype)
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_rows(name: str, t: torch.Tensor, like: torch.Tensor, shape: tuple,
+               dtype: torch.dtype | None = None) -> int:
+    """As ``check_operand`` for a 3-d operand whose rows may be padded: its
+    last axis contiguous, rows ``ld >= shape[2]`` elements apart and the
+    leading axis ``shape[1] * ld`` apart (a view of the first ``shape[2]``
+    columns of a contiguous tensor).  Returns ``ld``."""
+    _check_kind(name, t, like, shape, dtype)
+    ld = t.stride(1) if t.numel() else shape[2]
+    if t.numel() and (t.stride(2) != 1 or ld < shape[2]
+                      or (shape[0] > 1 and t.stride(0) != shape[1] * ld)):
+        raise ValueError(f"{name} must be contiguous but for padded rows, "
+                         f"got strides {t.stride()}")
+    return ld
+
+
+def _check_kind(name: str, t: torch.Tensor, like: torch.Tensor,
+                shape: tuple, dtype: torch.dtype | None) -> None:
     if t.device != like.device:
         raise ValueError(f"{name} is on device {t.device}, expected "
                          f"{like.device}")
@@ -203,8 +227,6 @@ def check_operand(name: str, t: torch.Tensor, like: torch.Tensor,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def table_dtype(x: torch.Tensor, table: torch.Tensor) -> torch.dtype:

@@ -1,6 +1,7 @@
 // Arithmetic shared by the dense-row (K1, K2, K7, K8) and parity-split (K5,
-// K6) Legendre kernels: compensated chunk sums, and the operand and table
-// types of each variant; and the launch report of the pipelined K7 and K8.
+// K6) Legendre kernels: compensated chunk sums; the operand and table
+// types of each variant; the launch report of the pipelined K7 and K8, and
+// the resident slots that K2's, K6's and K8's splits are sized from.
 //
 // A kernel variant is a pair (T, P): T the arithmetic and operand type
 // (float or double), P the table's storage type.  P = T is the "highest"
@@ -15,6 +16,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace ect {
@@ -72,6 +74,24 @@ inline int launch_shape(Kernel kernel, dim3 grid, int threads, int smem,
   info[3] = per_sm;
   info[4] = sms;
   return (int)e;
+}
+
+// resident blocks of KERNEL on the card (blocks an SM x SMs) at `threads`
+// threads and `smem` bytes of dynamic shared memory, for the launches that
+// size a split from it (K2, K6, K8): asked of the occupancy API once per
+// kernel, on the device of its first launch, since asked at every launch it
+// costs host time on the main path
+template <auto KERNEL>
+inline int resident_slots(int threads, int smem, long* slots) {
+  static std::atomic<long> cached{0};
+  *slots = cached.load(std::memory_order_relaxed);
+  if (*slots > 0) return 0;
+  int info[5];
+  const int e = launch_shape(KERNEL, dim3(1), threads, smem, info);
+  if (e != 0) return e;
+  *slots = (long)info[3] * info[4];
+  cached.store(*slots, std::memory_order_relaxed);
+  return 0;
 }
 
 }  // namespace ect

@@ -90,7 +90,6 @@
 // template in legendre_dense.cu.
 
 #include <algorithm>
-#include <atomic>
 #include <initializer_list>
 
 #include "cp_async.cuh"
@@ -413,23 +412,15 @@ dim3 grid_of(int gm, int rows, int J) {
 }
 
 // sub-blocks a block for this launch: 2 where the half-length blocks take
-// fewer rounds of the card's resident slots than the whole ones (the
-// rounds' tail), else 1; a block of 2 sub-blocks takes the slots of 2.
-// The slots (blocks an SM x SMs) are asked of the occupancy API once per
-// kernel (Kernel's type, with PAR, names one kernel), on the device of its
-// first launch: asked at every launch, they cost host time on the main path
-template <bool PAR, typename Kernel>
-int split_of(Kernel kernel, dim3 grid, int* split) {
-  static std::atomic<long> cached{0};
-  long slots = cached.load(std::memory_order_relaxed);
+// fewer rounds of the card's resident slots (ect::resident_slots) than the
+// whole ones (the rounds' tail), else 1; a block of 2 sub-blocks takes the
+// slots of 2
+template <bool PAR, auto KERNEL>
+int split_of(dim3 grid, int* split) {
+  long slots = 0;
   *split = 1;
-  if (slots == 0) {
-    int info[5];
-    const int e = ect::launch_shape(kernel, grid, SUB, Tile<PAR>::SMEM, info);
-    if (e != 0) return e;
-    slots = (long)info[3] * info[4];
-    cached.store(slots, std::memory_order_relaxed);
-  }
+  const int e = ect::resident_slots<KERNEL>(SUB, Tile<PAR>::SMEM, &slots);
+  if (e != 0) return e;
   if (slots > 0) {
     const long blocks = (long)grid.x * grid.y * grid.z;
     const long whole = (blocks + slots - 1) / slots;         // rounds
@@ -440,34 +431,34 @@ int split_of(Kernel kernel, dim3 grid, int* split) {
 }
 
 // launch K8 (operands f4) or K2 (fn, fs): the C entries' common part
-template <bool PAR, typename P, typename Kernel, typename... Ops>
-int launch(Kernel kernel, const void* pn, void* out, int gm, int rows, int J,
-           int ig, void* stream, Ops... ops) {
+template <bool PAR, typename P, auto KERNEL, typename... Ops>
+int launch(const void* pn, void* out, int gm, int rows, int J, int ig,
+           void* stream, Ops... ops) {
   const dim3 grid = grid_of<PAR>(gm, rows, J);
   int split = 1;
-  cudaError_t e = (cudaError_t)split_of<PAR>(kernel, grid, &split);
+  cudaError_t e = (cudaError_t)split_of<PAR, KERNEL>(grid, &split);
   if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(kernel,
+    e = cudaFuncSetAttribute(KERNEL,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              split * Tile<PAR>::SMEM);
   }
   if (e != cudaSuccess) return (int)e;
   int fvec = 4;
   for (const void* op : {ops...}) fvec = std::min(fvec, copy_vec(op, ig));
-  kernel<<<grid, split * SUB, split * Tile<PAR>::SMEM,
+  KERNEL<<<grid, split * SUB, split * Tile<PAR>::SMEM,
            (cudaStream_t)stream>>>(static_cast<const float*>(ops)...,
                                    (const P*)pn, (float*)out, rows, J, ig,
                                    fvec, copy_vec(pn, ig));
   return (int)cudaGetLastError();
 }
 
-template <bool PAR, typename Kernel>
-int shape(Kernel kernel, int gm, int rows, int J, int* info) {
+template <bool PAR, auto KERNEL>
+int shape(int gm, int rows, int J, int* info) {
   const dim3 grid = grid_of<PAR>(gm, rows, J);
   int split = 1;
-  const int e = split_of<PAR>(kernel, grid, &split);
+  const int e = split_of<PAR, KERNEL>(grid, &split);
   if (e != 0) return e;
-  return ect::launch_shape(kernel, grid, split * SUB,
+  return ect::launch_shape(KERNEL, grid, split * SUB,
                            split * Tile<PAR>::SMEM, info);
 }
 
@@ -490,37 +481,37 @@ dir_dense_kernel(const float* __restrict__ fn, const float* __restrict__ fs,
 extern "C" {
 int ect_dir_dense2_f32(const void* f4, const void* pn, void* out, int gm,
                        int fc4, int J, int ig, void* stream) {
-  return k8::launch<false, float>(k8::dir_dense2_kernel<float>, pn, out, gm,
-                                  fc4, J, ig, stream, f4);
+  return k8::launch<false, float, &k8::dir_dense2_kernel<float>>(
+      pn, out, gm, fc4, J, ig, stream, f4);
 }
 int ect_dir_dense2_bf16(const void* f4, const void* pn, void* out, int gm,
                         int fc4, int J, int ig, void* stream) {
-  return k8::launch<false, ect::bf16>(k8::dir_dense2_kernel<ect::bf16>, pn,
-                                      out, gm, fc4, J, ig, stream, f4);
+  return k8::launch<false, ect::bf16, &k8::dir_dense2_kernel<ect::bf16>>(
+      pn, out, gm, fc4, J, ig, stream, f4);
 }
 int ect_dir_dense2_shape_f32(int gm, int fc4, int J, int* info) {
-  return k8::shape<false>(k8::dir_dense2_kernel<float>, gm, fc4, J, info);
+  return k8::shape<false, &k8::dir_dense2_kernel<float>>(gm, fc4, J, info);
 }
 int ect_dir_dense2_shape_bf16(int gm, int fc4, int J, int* info) {
-  return k8::shape<false>(k8::dir_dense2_kernel<ect::bf16>, gm, fc4, J,
-                          info);
+  return k8::shape<false, &k8::dir_dense2_kernel<ect::bf16>>(gm, fc4, J,
+                                                             info);
 }
 int ect_dir_dense_f32(const void* fn, const void* fs, const void* pn,
                       void* out, int gm, int fc2, int J, int ig,
                       void* stream) {
-  return k8::launch<true, float>(k2::dir_dense_kernel<float>, pn, out, gm,
-                                 fc2, J, ig, stream, fn, fs);
+  return k8::launch<true, float, &k2::dir_dense_kernel<float>>(
+      pn, out, gm, fc2, J, ig, stream, fn, fs);
 }
 int ect_dir_dense_bf16(const void* fn, const void* fs, const void* pn,
                        void* out, int gm, int fc2, int J, int ig,
                        void* stream) {
-  return k8::launch<true, ect::bf16>(k2::dir_dense_kernel<ect::bf16>, pn,
-                                     out, gm, fc2, J, ig, stream, fn, fs);
+  return k8::launch<true, ect::bf16, &k2::dir_dense_kernel<ect::bf16>>(
+      pn, out, gm, fc2, J, ig, stream, fn, fs);
 }
 int ect_dir_dense_shape_f32(int gm, int fc2, int J, int* info) {
-  return k8::shape<true>(k2::dir_dense_kernel<float>, gm, fc2, J, info);
+  return k8::shape<true, &k2::dir_dense_kernel<float>>(gm, fc2, J, info);
 }
 int ect_dir_dense_shape_bf16(int gm, int fc2, int J, int* info) {
-  return k8::shape<true>(k2::dir_dense_kernel<ect::bf16>, gm, fc2, J, info);
+  return k8::shape<true, &k2::dir_dense_kernel<ect::bf16>>(gm, fc2, J, info);
 }
 }  // extern "C"

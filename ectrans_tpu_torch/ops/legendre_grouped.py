@@ -9,10 +9,14 @@ pasym[m, i, k] = P̄_{m+2k+1}^m(mu_i)) and recombines north = fs + fa,
 south = fs - fa; the direct transform contracts the quadrature-weighted
 symmetric and antisymmetric Fourier combinations against the same tables.
 
-Kernels (``csrc/legendre_grouped.cu``) run for CUDA tensors; CPU tensors
-take the plain versions (``torch.bmm`` per group in the working dtype).
-bf16 tables (the "bf16" tier) take fp32 operands rounded to bf16, as in
-``legendre_dense``.
+Kernels (``csrc/legendre_grouped.cu``: the pipelined fp32 and bf16-table
+K5 and K6, the fp64 variants on the first template) run for CUDA tensors;
+CPU tensors take the plain versions (``torch.bmm`` per group in the working
+dtype).  bf16 tables (the "bf16" tier) take fp32 operands rounded to bf16,
+as in ``legendre_dense``.  The tables may be views of rows padded past
+kg (``pad_rows``, as ``Resolution.grouped_legendre`` stores them); the
+kernels never read past kg.  ``group_inv_shape`` and ``group_dir_shape``
+report a launch (K6's includes its latitude split).
 """
 
 from __future__ import annotations
@@ -22,6 +26,26 @@ import torch.nn.functional as F
 
 from .. import _build
 from .legendre_dense import group_rows, hemispheres_to_fourier, plain_operands
+
+def table_rows(psym: torch.Tensor, pasym: torch.Tensor, like: torch.Tensor,
+               shape: tuple, dtype: torch.dtype) -> int:
+    """The common row length of K5's and K6's tables (gm, ig, kg): kg, or
+    the padded rows of ``Resolution.grouped_legendre`` (``pad_rows``)."""
+    ldk = _build.check_rows("psym", psym, like, shape, dtype=dtype)
+    if _build.check_rows("pasym", pasym, like, shape, dtype=dtype) != ldk:
+        raise ValueError(f"psym and pasym rows differ: strides "
+                         f"{psym.stride()} and {pasym.stride()}")
+    return ldk
+
+
+def pad_rows(t: torch.Tensor) -> torch.Tensor:
+    """t (gm, ig, kg) as a view of the first kg columns of rows padded with
+    zeros to a multiple of 4 entries: K5 and K6 copy such a table 16 bytes
+    at a time (kg is odd in every TCO1279 group)."""
+    kg = t.shape[-1]
+    rows = t.new_zeros(*t.shape[:-1], -(-kg // 4) * 4)
+    rows[..., :kg] = t
+    return rows[..., :kg]
 
 
 def group_inv_plain(sym, asym, psym, pasym):
@@ -36,8 +60,9 @@ def group_inv_plain(sym, asym, psym, pasym):
 def group_inv(sym: torch.Tensor, asym: torch.Tensor, psym: torch.Tensor,
               pasym: torch.Tensor):
     """One group's inverse LT (K5; replaces ``legendre_pallas.group_inv``):
-    coefficients sym, asym (gm, fc2, kg) x tables psym, pasym (gm, ig, kg)
-    -> (north, south), each (gm, fc2, ig), south NOT latitude-reversed."""
+    coefficients sym, asym (gm, fc2, kg) x tables psym, pasym (gm, ig, kg;
+    rows may be padded, ``table_rows``) -> (north, south), each (gm, fc2,
+    ig), south NOT latitude-reversed."""
     if _build.on_cpu(sym):
         return group_inv_plain(sym, asym, psym, pasym)
     gm, fc2, kg = sym.shape
@@ -45,8 +70,7 @@ def group_inv(sym: torch.Tensor, asym: torch.Tensor, psym: torch.Tensor,
     tdt = _build.table_dtype(sym, psym)
     _build.check_operand("sym", sym, sym, (gm, fc2, kg))
     _build.check_operand("asym", asym, sym, (gm, fc2, kg))
-    _build.check_operand("psym", psym, sym, (gm, ig, kg), dtype=tdt)
-    _build.check_operand("pasym", pasym, sym, (gm, ig, kg), dtype=tdt)
+    ldk = table_rows(psym, pasym, sym, (gm, ig, kg), tdt)
     north = torch.empty((gm, fc2, ig), dtype=sym.dtype, device=sym.device)
     south = torch.empty_like(north)
     if north.numel() == 0:
@@ -54,12 +78,20 @@ def group_inv(sym: torch.Tensor, asym: torch.Tensor, psym: torch.Tensor,
     with _build.on_device(sym):
         _build.launch("ect_inv_grouped", tdt, sym.data_ptr(),
                       asym.data_ptr(), psym.data_ptr(), pasym.data_ptr(),
-                      north.data_ptr(), south.data_ptr(), gm, fc2, kg, ig)
+                      north.data_ptr(), south.data_ptr(), gm, fc2, kg, ig,
+                      ldk)
     group_inv.launches += 1
     return north, south
 
 
 group_inv.launches = 0
+
+
+def group_inv_shape(gm: int, fc2: int, kg: int, ig: int,
+                    table_dtype: torch.dtype = torch.float32) -> dict:
+    """K5's launch for one group (``_build.launch_shape``)."""
+    return _build.launch_shape("ect_inv_grouped_shape", table_dtype, gm, fc2,
+                               kg, ig)
 
 
 def group_dir_plain(fsym, fasym, psym, pasym):
@@ -73,7 +105,8 @@ def group_dir(fsym: torch.Tensor, fasym: torch.Tensor, psym: torch.Tensor,
               pasym: torch.Tensor):
     """One group's direct LT (K6; replaces ``legendre_pallas.group_dir``):
     weighted symmetric/antisymmetric Fourier rows fsym, fasym (gm, fc2, ig)
-    x tables (gm, ig, kg) -> (sym, asym), each (gm, fc2, kg)."""
+    x tables (gm, ig, kg; rows may be padded) -> (sym, asym), each (gm,
+    fc2, kg)."""
     if _build.on_cpu(fsym):
         return group_dir_plain(fsym, fasym, psym, pasym)
     gm, fc2, ig = fsym.shape
@@ -81,8 +114,7 @@ def group_dir(fsym: torch.Tensor, fasym: torch.Tensor, psym: torch.Tensor,
     tdt = _build.table_dtype(fsym, psym)
     _build.check_operand("fsym", fsym, fsym, (gm, fc2, ig))
     _build.check_operand("fasym", fasym, fsym, (gm, fc2, ig))
-    _build.check_operand("psym", psym, fsym, (gm, ig, kg), dtype=tdt)
-    _build.check_operand("pasym", pasym, fsym, (gm, ig, kg), dtype=tdt)
+    ldk = table_rows(psym, pasym, fsym, (gm, ig, kg), tdt)
     sym = torch.empty((gm, fc2, kg), dtype=fsym.dtype, device=fsym.device)
     asym = torch.empty_like(sym)
     if sym.numel() == 0:
@@ -90,12 +122,20 @@ def group_dir(fsym: torch.Tensor, fasym: torch.Tensor, psym: torch.Tensor,
     with _build.on_device(fsym):
         _build.launch("ect_dir_grouped", tdt, fsym.data_ptr(),
                       fasym.data_ptr(), psym.data_ptr(), pasym.data_ptr(),
-                      sym.data_ptr(), asym.data_ptr(), gm, fc2, kg, ig)
+                      sym.data_ptr(), asym.data_ptr(), gm, fc2, kg, ig, ldk)
     group_dir.launches += 1
     return sym, asym
 
 
 group_dir.launches = 0
+
+
+def group_dir_shape(gm: int, fc2: int, kg: int, ig: int,
+                    table_dtype: torch.dtype = torch.float32) -> dict:
+    """K6's launch for one group (``_build.launch_shape``): its blocks
+    count each latitude split's parts, clusters of 1 to 8 blocks."""
+    return _build.launch_shape("ect_dir_grouped_shape", table_dtype, gm, fc2,
+                               kg, ig)
 
 
 def legendre_inv_grouped(sym: torch.Tensor, asym: torch.Tensor,

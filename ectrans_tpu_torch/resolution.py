@@ -312,15 +312,19 @@ class Resolution:
         table dtype ``dtype`` (as ``full_legendre``): psym[m, i, k] =
         pn[m, 2k, i], pasym[m, i, k] = pn[m, 2k+1, i] (counterpart of
         ``ectrans_tpu`` ``Resolution.grouped_legendre``, which builds them on
-        the host)."""
+        the host).  Each is a view of rows zero-padded to a multiple of 4
+        entries (``legendre_grouped.pad_rows``), which K5 and K6 copy 16
+        bytes at a time."""
+        from .ops.legendre_grouped import pad_rows
+
         dtype = check_table_dtype(dtype)
         device = canonical_device(device)
 
         def build():
             groups = tuple(
                 LegendreGroup(m0=g.m0, m1=g.m1, i0=g.i0, kg=g.J // 2,
-                              psym=g.pn[:, 0::2].transpose(1, 2).contiguous(),
-                              pasym=g.pn[:, 1::2].transpose(1, 2).contiguous())
+                              psym=pad_rows(g.pn[:, 0::2].transpose(1, 2)),
+                              pasym=pad_rows(g.pn[:, 1::2].transpose(1, 2)))
                 for g in self._source_groups(dtype, device))
             return GroupedLegendre(groups=groups, ndgnh=self.ndgnh,
                                    kmax=self.kmax)

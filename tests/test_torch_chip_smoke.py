@@ -364,3 +364,105 @@ def test_library_call_computes_the_kernels_function(smoke, key):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+
+
+GROUPED_LOG = (
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k518inv_grouped_kernelIfEEvPKfS2_PKT_S5_PfS6_iiii' for 'sm_90a'\n"
+    "    0 bytes stack frame, {k5} bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 200 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k518inv_grouped_kernelI13__nv_bfloat16EEvPKfS3_PKT_S6_PfS7_iiii' "
+    "for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 190 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k618dir_grouped_kernelIfEEvPKfS2_PKT_S5_PfS6_iiiiii' for "
+    "'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, {k6} bytes spill loads\n"
+    "ptxas info    : Used 232 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k618dir_grouped_kernelI13__nv_bfloat16EEvPKfS3_PKT_S6_PfS7_"
+    "iiiiii' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 220 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_118inv_grouped_kernelEPKdS1_S1_S1_PdS2_iii' for "
+    "'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 90 registers, used 1 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_118dir_grouped_kernelEPKdS1_S1_S1_PdS2_iii' for "
+    "'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "ptxas info    : Used 96 registers, used 1 barriers\n")
+
+
+@pytest.mark.parametrize("key,regs", [("K5", {"fp32": 200, "bf16": 190}),
+                                      ("K6", {"fp32": 232, "bf16": 220})])
+@pytest.mark.parametrize("spill", [0, 8])
+def test_registers_of_k5_k6_refuse_a_spill(smoke, tmp_path, monkeypatch, key,
+                                           regs, spill):
+    """K5's and K6's lines read their two variants' registers, and not the
+    fp64 template's, from build.log; a spill in either fails the run."""
+    log = GROUPED_LOG.format(k5=spill if key == "K5" else 0,
+                             k6=spill if key == "K6" else 0)
+    (tmp_path / "build.log").write_text(log + DENSE_LOG.format(k1=0, k2=0,
+                                                               spill=0))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    needle = smoke.REDESIGNED[key][0]
+    if spill:
+        with pytest.raises(RuntimeError, match="spills"):
+            smoke.registers(key, needle)
+    else:
+        assert smoke.registers(key, needle) == regs
+
+
+def test_k6_split_counts_the_clusters(smoke):
+    """K6's latitude split is its launch's blocks over the unsplit grid's
+    (gm x degree tiles x 20-row chunks)."""
+    assert smoke.k6_split(dict(blocks=80 * 5), 80, 41) == 5
+    assert smoke.k6_split(dict(blocks=80 * 11), 80, 641) == 1
+    assert smoke.k6_split(dict(blocks=80 * 2 * 3), 80, 81) == 3
+
+
+def test_k5_k6_lines(smoke, cpu_card, capsys):
+    """K5's and K6's holds at O48 on fp32 and bf16 tables (hold_grouped):
+    their bounds count the tables and operands once, the fp32 lines time
+    the one-call counterparts, and each line prints the bound with both
+    terms, the spin-timed device time, the launch, the registers, the bf16
+    variant's numbers; K6's its latitude split per group."""
+    import ectrans_tpu_torch as ett
+
+    (_build.BUILD_DIR / "build.log").write_text(
+        GROUPED_LOG.format(k5=0, k6=0))
+    res = ett.setup("O48", 47)
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    out = {}
+    for tdt in (torch.float32, torch.bfloat16):
+        out.update(smoke.hold_grouped(res, cpu_card, tdt, rnd))
+    assert sorted(out) == ["K5", "K5 bf16", "K6", "K6 bf16"]
+    gl = res.grouped_legendre(torch.float32, cpu_card)
+    tables = sum(2 * g.psym.numel() * 4 for g in gl.groups)
+    for key, rows, width in (("K5", 32, "kg"), ("K6", 20, "ig")):
+        k = out[key]
+        assert k["max_abs_err"] == 0.0 and k["library_ms"] > 0
+        assert k["spin_ms"] > 0 and out[key + " bf16"]["library_ms"] is None
+        assert k["moved"] == ("table", tables)
+        ops = sum(2 * 2 * rows * g.psym.numel() for g in gl.groups)
+        assert k["ops_ms"] == pytest.approx(ops / 67e12 * 1e3)
+        assert len(k["shapes"]) == len(gl.groups)
+        k["note"] = smoke.grouped_note(key, out)
+        smoke.redesign_report(key, out)
+        line = capsys.readouterr().out
+        assert line.startswith(f"phase 2 {key} (fp32, {len(gl.groups)} "
+                               f"groups, rows {rows})")
+        for part in ("vs torch.bmm", "% of it", "table", "GB/s",
+                     "behind a spin kernel", "us a call", "waves",
+                     "registers", "no spills", "bf16 tables"):
+            assert part in line, (key, part)
+        assert ("latitude split per group" in line) == (key == "K6")

@@ -10,7 +10,8 @@ Tolerances: K1/K2/K5/K6/K7/K8 5e-6 (fp32, and on bf16 tables, whose
 products of rounded operands are exact in fp32) / 1e-12 (fp64) relative to
 the output's max, and K1/K2/K7/K8 within 1.5x the error of the template
 K1's and K2's summation order (its fp32 emulation in test_torch_k7_sums.py)
-against an fp64 product, K9/K10 5e-6 (fp32 sums of exact bf16 products); K4 1e-7
+against an fp64 product, K5/K6 within 1.5x the error of the template K5's
+and K6's (test_torch_k5_sums.py), K9/K10 5e-6 (fp32 sums of exact bf16 products); K4 1e-7
 of the table scale one group a launch, and bit-exact on the all-groups
 launch; K3 and K11 bit-exact; K12 1e-6 relative; the slice as
 in test_torch_transform.py (fp64 1e-10 relative, fp32 2e-5 + 1e-5
@@ -28,6 +29,7 @@ from ectrans_tpu_torch.ops import legendre_grouped as lg
 from ectrans_tpu_torch.ops import legendre_planes as lp
 from ectrans_tpu_torch.ops import legendre_tablegen as tg
 from ectrans_tpu_torch.ops import pack
+from test_torch_k5_sums import template_k5_order, template_k6_order
 from test_torch_k7_sums import template_k1_order, template_k2_order
 
 pytestmark = pytest.mark.cuda
@@ -285,6 +287,122 @@ def test_grouped_kernels_match_plain(dev, dtype, tdt):
             assert rel_err(x, y) <= LT_TOL[tdt]
 
 
+# synthetic K5 and K6 groups (gm, ig, kg) at the edges of their tiles: kg %
+# 4 in {0, 1, 2, 3} (the copy widths along k), ig 100 and 201 (not a
+# multiple of K5's 64-latitude tile or K6's 32-latitude stage), gm 1; TCO1279
+# group 15's (ig 474, kg 41) at gm 1, whose few K6 blocks split the
+# latitudes among a cluster, and a launch of many short K6 blocks that takes
+# none (gm 150, ig 64, kg 200)
+GROUPED_EDGES = [(2, 100, 40), (2, 100, 41), (2, 100, 42), (2, 201, 43),
+                 (1, 201, 41), (1, 474, 41), (150, 64, 200)]
+
+
+def rnd_view(g, dev, dtype, shape, offset=0):
+    """A standard normal tensor of ``shape``; with offset 1, a view whose
+    base is only one element past an allocation's start (4-byte aligned in
+    fp32)."""
+    n = int(np.prod(shape))
+    buf = torch.randn(n + offset, generator=g, device=dev, dtype=dtype)
+    return buf[offset:].view(*shape)
+
+
+def nan_rows(t):
+    """t (gm, ig, kg) as a view of rows padded to a multiple of 4 entries,
+    the layout of ``pad_rows``, but with NaN past kg in place of zeros: a
+    kernel that read a padding entry would put NaN in its outputs."""
+    kg = t.shape[-1]
+    rows = torch.full((*t.shape[:-1], -(-kg // 4) * 4), float("nan"),
+                      device=t.device, dtype=t.dtype)
+    rows[..., :kg] = t
+    return rows[..., :kg]
+
+
+@pytest.mark.parametrize("fc2", [1, 20, 32, 40])
+@pytest.mark.parametrize("dtype,tdt", VARIANTS)
+def test_grouped_kernels_at_tile_edges(dev, dtype, tdt, fc2):
+    """K5 and K6 on synthetic groups at the edges of their tiles
+    (GROUPED_EDGES), with fc2 1, 20, 32 and 40 (K6's 20-row and K5's 32-row
+    blocks, and partial ones); every other group has an operand whose base
+    is only 4-byte aligned, and the tables take turns: contiguous, one of
+    them 4-byte aligned, both in padded rows (the layout of
+    ``grouped_legendre``) whose padding holds NaN (``nan_rows``: no kernel
+    reads past kg); fp64 runs the template.  K6's launch report shows the
+    split on group 15's shape and none on the last."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    for n, (gm, ig, kg) in enumerate(GROUPED_EDGES):
+        off = n % 2
+        ps = rnd_view(g, dev, dtype, (gm, ig, kg)).to(tdt)
+        pa = rnd_view(g, dev, dtype, (gm * ig * kg + 1,)).to(tdt)
+        pa = pa[int(n % 3 == 1):][:gm * ig * kg].view(gm, ig, kg)
+        if n % 3 == 2:
+            ps, pa = nan_rows(ps), nan_rows(pa)
+        s, a = (rnd_view(g, dev, dtype, (gm, fc2, kg), o) for o in (off, 0))
+        for x, y in zip(lg.group_inv(s, a, ps, pa),
+                        lg.group_inv_plain(s, a, ps, pa)):
+            assert x.shape == (gm, fc2, ig) and x.dtype == dtype
+            assert rel_err(x, y) <= LT_TOL[tdt], (gm, ig, kg)
+        fs, fa = (rnd_view(g, dev, dtype, (gm, fc2, ig), o) for o in (0, off))
+        for x, y in zip(lg.group_dir(fs, fa, ps, pa),
+                        lg.group_dir_plain(fs, fa, ps, pa)):
+            assert x.shape == (gm, fc2, kg) and x.dtype == dtype
+            assert rel_err(x, y) <= LT_TOL[tdt], (gm, ig, kg)
+    if dtype == torch.float32:
+        chunks = -(-fc2 // 20)
+        split = lg.group_dir_shape(1, fc2, 41, 474, tdt)
+        assert split["blocks"] > chunks, split
+        whole = lg.group_dir_shape(150, fc2, 200, 64, tdt)
+        assert whole["blocks"] == 150 * 4 * chunks, whole
+
+
+def grouped_error_case(dev, tdt, seed: int, inverse: bool):
+    """K5's operands sym, asym (32 rows) and tables at TCO1279 widths (kg
+    641, ig 1203), or K6's fsym, fasym (20 rows) and tables (ig 1280, kg
+    161: 3 degree tiles, 6 blocks, so the latitudes split), gm 2, the
+    tables in padded rows as grouped_legendre stores them; the fp64
+    product of the (rounded) operands, stacked as the template orders stack
+    them ([north; south] or [sym; asym]), and the error of the template
+    K5's or K6's summation order on them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gm, rows, ig, kg = (2, 32, 1203, 641) if inverse else (2, 20, 1280, 161)
+    ps, pa = (lg.pad_rows(torch.randn(gm, ig, kg, generator=g,
+                                      device=dev).to(tdt)) for _ in range(2))
+    x, y = (torch.randn(gm, rows, kg if inverse else ig, generator=g,
+                        device=dev) for _ in range(2))
+    pf, xr, yr = ld.plain_operands(ps, x, y)
+    paf = ld.plain_operands(pa)[0]
+    if inverse:
+        s = torch.bmm(xr.double(), pf.double().transpose(1, 2))
+        a = torch.bmm(yr.double(), paf.double().transpose(1, 2))
+        want = torch.cat([s + a, s - a], dim=1)
+        order = template_k5_order
+    else:
+        want = torch.cat([torch.bmm(xr.double(), pf.double()),
+                          torch.bmm(yr.double(), paf.double())], dim=1)
+        order = template_k6_order
+    tpl = np.stack([order(*(t.cpu().numpy() for t in ops)) for ops in
+                    zip(xr, yr, pf, paf)])
+    return x, y, ps, pa, want, np.abs(tpl - want.cpu().numpy()).max()
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_k5_error_within_template(dev, tdt):
+    """K5's north and south against the fp64 product: at most 1.5x the
+    error of the template K5's order on the same operands."""
+    s, a, ps, pa, want, e_tpl = grouped_error_case(dev, tdt, 8, True)
+    e5 = max_err(torch.cat(lg.group_inv(s, a, ps, pa), dim=1), want)
+    assert 0 < e5 <= 1.5 * e_tpl, (e5, e_tpl)
+
+
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16])
+def test_k6_error_within_template(dev, tdt):
+    """K6's sym and asym (a launch that splits the latitudes) against the
+    fp64 product: at most 1.5x the error of the template K6's order on the
+    same operands."""
+    fs, fa, ps, pa, want, e_tpl = grouped_error_case(dev, tdt, 9, False)
+    e6 = max_err(torch.cat(lg.group_dir(fs, fa, ps, pa), dim=1), want)
+    assert 0 < e6 <= 1.5 * e_tpl, (e6, e_tpl)
+
+
 def test_roofline_kernels_match_plain(dev):
     """K11 bit-exact and K12 at 1e-6 relative, at an uneven size and at
     the probe's 512 MiB shape."""
@@ -461,6 +579,14 @@ def test_wrappers_reject_bad_operands(dev):
     with pytest.raises(TypeError, match="dtype"):
         ld.group_inv_dense(torch.zeros(2, 4, 6, device=dev).double(),
                            pn.to(torch.bfloat16))
+    ps = torch.zeros(2, 5, 6, device=dev)
+    with pytest.raises(ValueError, match="padded rows"):
+        lg.group_dir(torch.zeros(2, 4, 5, device=dev),
+                     torch.zeros(2, 4, 5, device=dev),
+                     ps.transpose(1, 2).contiguous().transpose(1, 2), ps)
+    with pytest.raises(ValueError, match="rows differ"):
+        lg.group_inv(torch.zeros(2, 4, 6, device=dev),
+                     torch.zeros(2, 4, 6, device=dev), lg.pad_rows(ps), ps)
     with pytest.raises(ValueError, match="multiple of 4"):
         roofline.stream_copy(torch.zeros(6, device=dev))
     with pytest.raises(ValueError, match="rows % 8"):

@@ -77,9 +77,38 @@ def test_grouped_tables_match_jax(pair):
     scale = max(np.abs(np.asarray(g.psym)).max() for g in jgl.groups)
     for g, jg in zip(gl.groups, jgl.groups, strict=True):
         assert (g.m0, g.m1, g.i0, g.kg) == (jg.m0, jg.m1, jg.i0, jg.kg)
+        # views of rows zero-padded to a multiple of 4 entries (K5, K6)
+        ldk = -(-g.kg // 4) * 4
         for a, b in ((g.psym, jg.psym), (g.pasym, jg.pasym)):
-            assert a.is_contiguous() and a.dtype == torch.float64
+            assert a.stride() == (a.shape[1] * ldk, ldk, 1)
+            assert a.dtype == torch.float64
+            rows = a.as_strided((*a.shape[:2], ldk), a.stride())
+            assert not rows[..., g.kg:].any()
             assert np.abs(a.numpy() - np.asarray(b)).max() <= 1e-15 * scale
+
+
+def test_table_rows_take_padded_rows():
+    """K5's and K6's wrappers take tables in rows padded past kg (the
+    layout of grouped_legendre, pad_rows) and report the row length, and
+    refuse other strides and tables whose rows differ."""
+    from ectrans_tpu_torch.ops import legendre_grouped as lg
+
+    t = torch.arange(2 * 3 * 5, dtype=torch.float32).reshape(2, 3, 5)
+    padded = lg.pad_rows(t)
+    assert torch.equal(padded, t) and padded.stride() == (24, 8, 1)
+    assert lg.table_rows(padded, lg.pad_rows(t), t, (2, 3, 5),
+                         torch.float32) == 8
+    assert lg.table_rows(t, t, t, (2, 3, 5), torch.float32) == 5
+    with pytest.raises(ValueError, match="rows differ"):
+        lg.table_rows(padded, t, t, (2, 3, 5), torch.float32)
+    with pytest.raises(ValueError, match="padded rows"):
+        lg.table_rows(t.transpose(1, 2).contiguous().transpose(1, 2), t, t,
+                      (2, 3, 5), torch.float32)
+    gap = torch.zeros(2, 4, 5)[:, :3]        # m slabs a row apart
+    with pytest.raises(ValueError, match="padded rows"):
+        lg.table_rows(gap, gap, t, (2, 3, 5), torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        lg.table_rows(t.double(), t.double(), t, (2, 3, 5), torch.float32)
 
 
 def test_derived_tables_cache_and_drop():
