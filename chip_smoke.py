@@ -28,19 +28,24 @@ Phases, each printing a line:
    (fp32), K11 and K12, the one PyTorch call that computes the same
    function (torch.bmm: for K5 on the rows [sym, asym; sym, -asym] against
    [psym, pasym], which gives north and south at twice K5's FLOP, for K6
-   on its parity operands stacked along the batch; clone, sum), timed in
+   on its parity operands stacked along the batch; clone, sum), and for K9
+   and K10 a yardstick (one torch.bmm on fp32 operands whose limbs and
+   planes were summed beforehand, untimed, at twice their FLOP), timed in
    turns with the kernel.
-   K1, K2, K3, K4, K5, K6, K7 and K8, the kernels redesigned for the card,
-   get a line each (``redesign_report``): the time (for K1, K2, K7, K8
-   against torch.bmm's on the stacked rows: K7's and K8's one-call
-   counterpart, timed in their turns; for K1 and K2 a reference at twice
-   their FLOP, not a route; for K5 and K6 against their own one call), the
-   bound with both its terms and the share of it, beside
+   K1-K10, the kernels redesigned for the card, get a line each
+   (``redesign_report``): the time (for K1, K2, K7, K8 against torch.bmm's
+   on the stacked rows: K7's and K8's one-call counterpart, timed in their
+   turns; for K1 and K2 a reference at twice their FLOP, not a route; for
+   K5 and K6 against their own one call; for K9 and K10 against their
+   yardsticks), the bound with both its terms and the share of it, beside
    them a second measure (the device time with the calls enqueued behind a
    spin kernel, and the host's time to enqueue a call), the blocks per
    launch, threads and waves, and the registers and spills from
    ``build.log`` (a spill fails the run); K5's and K6's lines add their
-   bf16-table variants' times, and K6's its latitude split per group;
+   bf16-table variants' times, K9's and K10's their 1-plane numbers, and
+   K6's and K10's their latitude split per group; then the padding A/B of
+   K9 and K10 (3 planes in rows padded to 8 entries against contiguous
+   copies, in turns, outputs within 5e-6 relative);
 3. the whole inv_trans + dir_trans at T159 (O160 grid) on the card through
    every Legendre engine ("dense", "xla", "pallas", "planes"), in fp32 and
    fp64, against the same engine's plain path on the CPU in fp64;
@@ -59,7 +64,9 @@ Phases, each printing a line:
    "dense" with ECTRANS_TPU_PACK_KERNEL=xla (K1, K2 and not K3), all with
    the 100*eps gate on every family ("pallas" may take at most 0.80 of it,
    the margin K5's and K6's summation order must keep, and launches K5 and
-   K6 once per m-group each and never K1 or K2); then "planes", "dense"
+   K6 once per m-group each and never K1 or K2; "planes" at most 0.65,
+   K9's and K10's margin, and K9 and K10 once per m-group each, at both
+   tiers); then "planes", "dense"
    and "pallas" at "bf16" (the 1e6*eps gate on the scalars, the vor/div
    ratio printed;
    "dense" makes its bf16 tables in one K4 launch). K3 runs once a row.
@@ -158,6 +165,9 @@ DENSE_GATE_SHARE = 0.65
 # and the "pallas" fp32 round trip's (K5's and K6's order; 0.764 on the
 # template kernels)
 PALLAS_GATE_SHARE = 0.80
+# and the "planes" fp32 round trip's (K9's and K10's order; 0.624 on the
+# template kernels)
+PLANES_GATE_SHARE = 0.65
 ENGINES = ("dense", "xla", "pallas", "planes")
 
 
@@ -371,11 +381,29 @@ def registers(key: str, needle: str, variants: int = 2) -> dict:
     for name, r in rep.items():
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
               f"{key} {name} spills: {r}")
-    return {("bf16" if "bfloat16" in name else
-             "fp64" if needle + "Id" in name else "fp32"): r["registers"]
+    return {variant_of(name, needle): r["registers"]
             for name, r in rep.items()}
 
 
+def variant_of(name: str, needle: str) -> str:
+    """The variant a mangled kernel name in build.log is: fp32, fp64, bf16
+    (its table type), or for K9 and K10 its plane count and whether its
+    table rows start 16-byte aligned (template arguments <P, ALIGNED>)."""
+    if needle + "ILi" in name:
+        args = name[name.index(needle) + len(needle):]
+        nplanes = args[3]
+        return (f"{nplanes} plane{'s' if nplanes != '1' else ''}"
+                f"{'' if args.startswith('Lb1E', 5) else ', unaligned'}")
+    return ("bf16" if "bfloat16" in name else
+            "fp64" if needle + "Id" in name else "fp32")
+
+
+# K9's and K10's variants: plane count, and table rows aligned or not
+PLANES_VARIANTS = ("3 planes", "1 plane", "3 planes, unaligned",
+                   "1 plane, unaligned")
+# the kernels whose library line is a yardstick, not the same inputs: one
+# torch.bmm on fp32 operands whose limbs and planes were summed beforehand
+YARDSTICKS = ("K9", "K10")
 # the kernels redesigned for the card: mangled-name needle in build.log, the
 # variants compiled, and the kernel whose torch.bmm on the stacked rows is
 # the line's yardstick (its own library call, or K7's and K8's for K1 and K2:
@@ -387,7 +415,9 @@ REDESIGNED = {"K1": ("k116inv_dense_kernel", ("fp32", "bf16"), "K7"),
               "K5": ("k518inv_grouped_kernel", ("fp32", "bf16"), "K5"),
               "K6": ("k618dir_grouped_kernel", ("fp32", "bf16"), "K6"),
               "K7": ("k717inv_dense2_kernel", ("fp32", "bf16"), "K7"),
-              "K8": ("k817dir_dense2_kernel", ("fp32", "bf16"), "K8")}
+              "K8": ("k817dir_dense2_kernel", ("fp32", "bf16"), "K8"),
+              "K9": ("k917inv_planes_kernel", PLANES_VARIANTS, "K9"),
+              "K10": ("k1017dir_planes_kernel", PLANES_VARIANTS, "K10")}
 # K1's, K2's, K7's and K8's launch-shape reports in legendre_dense, their
 # rows at the bench shapes, and the table axis (ig or J) they take last
 DENSE_SHAPES = {"K1": ("group_inv_dense_shape", FC2_INV, 2),
@@ -409,7 +439,12 @@ def redesign_report(key: str, out: dict) -> None:
     needle, variants, ref = REDESIGNED[key]
     shapes = k["shapes"]
     vs = ""
-    if ref == key:
+    if key in YARDSTICKS:
+        bmm = out[ref]["library_ms"]
+        vs = (f" vs torch.bmm on the summed limbs and planes {bmm:.3f} ms, in "
+              f"turns (a yardstick at twice the FLOP, the sums untimed: "
+              f"{k['ms'] / bmm:.2f}x)")
+    elif ref == key:
         bmm = out[ref]["library_ms"]
         vs = f" vs torch.bmm {bmm:.3f} ms, in turns ({k['ms'] / bmm:.2f}x)"
     elif ref:
@@ -618,6 +653,142 @@ def k6_library(fs, fa, ps, pa) -> tuple:
     return torch.cat([fs, fa]), torch.cat([ps, pa])
 
 
+def planes_tag(nplanes: int) -> str:
+    """The key suffix of K9's and K10's holds: none at 3 planes."""
+    return "" if nplanes == 3 else " (1 plane)"
+
+
+def hold_planes(res, dev: torch.device, nplanes: int, rnd) -> dict:
+    """K9 and K10 against their plain versions on every group of the
+    ``nplanes`` limb planes derived on the card, with the round trip's rows
+    (random operands from ``rnd(*shape)``, packed as the planes engine
+    packs them), timed in turns with their yardsticks (k9_library,
+    k10_library: one torch.bmm on fp32 operands whose limbs and planes were
+    summed before the timing) and behind a spin kernel; each with its launch
+    shapes per group.  Returns {"K9...": ..., "K10...": ...}, keys tagged by
+    ``planes_tag``."""
+    from ectrans_tpu_torch.ops import legendre_planes as lpl
+
+    tag = planes_tag(nplanes)
+    ppl = res.planes_legendre(nplanes, dev)
+    inv = [(lpl._pack_inv_rows(rnd(g.m1 - g.m0, FC2_INV, g.J), nplanes), g.pt)
+           for g in ppl.groups]
+    out = {"K9" + tag: hold(
+        "K9" + tag, lambda a, pt: lpl.group_inv_planes(a, pt, nplanes, FC2_INV),
+        lambda a, pt: lpl.group_inv_planes_plain(a, pt, nplanes, FC2_INV),
+        inv, flop=lambda a, pt: (2 * FC2_INV + nplanes - 1) * pt[0].numel(),
+        library=(lambda a, pt: k9_library(a, pt, nplanes, FC2_INV),
+                 torch.bmm), spin=True)}
+    del inv
+    dirs = [(lpl._pack_dir_rows(rnd(g.m1 - g.m0, FC2_DIR, g.pt[0].shape[1]),
+                                rnd(g.m1 - g.m0, FC2_DIR, g.pt[0].shape[1]),
+                                nplanes), g.pt) for g in ppl.groups]
+    out["K10" + tag] = hold(
+        "K10" + tag,
+        lambda w, pt: lpl.group_dir_planes(w, pt, nplanes, FC2_DIR),
+        lambda w, pt: lpl.group_dir_planes_plain(w, pt, nplanes, FC2_DIR),
+        dirs, flop=lambda w, pt: (2 * FC2_DIR + nplanes - 1) * pt[0].numel(),
+        library=(lambda w, pt: k10_library(w, pt, nplanes, FC2_DIR),
+                 torch.bmm), spin=True)
+    del dirs
+    planes = tensor_bytes([g.pt for g in ppl.groups])
+    for key, rows, shape_of in (("K9", FC2_INV, lpl.group_inv_planes_shape),
+                                ("K10", FC2_DIR, lpl.group_dir_planes_shape)):
+        out[key + tag].update(
+            what=f"{nplanes} plane{'s' if nplanes > 1 else ''}, "
+                 f"{len(ppl.groups)} groups, rows {rows}",
+            shapes=[shape_of(g.m1 - g.m0, rows, g.J, g.pt[0].shape[1],
+                             nplanes) for g in ppl.groups],
+            groups=[(g.m1 - g.m0, g.J) for g in ppl.groups],
+            moved=("planes", planes))
+    return out
+
+
+def k9_library(a, pt, nplanes: int, fc2: int) -> tuple:
+    """The operands of K9's yardstick: the limb-summed rows [x; x sgn] (gm,
+    2 fc2, J) and the plane-summed table transposed (gm, J, ig), fp32, whose
+    one torch.bmm is [north; south], at twice K9's FLOP."""
+    from ectrans_tpu_torch.ops import legendre_planes as lpl
+
+    x = lpl._limb_sum(a, nplanes, fc2, 0)
+    return (torch.cat([x, x * lpl._jsgn(x.shape[-1], x)], 1),
+            lpl._plane_sum(pt, nplanes).transpose(1, 2))
+
+
+def k10_library(w, pt, nplanes: int, fc2: int) -> tuple:
+    """The operands of K10's yardstick: the limb-summed rows [gn + gs;
+    gn - gs] (gm, 2 fc2, ig) and the plane-summed table (gm, ig, J), fp32,
+    whose one torch.bmm holds out's even columns in its first fc2 rows and
+    its odd columns in the rest, at twice K10's FLOP."""
+    from ectrans_tpu_torch.ops import legendre_planes as lpl
+
+    gn = lpl._limb_sum(w, nplanes, fc2, 0)
+    gs = lpl._limb_sum(w, nplanes, fc2, 1)
+    return torch.cat([gn + gs, gn - gs], 1), lpl._plane_sum(pt, nplanes)
+
+
+def planes_note(key: str, out: dict) -> str:
+    """The end of K9's or K10's phase-2 line: its 1-plane numbers (table
+    measure, against its yardstick, bound with its terms and share, device
+    time behind a spin kernel, error) and, for K10, the latitude split a
+    group."""
+    k, b = out[key], out[key + planes_tag(1)]
+    note = (f"; 1 plane {b['ms']:.3f} ms (table measure; yardstick "
+            f"{b['library_ms']:.3f} ms), {100 * b['bound_ms'] / b['ms']:.1f} % "
+            f"of its {b['bound_ms']:.4f} ms bound ({b['bound_by']}: bytes "
+            f"{b['bytes_ms']:.4f} ms, operations {b['ops_ms']:.4f} ms), behind "
+            f"a spin kernel {b['spin_ms']:.3f} ms, err {b['rel']:.2e} relative")
+    if key == "K10":
+        # K10's grid is K6's: ceil(J / 128) = ceil(kg / 64) blocks of degrees
+        note += "; latitude split per group " + ",".join(
+            str(k6_split(s, gm, J // 2)) for s, (gm, J) in
+            zip(k["shapes"], k["groups"]))
+    return note
+
+
+def planes_padding_ab(res, dev: torch.device, rnd) -> dict:
+    """The padding A/B of K9 and K10 at 3 planes: each group's kernel on the
+    planes in rows padded to 8 entries (as planes_legendre stores them) and
+    on contiguous copies of them, timed in turns (padded, contiguous,
+    padded, contiguous; table measure), summed over the groups; the outputs
+    must agree to 5e-6 relative (K9's are bit-identical; K10's unaligned
+    variant takes more shared memory, so fewer blocks an SM, and its
+    latitude split, sized from them, can add in another order)."""
+    from ectrans_tpu_torch.ops import legendre_planes as lpl
+
+    ppl = res.planes_legendre(3, dev)
+    sums = {k: 0.0 for k in ("K9 padded", "K9 contiguous", "K10 padded",
+                             "K10 contiguous", "K9 rel", "K10 rel")}
+    for g in ppl.groups:
+        flat = tuple(p.contiguous() for p in g.pt)
+        ig = g.pt[0].shape[1]
+        for key, fn, x in (
+                ("K9", lambda x, pt: lpl.group_inv_planes(x, pt, 3, FC2_INV),
+                 lpl._pack_inv_rows(rnd(g.m1 - g.m0, FC2_INV, g.J), 3)),
+                ("K10", lambda x, pt: lpl.group_dir_planes(x, pt, 3, FC2_DIR),
+                 lpl._pack_dir_rows(rnd(g.m1 - g.m0, FC2_DIR, ig),
+                                    rnd(g.m1 - g.m0, FC2_DIR, ig), 3))):
+            d, scale, _ = compare(key, fn(x, g.pt), fn(x, flat))
+            sums[key + " rel"] = max(sums[key + " rel"], d / scale)
+            check(d <= 5e-6 * scale,
+                  f"{key}: padded and contiguous planes disagree, {d / scale}")
+            turns = [cuda_ms(lambda pt=pt: fn(x, pt))
+                     for pt in (g.pt, flat, g.pt, flat)]
+            sums[key + " padded"] += (turns[0] + turns[2]) / 2
+            sums[key + " contiguous"] += (turns[1] + turns[3]) / 2
+        del flat
+    return sums
+
+
+def padding_report(ab: dict) -> None:
+    """Phase 2's line of the K9 and K10 padding A/B (planes_padding_ab)."""
+    print(f"phase 2 planes padding A/B (3 planes, table measure, in turns): "
+          f"K9 padded rows {ab['K9 padded']:.3f} ms vs contiguous "
+          f"{ab['K9 contiguous']:.3f} ms; K10 padded {ab['K10 padded']:.3f} "
+          f"ms vs contiguous {ab['K10 contiguous']:.3f} ms; outputs apart "
+          f"by {ab['K9 rel']:.2e} / {ab['K10 rel']:.2e} relative")
+
+
 def phase_kernels(dev: torch.device) -> dict:
     """Each kernel against its plain version at the TCO1279 shapes."""
     import ectrans_tpu_torch as ett
@@ -685,27 +856,13 @@ def phase_kernels(dev: torch.device) -> dict:
     res.drop_cached("full_legendre")
 
     # K9 and K10 on the planes derived on the card, operands packed as the
-    # planes engine packs them; 3 planes ("highest") and 1 plane ("bf16")
-    for nplanes, tag in ((3, ""), (1, " (1 plane)")):
-        ppl = res.planes_legendre(nplanes, dev)
-        out["K9" + tag] = hold(
-            "K9" + tag, lambda a, pt: lpl.group_inv_planes(a, pt, nplanes, FC2_INV),
-            lambda a, pt: lpl.group_inv_planes_plain(a, pt, nplanes,
-                                                     FC2_INV),
-            [(lpl._pack_inv_rows(rnd(g.m1 - g.m0, FC2_INV, g.J), nplanes),
-              g.pt) for g in ppl.groups],
-            flop=lambda a, pt: (2 * FC2_INV + len(pt) - 1) * pt[0].numel())
-        out["K10" + tag] = hold(
-            "K10" + tag, lambda w, pt: lpl.group_dir_planes(w, pt, nplanes, FC2_DIR),
-            lambda w, pt: lpl.group_dir_planes_plain(w, pt, nplanes,
-                                                     FC2_DIR),
-            [(lpl._pack_dir_rows(rnd(g.m1 - g.m0, FC2_DIR, g.pt[0].shape[1]),
-                                 rnd(g.m1 - g.m0, FC2_DIR, g.pt[0].shape[1]),
-                                 nplanes), g.pt) for g in ppl.groups],
-            flop=lambda w, pt: (2 * FC2_DIR + len(pt) - 1) * pt[0].numel())
-        torch.cuda.synchronize()
-        del ppl
+    # planes engine packs them; 3 planes ("highest") and 1 plane ("bf16"),
+    # then the padding A/B
+    for nplanes in (3, 1):
+        out.update(hold_planes(res, dev, nplanes, rnd))
         res.drop_cached("planes_legendre")
+    padding = planes_padding_ab(res, dev, rnd)
+    res.drop_cached("planes_legendre")
 
     out["K3"] = hold_k3(res, dev, gen)
 
@@ -728,12 +885,16 @@ def phase_kernels(dev: torch.device) -> dict:
     del x
     for key in ("K5", "K6"):
         out[key]["note"] = grouped_note(key, out)
+    for key in ("K9", "K10"):
+        out[key]["note"] = planes_note(key, out)
     for key in REDESIGNED:
         redesign_report(key, out)
+    padding_report(padding)
     print("phase 2 kernels vs plain (TCO1279 shapes): " + "; ".join(
         f"{k} err {v['max_abs_err']:.3e} ({v['tol']}) {v['ms']:.3f} ms vs "
         f"plain {v['plain_ms']:.3f} ms"
-        for k, v in sorted(out.items(), key=lambda kv: int(kv[0][1:3]))))
+        for k, v in sorted(out.items(),
+                           key=lambda kv: int(kv[0][1:].split()[0]))))
     return out
 
 
@@ -895,6 +1056,10 @@ def phase_bench(dev: torch.device, counters: dict):
 # bf16 row derives its tables one group at a time, a K4 launch each); a
 # "bf16" row of "dense" or "pallas" drops every full-n table first, so that
 # the peak shows its own
+# the largest share of the 100*eps gate an engine's fp32 row may take in
+# phase 5, and the kernels that its rows launch once per m-group each
+GATE_SHARES = {"pallas": PALLAS_GATE_SHARE, "planes": PLANES_GATE_SHARE}
+GROUP_KERNELS = {"pallas": ("K5", "K6"), "planes": ("K9", "K10")}
 ENGINE_ROWS = (
     ("pallas", "highest", {}, ("K3", "K5", "K6"), ("K1", "K2"), ("K3",)),
     ("planes", "highest", {}, ("K3", "K9", "K10"), (), ("K3",)),
@@ -935,13 +1100,13 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
             check(err <= gate, f"{engine} {env} round-trip gate: err "
                                f"{err:.4e} > 100*eps*max {gate:.4e}")
             verdict = f"err {err:.4e} gate (100 eps) {gate:.4e}"
-            if engine == "pallas":
-                check(err <= PALLAS_GATE_SHARE * gate,
-                      f"pallas round-trip gate: err {err:.4e} is "
+            share = GATE_SHARES.get(engine)
+            if share is not None:
+                check(err <= share * gate,
+                      f"{engine} round-trip gate: err {err:.4e} is "
                       f"{err / gate:.3f} of 100*eps*max {gate:.4e}, over "
-                      f"the {PALLAS_GATE_SHARE} allowed")
-                verdict += (f", {err / gate:.3f} of it (at most "
-                            f"{PALLAS_GATE_SHARE})")
+                      f"the {share} allowed")
+                verdict += f", {err / gate:.3f} of it (at most {share})"
         else:
             # the 1e6*eps gate holds the scalars; vor/div go through UVTVD's
             # ~n amplification and are printed beside it
@@ -953,10 +1118,11 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
             verdict = (f"scalars err {err:.4e} gate (1e6 eps) {gate:.4e}; "
                        f"vor/div at {ratios[0]:.3f} / {ratios[1]:.3f} of "
                        "their 1e6 eps gate")
-        if engine == "pallas":
+        if engine in GROUP_KERNELS:
             ngroups = len(res.legendre_groups())
-            check(got["K5"] == got["K6"] == ngroups,
-                  f"pallas launched K5 {got['K5']} and K6 {got['K6']} times, "
+            a, b = GROUP_KERNELS[engine]
+            check(got[a] == got[b] == ngroups,
+                  f"{engine} launched {a} {got[a]} and {b} {got[b]} times, "
                   f"expected {ngroups} each")
         if "ECTRANS_TPU_LEG_DENSE_PACK" in env:
             ngroups = len(res.legendre_groups())

@@ -59,9 +59,12 @@ _ENTRIES = {
                         _TABLES),
     "ect_inv_grouped_shape": ([_I, _I, _I, _I, _P], _FP32_OPS),
     "ect_dir_grouped_shape": ([_I, _I, _I, _I, _P], _FP32_OPS),
-    "ect_inv_planes": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ect_inv_planes": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                        _SINGLE),
-    "ect_dir_planes": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _SINGLE),
+    "ect_dir_planes": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                       _SINGLE),
+    "ect_inv_planes_shape": ([_I, _I, _I, _I, _I, _P], _SINGLE),
+    "ect_dir_planes_shape": ([_I, _I, _I, _I, _I, _P], _SINGLE),
     "ect_compact": ([_P, _P, _P, _I, _P, _I, _I, _L, _P], _FLOAT),
     "ect_compact_shape": ([_I, _I, _P], _SINGLE),
     "ect_tablegen": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P],

@@ -68,6 +68,8 @@
 //   kg long (41 in group 15: two stages), so a block is short, and the
 //   launch's gm ceil(ig / 64) blocks (640-1,600 at TCO1279) keep 8 warps on
 //   every SM, each block's pipeline filling while others compute.
+// The stage sums of both bodies, K5's combine and K6's latitude split live in
+// parity_body.cuh, where K9 and K10 (legendre_planes.cu) share them.
 // Summation order, both: compensated chunk sums, as in every Legendre kernel
 // of the port (legendre_common.cuh): each sum adds FOLD = 16 of its terms in
 // an FMA chain, adds the stage's 2 such partials in plain fp32 and folds
@@ -107,119 +109,17 @@
 // (not on the benchmark path) stay on the template at the end of this
 // file.
 
-#include <cooperative_groups.h>
-
 #include <algorithm>
 
 #include "cp_async.cuh"
-#include "legendre_common.cuh"
-
-namespace cg = cooperative_groups;
+#include "parity_body.cuh"
 
 namespace grouped {
-
-using ect::add_compensated;
-
-constexpr int MAXSPLIT = 8;   // blocks of a cluster (the portable limit)
-constexpr int FIXED = 2;      // a block's fixed cost, in stages
-
-// the latitude split of a K6 launch of `blocks` blocks of `nstage` stages
-// each on `slots` resident blocks: the S <= MAXSPLIT that minimises rounds x
-// (stages a block + FIXED), a larger S taken only where it saves a tenth
-inline int split_for(long blocks, int nstage, long slots) {
-  int best = 1;
-  long best_cost = 0;
-  for (int s = 1; s <= MAXSPLIT && s <= nstage; ++s) {
-    const long rounds = (s * blocks + slots - 1) / slots;
-    const long cost = rounds * ((nstage + s - 1) / s + FIXED);
-    if (s == 1 || 10 * cost < 9 * best_cost) {
-      best = s;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-// the split's parts meet in the cluster's first block: each later block's
-// totals (its shared memory, read through the cluster) are added to the
-// first's by TwoSum, its compensation plainly, in rank order; every thread
-// of every block of the cluster calls this, after its last copy landed
-template <int THREADS, int R, int C>
-__device__ __forceinline__ void combine_split(float* smem, float (&tot)[R][C],
-                                              float (&cmp)[R][C], int rank,
-                                              int nsplit) {
-  constexpr int NQ = R * C / 4;
-  static_assert(C % 4 == 0, "a thread's totals move as float4s of a row");
-  cg::cluster_group cluster = cg::this_cluster();
-  float4* mine = reinterpret_cast<float4*>(smem) + threadIdx.x;
-  __syncthreads();   // the block is done with its ring
-  if (rank > 0) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int r = 4 * q / C, c = 4 * q % C;
-      mine[q * THREADS] = make_float4(tot[r][c], tot[r][c + 1], tot[r][c + 2],
-                                      tot[r][c + 3]);
-      mine[(NQ + q) * THREADS] = make_float4(cmp[r][c], cmp[r][c + 1],
-                                             cmp[r][c + 2], cmp[r][c + 3]);
-    }
-  }
-  cluster.sync();
-  if (rank == 0) {
-#pragma unroll 1
-    for (int s = 1; s < nsplit; ++s) {
-      const float4* o = cluster.map_shared_rank(
-          reinterpret_cast<float4*>(smem), s) + threadIdx.x;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int r = 4 * q / C, c = 4 * q % C;
-        const float4 t4 = o[q * THREADS], c4 = o[(NQ + q) * THREADS];
-        const float tv[4] = {t4.x, t4.y, t4.z, t4.w};
-        const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          add_compensated(tot[r][c + e], cmp[r][c + e], tv[e]);
-          cmp[r][c + e] += cv[e];
-        }
-      }
-    }
-  }
-  cluster.sync();    // the later blocks' shared memory stays until read
-}
 
 // the widest copy, in entries, of a bf16 table whose rows of ld entries
 // start at ptr: 4 (one 8-byte load) where every row is 8-byte aligned
 inline int bf16_vec(const void* ptr, int ld) {
   return reinterpret_cast<uintptr_t>(ptr) % 8 == 0 && ld % 4 == 0 ? 4 : 1;
-}
-
-// launch kernel on grid with clusters of `split` blocks along x (none for
-// split 1), `smem` bytes of dynamic shared memory (above the default 48 KB
-// only after raising the kernel's limit)
-template <typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), dim3 grid, int threads, int smem,
-           int split, void* stream, Args... args) {
-  cudaError_t e = cudaSuccess;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  }
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
 }
 
 }  // namespace grouped
@@ -234,27 +134,11 @@ using ect::cp_async_wait;
 using ect::operand;
 using ect::table_value;
 
-constexpr int BR = 20;        // coefficient rows per block, each parity
-constexpr int RT = 5;         // rows per thread
-constexpr int DK = 64;        // parity degrees per block
-constexpr int KT = 8;         // degrees per thread, two runs of 4
-constexpr int KRUN = DK / 2;  // a thread's runs of 4 degrees apart
-constexpr int NRG = BR / RT;  // row groups
-constexpr int NKG = DK / KT;  // degree groups
-constexpr int THREADS = 2 * NRG * NKG;   // 64: a warp a parity
+using namespace dir_form;
+
 constexpr int MINB = 4;       // blocks an SM
-constexpr int TJ = 32;        // latitudes per stage
-constexpr int FOLD = 16;      // latitudes per chunk partial
-constexpr int DR = TJ + 2;    // floats per operand row
-constexpr int PT = TJ * DK;   // table floats per parity and stage
-constexpr int PSTAGE = PT + BR * DR;     // floats per parity and stage
-constexpr int STAGE = 2 * PSTAGE;        // floats per stage
 constexpr int STAGES = 2;
 constexpr int SMEM = STAGES * STAGE * 4;   // bytes
-static_assert(NRG * NKG == 32, "a warp a parity");
-static_assert(TJ % FOLD == 0 && FOLD % 2 == 0 && KT == 8, "");
-static_assert(2 * RT * KT * THREADS <= STAGES * STAGE,
-              "a block's totals fit its ring");
 
 // one stage, latitudes i0 .. i0 + TJ - 1, of both parities: the operand
 // chunk ds[r][i] = f[row0 + r, i0 + i] (8-byte copies where the rows
@@ -356,8 +240,7 @@ __device__ __forceinline__ void dir_body(float* smem, const float* fsym,
   const int nstage = (ig + TJ - 1) / TJ;
   const int c0 = rank * nstage / nsplit, c1 = (rank + 1) * nstage / nsplit;
 
-  // compensated totals (tot, cmp); held adds a stage's two chunk partials
-  float held[RT][KT], tot[RT][KT], cmp[RT][KT];
+  float tot[RT][KT], cmp[RT][KT];   // compensated totals
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
 #pragma unroll
@@ -382,57 +265,8 @@ __device__ __forceinline__ void dir_body(float* smem, const float* fsym,
     }
     cp_async_commit();
 
-    const float* st = smem + (c - c0) % STAGES * STAGE + par * PSTAGE;
-    const float* ps = st + 4 * tx;
-    const float* ds = st + PT + RT * ty * DR;
-#pragma unroll
-    for (int h = 0; h < TJ; h += FOLD) {
-      // the chunk partial over latitudes h .. h + FOLD - 1 of this stage
-      float part[RT][KT];
-#pragma unroll
-      for (int q = 0; q < FOLD; q += 2) {
-        float2 av[RT];
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          av[r] = *reinterpret_cast<const float2*>(ds + r * DR + h + q);
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int j = h + q + u;
-          float bv[KT];
-#pragma unroll
-          for (int k = 0; k < KT / 4; ++k) {
-            const float4 b =
-                *reinterpret_cast<const float4*>(ps + j * DK + k * KRUN);
-            bv[4 * k] = b.x; bv[4 * k + 1] = b.y;
-            bv[4 * k + 2] = b.z; bv[4 * k + 3] = b.w;
-          }
-#pragma unroll
-          for (int r = 0; r < RT; ++r) {
-            const float a = u == 0 ? av[r].x : av[r].y;
-#pragma unroll
-            for (int l = 0; l < KT; ++l) {
-              part[r][l] = q + u == 0 ? a * bv[l]
-                                      : fmaf(a, bv[l], part[r][l]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-#pragma unroll
-        for (int l = 0; l < KT; ++l) {
-          held[r][l] = h == 0 ? part[r][l] : held[r][l] + part[r][l];
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-#pragma unroll
-      for (int l = 0; l < KT; ++l) {
-        add_compensated(tot[r][l], cmp[r][l], held[r][l]);
-      }
-    }
+    stage_sums(smem + (c - c0) % STAGES * STAGE + par * PSTAGE, ty, tx, tot,
+               cmp);
   }
   cp_async_wait<0>();
 
@@ -525,29 +359,11 @@ using ect::cp_async_wait;
 using ect::operand;
 using ect::table_value;
 
-constexpr int BR = 32;        // coefficient rows per block
-constexpr int RT = 4;         // rows per thread, NRG apart
-constexpr int TI = 64;        // latitudes per block
-constexpr int LT = 8;         // latitudes per thread, NLG apart
-constexpr int NRG = BR / RT;  // row groups
-constexpr int NLG = TI / LT;  // latitude groups
-constexpr int PTHREADS = NRG * NLG;      // 64 a parity
-constexpr int THREADS = 2 * PTHREADS;    // 128
+using namespace inv_form;
+
 constexpr int MINB = 2;       // blocks an SM
-constexpr int DK = 32;        // parity degrees per stage
-constexpr int FOLD = 16;      // degrees per chunk partial
-constexpr int LD = DK + 4;    // floats per shared row (16-byte multiple)
-constexpr int PSTAGE = (BR + TI) * LD;   // floats per parity and stage
-constexpr int STAGE = 2 * PSTAGE;        // floats per stage
 constexpr int STAGES = 2;
 constexpr int SMEM = STAGES * STAGE * 4;   // bytes
-constexpr int NQ = RT * LT / 4;          // float4s of a thread's tile
-static_assert(NRG % 4 == 0 && NLG == 8, "warps of 4 row x 8 latitude groups");
-static_assert(DK % FOLD == 0 && FOLD % 4 == 0, "");
-static_assert(LD % 4 == 0 && (LD / 4) % 2 == 1,
-              "rows of an odd count of float4s: 8 rows, 8 bank quads");
-static_assert(2 * NQ * PTHREADS * 4 <= STAGES * STAGE,
-              "both parities' outputs fit the ring");
 
 // NR rows of DK floats from rows ld apart into rows LD apart (16-, 8- or
 // 4-byte copies: vec = 4, 2, 1); PADDED: the rows reach past ncol
@@ -647,8 +463,7 @@ __device__ __forceinline__ void inv_body(float* smem, const float* sym,
   const P* pam = pasym + po;
   const int nstage = (kg + DK - 1) / DK;
 
-  // compensated totals (tot, cmp); held adds a stage's two chunk partials
-  float held[RT][LT], tot[RT][LT], cmp[RT][LT];
+  float tot[RT][LT], cmp[RT][LT];   // compensated totals
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
 #pragma unroll
@@ -673,81 +488,12 @@ __device__ __forceinline__ void inv_body(float* smem, const float* sym,
     }
     cp_async_commit();
 
-    const float* st = smem + c % STAGES * STAGE + par * PSTAGE;
-    const float* xs = st + ty * LD;
-    const float* ps = st + BR * LD + tx * LD;
-#pragma unroll
-    for (int h = 0; h < DK; h += FOLD) {
-      // the chunk partial over degrees h .. h + FOLD - 1 of this stage
-      float part[RT][LT];
-#pragma unroll
-      for (int q = 0; q < FOLD; q += 4) {
-        float4 a[RT];
-#pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          a[r] = *reinterpret_cast<const float4*>(xs + r * NRG * LD + h + q);
-        }
-#pragma unroll
-        for (int l = 0; l < LT; ++l) {
-          const float4 b =
-              *reinterpret_cast<const float4*>(ps + l * NLG * LD + h + q);
-#pragma unroll
-          for (int r = 0; r < RT; ++r) {
-            float p = q == 0 ? a[r].x * b.x : fmaf(a[r].x, b.x, part[r][l]);
-            p = fmaf(a[r].y, b.y, p);
-            p = fmaf(a[r].z, b.z, p);
-            part[r][l] = fmaf(a[r].w, b.w, p);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-#pragma unroll
-        for (int l = 0; l < LT; ++l) {
-          held[r][l] = h == 0 ? part[r][l] : held[r][l] + part[r][l];
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-#pragma unroll
-      for (int l = 0; l < LT; ++l) {
-        add_compensated(tot[r][l], cmp[r][l], held[r][l]);
-      }
-    }
+    stage_sums(smem + c % STAGES * STAGE + par * PSTAGE, ty, tx, tot, cmp);
   }
   cp_async_wait<0>();
 
-  // the s (par 0) and a (par 1) threads of the same outputs read each
-  // other's sums through the ring; the s thread writes north = s + a, the a
-  // thread south = s - a
-  __syncthreads();
-  float4* vs = reinterpret_cast<float4*>(smem) + pt;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const int r = 4 * q / LT, l = 4 * q % LT;
-    vs[(par * NQ + q) * PTHREADS] = make_float4(
-        tot[r][l] + cmp[r][l], tot[r][l + 1] + cmp[r][l + 1],
-        tot[r][l + 2] + cmp[r][l + 2], tot[r][l + 3] + cmp[r][l + 3]);
-  }
-  __syncthreads();
-  float* dst = par ? south : north;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const float4 o4 = vs[((1 - par) * NQ + q) * PTHREADS];
-    const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
-    const int r = 4 * q / LT, l0 = 4 * q % LT;
-    const int row = row0 + ty + NRG * r;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int l = l0 + e;
-      const int i = i0 + tx + NLG * l;
-      const float v = tot[r][l] + cmp[r][l];
-      if (row < fc && i < ig) {
-        dst[((size_t)m * fc + row) * ig + i] = par ? ov[e] - v : v + ov[e];
-      }
-    }
-  }
+  inv_form::store(smem, tot, cmp, par, pt, ty, tx, m, row0, i0, fc, ig, north,
+                  south);
 }
 
 template <typename P>

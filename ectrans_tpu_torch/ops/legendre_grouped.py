@@ -38,12 +38,13 @@ def table_rows(psym: torch.Tensor, pasym: torch.Tensor, like: torch.Tensor,
     return ldk
 
 
-def pad_rows(t: torch.Tensor) -> torch.Tensor:
+def pad_rows(t: torch.Tensor, multiple: int = 4) -> torch.Tensor:
     """t (gm, ig, kg) as a view of the first kg columns of rows padded with
-    zeros to a multiple of 4 entries: K5 and K6 copy such a table 16 bytes
-    at a time (kg is odd in every TCO1279 group)."""
+    zeros to a multiple of ``multiple`` entries: K5 and K6 copy such an fp32
+    table (4 entries) 16 bytes at a time, as K9 and K10 do their bf16 planes
+    (8 entries); kg is odd in every TCO1279 group."""
     kg = t.shape[-1]
-    rows = t.new_zeros(*t.shape[:-1], -(-kg // 4) * 4)
+    rows = t.new_zeros(*t.shape[:-1], -(-kg // multiple) * multiple)
     rows[..., :kg] = t
     return rows[..., :kg]
 

@@ -26,9 +26,11 @@ products of limb l and plane k with l + k < nplanes (one bf16 MXU pass
 each); the terms they drop are 2^-24 of a product, which is enough to put
 the TCO1279 round trip over its 100·eps gate.  At 1 plane both compute the
 same bf16 products.  CUDA tensors launch the kernels (bf16 in, fp32 out);
-CPU tensors take the plain versions (``torch.bmm`` in fp32).  Not carried
-over: the ``optimization_barrier`` around the packing (a TPU-compiler
-guard).
+CPU tensors take the plain versions (``torch.bmm`` in fp32).  The planes
+may be views of rows padded past J (as ``Resolution.planes_legendre``
+stores them, in rows of a multiple of 8 entries); the kernels never read
+past J.  Not carried over: the ``optimization_barrier`` around the
+packing (a TPU-compiler guard).
 """
 
 from __future__ import annotations
@@ -108,31 +110,45 @@ def group_inv_planes_plain(a: torch.Tensor, tplanes, nplanes: int, fc2: int):
             torch.bmm(_limb_sum(a, nplanes, fc2, 1), pt))
 
 
-def _check_planes(tplanes, nplanes: int, like: torch.Tensor, gm: int,
-                  shape: tuple) -> None:
+def plane_rows(tplanes, nplanes: int, like: torch.Tensor, gm: int,
+               shape: tuple) -> int:
+    """The common row length of the planes K9 and K10 read (gm, ig, J): J,
+    or the padded rows of ``Resolution.planes_legendre``."""
     if nplanes not in (1, 3) or len(tplanes) < nplanes:
         raise ValueError(f"the kernels take 1 or 3 planes, got nplanes="
                          f"{nplanes} with {len(tplanes)} planes")
-    for k in range(nplanes):
-        _build.check_operand(f"plane {k}", tplanes[k], like, (gm,) + shape,
-                             dtype=torch.bfloat16)
+    p0 = tplanes[0]
+    ld = _build.check_rows("plane 0", p0, like, (gm,) + shape,
+                           dtype=torch.bfloat16)
+    # the other planes must be laid out as the first (one comparison each,
+    # on the host's time a call); one that is not gets the full check, which
+    # names what is wrong with it
+    layout = (p0.shape, p0.stride(), p0.dtype, p0.device)
+    for k in range(1, nplanes):
+        p = tplanes[k]
+        if (p.shape, p.stride(), p.dtype, p.device) != layout:
+            _build.check_rows(f"plane {k}", p, like, (gm,) + shape,
+                              dtype=torch.bfloat16)
+            raise ValueError(f"the planes' rows differ: strides "
+                             f"{p0.stride()} and {p.stride()}")
+    return ld
 
 
 def group_inv_planes(a: torch.Tensor, tplanes, nplanes: int, fc2: int):
     """One group's inverse LT (K9; replaces
     ``legendre_planes.group_inv_planes``): packed bf16 rows a
-    (gm, 2 P fc2, J) x bf16 planes (gm, ig, J) -> (north, south), each
-    (gm, fc2, ig) fp32, south NOT latitude-reversed.  The kernel reads the
-    x_l rows and takes south from the parity of j: the sign rows must be
-    the x_l (-1)^j rows ``_pack_inv_rows`` makes (the plain version reads
-    them)."""
+    (gm, 2 P fc2, J) x bf16 planes (gm, ig, J; rows may be padded,
+    ``plane_rows``) -> (north, south), each (gm, fc2, ig) fp32, south NOT
+    latitude-reversed.  The kernel reads the x_l rows and takes south from
+    the parity of j: the sign rows must be the x_l (-1)^j rows
+    ``_pack_inv_rows`` makes (the plain version reads them)."""
     if _build.on_cpu(a):
         return group_inv_planes_plain(a, tplanes, nplanes, fc2)
     gm, _, J = a.shape
     ig = tplanes[0].shape[1]
     _build.check_operand("a", a, a, (gm, 2 * nplanes * fc2, J),
                          dtype=torch.bfloat16)
-    _check_planes(tplanes, nplanes, a, gm, (ig, J))
+    ld = plane_rows(tplanes, nplanes, a, gm, (ig, J))
     north = torch.empty((gm, fc2, ig), dtype=torch.float32, device=a.device)
     south = torch.empty_like(north)
     if north.numel() == 0:
@@ -141,12 +157,20 @@ def group_inv_planes(a: torch.Tensor, tplanes, nplanes: int, fc2: int):
     with _build.on_device(a):
         _build.launch("ect_inv_planes", None, a.data_ptr(), *ptrs,
                       north.data_ptr(), south.data_ptr(), nplanes, gm, fc2,
-                      J, ig)
+                      J, ig, ld)
     group_inv_planes.launches += 1
     return north, south
 
 
 group_inv_planes.launches = 0
+
+
+def group_inv_planes_shape(gm: int, fc2: int, J: int, ig: int,
+                           nplanes: int) -> dict:
+    """K9's launch for one group (``_build.launch_shape``) on planes whose
+    rows start 16-byte aligned, as ``planes_legendre`` stores them."""
+    return _build.launch_shape("ect_inv_planes_shape", None, nplanes, gm,
+                               fc2, J, ig)
 
 
 def group_dir_planes_plain(w: torch.Tensor, tplanes, nplanes: int,
@@ -163,27 +187,36 @@ def group_dir_planes(w: torch.Tensor, tplanes, nplanes: int,
                      fc2: int) -> torch.Tensor:
     """One group's direct LT (K10; replaces
     ``legendre_planes.group_dir_planes``): packed bf16 weighted Fourier
-    rows w (gm, 2 P fc2, ig) x bf16 planes (gm, ig, J) -> realigned rows
-    (gm, fc2, J) fp32."""
+    rows w (gm, 2 P fc2, ig) x bf16 planes (gm, ig, J; rows may be padded)
+    -> realigned rows (gm, fc2, J) fp32."""
     if _build.on_cpu(w):
         return group_dir_planes_plain(w, tplanes, nplanes, fc2)
     gm, _, ig = w.shape
     J = tplanes[0].shape[2]
     _build.check_operand("w", w, w, (gm, 2 * nplanes * fc2, ig),
                          dtype=torch.bfloat16)
-    _check_planes(tplanes, nplanes, w, gm, (ig, J))
+    ld = plane_rows(tplanes, nplanes, w, gm, (ig, J))
     out = torch.empty((gm, fc2, J), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
     ptrs = [tplanes[min(k, nplanes - 1)].data_ptr() for k in range(3)]
     with _build.on_device(w):
         _build.launch("ect_dir_planes", None, w.data_ptr(), *ptrs,
-                      out.data_ptr(), nplanes, gm, fc2, J, ig)
+                      out.data_ptr(), nplanes, gm, fc2, J, ig, ld)
     group_dir_planes.launches += 1
     return out
 
 
 group_dir_planes.launches = 0
+
+
+def group_dir_planes_shape(gm: int, fc2: int, J: int, ig: int,
+                           nplanes: int) -> dict:
+    """K10's launch for one group (``_build.launch_shape``) on planes whose
+    rows start 16-byte aligned: its blocks count each latitude split's
+    parts, clusters of 1 to 8 blocks."""
+    return _build.launch_shape("ect_dir_planes_shape", None, nplanes, gm,
+                               fc2, J, ig)
 
 
 def legendre_inv_planes(dense: torch.Tensor, ppl, nplanes: int = 3):

@@ -109,8 +109,9 @@ class GroupedLegendre:
 @dataclasses.dataclass(frozen=True)
 class PlanesGroup:
     """One contiguous m-group of bf16 limb planes ("planes" engine): pt[k]
-    (m1-m0, ndgnh-i0, J), the transposed layout shared by both directions;
-    sum_k pt[k] is the fp32 table exactly at 3 planes."""
+    (m1-m0, ndgnh-i0, J), the transposed layout shared by both directions,
+    in rows padded to a multiple of 8 entries; sum_k pt[k] is the fp32
+    table exactly at 3 planes."""
 
     m0: int
     m1: int
@@ -336,7 +337,11 @@ class Resolution:
         """Per-m-group bf16 limb planes of the fp32 tables for the "planes"
         engine: ``split_planes(pn)`` transposed to (gm, ig, J).  3 planes
         carry fp32 accuracy (6 bytes per entry); 1 plane is the "bf16" tier
-        (2 bytes per entry)."""
+        (2 bytes per entry).  Each plane is a view of rows zero-padded to a
+        multiple of 8 entries (``legendre_grouped.pad_rows``), which K9 and
+        K10 copy 16 bytes at a time."""
+        from .ops.legendre_grouped import pad_rows
+
         device = canonical_device(device)
 
         def build():
@@ -344,7 +349,7 @@ class Resolution:
 
             groups = tuple(
                 PlanesGroup(m0=g.m0, m1=g.m1, i0=g.i0, J=g.J,
-                            pt=tuple(p.transpose(1, 2).contiguous()
+                            pt=tuple(pad_rows(p.transpose(1, 2), 8)
                                      for p in split_planes(g.pn, nplanes)))
                 for g in self._source_groups(torch.float32, device))
             return PlanesLegendre(groups=groups, ndgnh=self.ndgnh,

@@ -336,7 +336,7 @@ def test_k4_input_bytes_count_what_its_columns_read(smoke):
     assert smoke.k4_input_bytes(groups, res.ndgnh) == want
 
 
-@pytest.mark.parametrize("key", ["K5", "K6"])
+@pytest.mark.parametrize("key", ["K5", "K6", "K9", "K10"])
 def test_library_call_computes_the_kernels_function(smoke, key):
     """K5's and K6's one-call counterparts: one torch.bmm on the operands of
     k5_library / k6_library gives the plain version's two outputs, stacked
@@ -355,12 +355,37 @@ def test_library_call_computes_the_kernels_function(smoke, key):
         want = lg.group_inv_plain(*args)
         got = torch.bmm(*smoke.k5_library(*args))
         got = got[:, :fc2], got[:, fc2:]
-    else:
+    elif key == "K6":
         args = (rnd(gm, fc2, ig), rnd(gm, fc2, ig), rnd(gm, ig, kg),
                 rnd(gm, ig, kg))
         want = lg.group_dir_plain(*args)
         got = torch.bmm(*smoke.k6_library(*args))
         got = got[:gm], got[gm:]
+    else:
+        # K9 and K10 on 3 limb planes: the yardstick's fp32 product of the
+        # summed limbs and planes gives the plain version's outputs
+        from ectrans_tpu_torch.ops import legendre_planes as lpl
+
+        J = 2 * kg
+        pt = lpl.split_planes(rnd(gm, ig, J).float(), 3)
+        if key == "K9":
+            a = lpl._pack_inv_rows(rnd(gm, fc2, J).float(), 3)
+            want = lpl.group_inv_planes_plain(a, pt, 3, fc2)
+            got = torch.bmm(*smoke.k9_library(a, pt, 3, fc2))
+            got = got[:, :fc2], got[:, fc2:]
+        else:
+            w = lpl._pack_dir_rows(rnd(gm, fc2, ig).float(),
+                                   rnd(gm, fc2, ig).float(), 3)
+            want = (lpl.group_dir_planes_plain(w, pt, 3, fc2),)
+            both = torch.bmm(*smoke.k10_library(w, pt, 3, fc2))
+            got = torch.empty_like(want[0])
+            got[..., 0::2] = both[:, :fc2, 0::2]
+            got[..., 1::2] = both[:, fc2:, 1::2]
+            got = (got,)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+        return
     for g, w in zip(got, want):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
@@ -466,3 +491,93 @@ def test_k5_k6_lines(smoke, cpu_card, capsys):
                      "registers", "no spills", "bf16 tables"):
             assert part in line, (key, part)
         assert ("latitude split per group" in line) == (key == "K6")
+
+
+PLANES_LOG = "".join(
+    "ptxas info    : Compiling entry function "
+    f"'_ZN{ns}{kern}ILi{p}ELb{al}EEEvNS_4ArgsE' for 'sm_90a'\n"
+    f"    0 bytes stack frame, {{{key}}} bytes spill stores, 0 bytes spill "
+    "loads\n"
+    f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+    for ns, kern, key in (("2k9", "17inv_planes_kernel", "k9"),
+                          ("3k10", "17dir_planes_kernel", "k10"))
+    for p, al, regs in ((3, 1, 240), (1, 1, 230), (3, 0, 244), (1, 0, 232)))
+
+
+@pytest.mark.parametrize("key", ["K9", "K10"])
+@pytest.mark.parametrize("spill", [0, 8])
+def test_registers_of_k9_k10_refuse_a_spill(smoke, tmp_path, monkeypatch,
+                                            key, spill):
+    """K9's and K10's lines read their four variants' registers (3 planes and
+    1, table rows aligned or not), and not each other's, from build.log; a
+    spill in any fails the run."""
+    log = PLANES_LOG.format(k9=spill if key == "K9" else 0,
+                            k10=spill if key == "K10" else 0)
+    (tmp_path / "build.log").write_text(log + GROUPED_LOG.format(k5=0, k6=0))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    needle, variants, _ = smoke.REDESIGNED[key]
+    if spill:
+        with pytest.raises(RuntimeError, match="spills"):
+            smoke.registers(key, needle, len(variants))
+    else:
+        assert smoke.registers(key, needle, len(variants)) == {
+            "3 planes": 240, "1 plane": 230, "3 planes, unaligned": 244,
+            "1 plane, unaligned": 232}
+
+
+def test_k9_k10_lines(smoke, cpu_card, capsys):
+    """K9's and K10's holds at O48 at 3 planes and at 1 (hold_planes): their
+    bounds count the planes, the packed operands and the outputs once and
+    (2 fc2 + P - 1) operations an entry, the lines time the yardsticks and
+    print the bound with both terms, the spin-timed device time, the launch,
+    the registers and the 1-plane numbers, K10's its latitude split; the
+    padding A/B holds padded and contiguous planes to outputs within 5e-6
+    relative (the plain versions: identical)."""
+    import ectrans_tpu_torch as ett
+
+    (_build.BUILD_DIR / "build.log").write_text(
+        PLANES_LOG.format(k9=0, k10=0))
+    res = ett.setup("O48", 47)
+    gen = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    out = {}
+    for nplanes in (3, 1):
+        out.update(smoke.hold_planes(res, cpu_card, nplanes, rnd))
+    assert sorted(out) == ["K10", "K10 (1 plane)", "K9", "K9 (1 plane)"]
+    for nplanes, tag in ((3, ""), (1, " (1 plane)")):
+        ppl = res.planes_legendre(nplanes, cpu_card)
+        planes = sum(nplanes * 2 * g.pt[0].numel() for g in ppl.groups)
+        for key, rows in (("K9", 32), ("K10", 20)):
+            k = out[key + tag]
+            assert k["max_abs_err"] == 0.0 and k["library_ms"] > 0
+            assert k["spin_ms"] > 0 and k["moved"] == ("planes", planes)
+            ops = sum((2 * rows + nplanes - 1) * g.pt[0].numel()
+                      for g in ppl.groups)
+            assert k["ops_ms"] == pytest.approx(ops / 67e12 * 1e3)
+            assert k["bytes_ms"] * 3.35e12 / 1e3 > planes
+            assert len(k["shapes"]) == len(ppl.groups)
+    for key, rows in (("K9", 32), ("K10", 20)):
+        out[key]["note"] = smoke.planes_note(key, out)
+        smoke.redesign_report(key, out)
+        line = capsys.readouterr().out
+        assert line.startswith(f"phase 2 {key} (3 planes, "
+                               f"{len(res.legendre_groups())} groups, rows "
+                               f"{rows})")
+        for part in ("vs torch.bmm on the summed limbs and planes",
+                     "a yardstick", "% of it", "planes", "GB/s",
+                     "behind a spin kernel", "us a call", "waves",
+                     "registers 240 (3 planes) / 230 (1 plane) / 244 (3 "
+                     "planes, unaligned) / 232 (1 plane, unaligned), no "
+                     "spills", "; 1 plane "):
+            assert part in line, (key, part)
+        assert ("latitude split per group" in line) == (key == "K10")
+    ab = smoke.planes_padding_ab(res, cpu_card, rnd)
+    assert sorted(ab) == ["K10 contiguous", "K10 padded", "K10 rel",
+                          "K9 contiguous", "K9 padded", "K9 rel"]
+    assert min(ab[k] for k in ab if "rel" not in k) > 0
+    assert ab["K9 rel"] == ab["K10 rel"] == 0.0
+    smoke.padding_report(ab)
+    assert "padded rows" in capsys.readouterr().out

@@ -11,7 +11,9 @@ products of rounded operands are exact in fp32) / 1e-12 (fp64) relative to
 the output's max, and K1/K2/K7/K8 within 1.5x the error of the template
 K1's and K2's summation order (its fp32 emulation in test_torch_k7_sums.py)
 against an fp64 product, K5/K6 within 1.5x the error of the template K5's
-and K6's (test_torch_k5_sums.py), K9/K10 5e-6 (fp32 sums of exact bf16 products); K4 1e-7
+and K6's (test_torch_k5_sums.py), K9/K10 5e-6 (fp32 sums of exact bf16
+products) and within 1.5x the error of the template K9's and K10's order
+(test_torch_k9_sums.py); K4 1e-7
 of the table scale one group a launch, and bit-exact on the all-groups
 launch; K3 and K11 bit-exact; K12 1e-6 relative; the slice as
 in test_torch_transform.py (fp64 1e-10 relative, fp32 2e-5 + 1e-5
@@ -31,6 +33,7 @@ from ectrans_tpu_torch.ops import legendre_tablegen as tg
 from ectrans_tpu_torch.ops import pack
 from test_torch_k5_sums import template_k5_order, template_k6_order
 from test_torch_k7_sums import template_k1_order, template_k2_order
+from test_torch_k9_sums import template_k10_order, template_k9_order
 
 pytestmark = pytest.mark.cuda
 
@@ -437,6 +440,134 @@ def test_planes_kernels_match_plain(dev, nplanes):
         assert rel_err(lp.group_dir_planes(w, grp.pt, nplanes, 20),
                        lp.group_dir_planes_plain(w, grp.pt, nplanes,
                                                  20)) <= 5e-6
+
+
+# synthetic K9 and K10 groups (gm, ig, J) at the edges of their tiles: J % 8
+# in {2, 0, 4, 6} (J = 2 kg is even; 2 in every TCO1279 group), ig 100, 77,
+# 129 and 201 (not a multiple of K9's 64-latitude tile or K10's 32-latitude
+# stage), gm 1; TCO1279 group 15's (ig 474, J 82) at gm 1, whose few K10
+# blocks split the latitudes among a cluster, and a launch of many short
+# K10 blocks that takes none (gm 150, ig 64, J 258)
+PLANES_EDGES = [(2, 100, 66), (2, 100, 64), (2, 77, 44), (1, 129, 70),
+                (1, 201, 130), (1, 474, 82), (150, 64, 258)]
+
+
+def shifted(t, offset):
+    """A copy of t whose base lies ``offset`` elements past an allocation's
+    start (2-byte aligned in bf16 for an odd offset)."""
+    buf = torch.empty(t.numel() + offset, device=t.device, dtype=t.dtype)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def padded_planes(planes, fill):
+    """The planes (gm, ig, J) as views of rows padded to a multiple of 8
+    entries, the layout of ``planes_legendre``, with ``fill`` past J."""
+    out = []
+    for t in planes:
+        J = t.shape[-1]
+        rows = torch.full((*t.shape[:-1], -(-J // 8) * 8), fill,
+                          device=t.device, dtype=t.dtype)
+        rows[..., :J] = t
+        out.append(rows[..., :J])
+    return tuple(out)
+
+
+@pytest.mark.parametrize("fc2", [1, 20, 32, 40])
+@pytest.mark.parametrize("nplanes", [3, 1])
+def test_planes_kernels_at_tile_edges(dev, nplanes, fc2):
+    """K9 and K10 on synthetic groups at the edges of their tiles
+    (PLANES_EDGES), with fc2 1, 20, 32 and 40 (K10's 20-row and K9's 32-row
+    blocks, and partial ones), operands packed as the planes engine packs
+    them; the planes take turns: in padded rows whose padding holds NaN (no
+    kernel reads past J), contiguous, and contiguous from an odd offset (rows
+    not even 4-byte aligned); the operands of every other group start at an
+    odd offset too.  K10's launch report shows the split on group 15's shape
+    and none on the last."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    for n, (gm, ig, J) in enumerate(PLANES_EDGES):
+        planes = lp.split_planes(
+            torch.randn(gm, ig, J, generator=g, device=dev), nplanes)
+        planes = (padded_planes(planes, float("nan")) if n % 3 == 0 else
+                  tuple(shifted(p, n % 3 - 1) for p in planes))
+        off = n % 2
+        a = shifted(lp._pack_inv_rows(
+            torch.randn(gm, fc2, J, generator=g, device=dev), nplanes), off)
+        for x, y in zip(lp.group_inv_planes(a, planes, nplanes, fc2),
+                        lp.group_inv_planes_plain(a, planes, nplanes, fc2)):
+            assert x.shape == (gm, fc2, ig) and x.dtype == torch.float32
+            assert rel_err(x, y) <= 5e-6, (gm, ig, J)
+        fn, fs = (torch.randn(gm, fc2, ig, generator=g, device=dev)
+                  for _ in range(2))
+        w = shifted(lp._pack_dir_rows(fn, fs, nplanes), off)
+        x = lp.group_dir_planes(w, planes, nplanes, fc2)
+        assert x.shape == (gm, fc2, J) and x.dtype == torch.float32
+        assert rel_err(x, lp.group_dir_planes_plain(w, planes, nplanes,
+                                                    fc2)) <= 5e-6, (gm, ig, J)
+    chunks = -(-fc2 // 20)
+    split = lp.group_dir_planes_shape(1, fc2, 82, 474, nplanes)
+    assert split["blocks"] > chunks, split
+    whole = lp.group_dir_planes_shape(150, fc2, 258, 64, nplanes)
+    assert whole["blocks"] == 150 * 3 * chunks, whole
+
+
+def planes_error_case(dev, nplanes: int, seed: int, inverse: bool):
+    """K9's packed rows (32 rows) and planes at TCO1279 widths (J 1282, ig
+    1203), or K10's (20 rows; ig 1280, J 322: 3 degree tiles, 6 blocks, so
+    the latitudes split), gm 2, the planes in padded rows as planes_legendre
+    stores them; the fp64 product of the summed limbs and planes (north and
+    south stacked for K9), and the error of the template K9's or K10's
+    summation order on them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gm, rows, ig, J = (2, 32, 1203, 1282) if inverse else (2, 20, 1280, 322)
+    planes = tuple(lg.pad_rows(p, 8) for p in lp.split_planes(
+        torch.randn(gm, ig, J, generator=g, device=dev), nplanes))
+    p = lp._plane_sum(planes, nplanes)
+    p64 = p.double()
+    if inverse:
+        packed = lp._pack_inv_rows(torch.randn(gm, rows, J, generator=g,
+                                               device=dev), nplanes)
+        x = lp._limb_sum(packed, nplanes, rows, 0)
+        xs = x * ld._jsgn(J, x)
+        want = torch.cat([torch.bmm(x.double(), p64.transpose(1, 2)),
+                          torch.bmm(xs.double(), p64.transpose(1, 2))], dim=1)
+        tpl = np.stack([template_k9_order(a, b) for a, b in
+                        zip(x.cpu().numpy(), p.cpu().numpy())])
+    else:
+        packed = lp._pack_dir_rows(
+            *(torch.randn(gm, rows, ig, generator=g, device=dev)
+              for _ in range(2)), nplanes)
+        gn = lp._limb_sum(packed, nplanes, rows, 0)
+        gs = lp._limb_sum(packed, nplanes, rows, 1)
+        want = torch.bmm(gn.double(), p64) + torch.bmm(gs.double(), p64) * \
+            ld._jsgn(J, p64)
+        tpl = np.stack([template_k10_order(a, b, c) for a, b, c in
+                        zip(gn.cpu().numpy(), gs.cpu().numpy(),
+                            p.cpu().numpy())])
+    return packed, planes, want, np.abs(tpl - want.cpu().numpy()).max()
+
+
+@pytest.mark.parametrize("nplanes", [3, 1])
+def test_k9_error_within_template(dev, nplanes):
+    """K9's north and south against the fp64 product of the summed limbs and
+    planes: at most 1.5x the error of the template K9's order on the same
+    operands."""
+    a, planes, want, e_tpl = planes_error_case(dev, nplanes, 12, True)
+    e9 = max_err(torch.cat(lp.group_inv_planes(a, planes, nplanes, 32),
+                           dim=1), want)
+    assert 0 < e9 <= 1.5 * e_tpl, (e9, e_tpl)
+
+
+@pytest.mark.parametrize("nplanes", [3, 1])
+def test_k10_error_within_template(dev, nplanes):
+    """K10 (a launch that splits the latitudes) against the fp64 product of
+    the summed limbs and planes: at most 1.5x the error of the template
+    K10's order on the same operands."""
+    w, planes, want, e_tpl = planes_error_case(dev, nplanes, 13, False)
+    assert lp.group_dir_planes_shape(2, 20, 322, 1280, nplanes)["blocks"] > 6
+    e10 = max_err(lp.group_dir_planes(w, planes, nplanes, 20), want)
+    assert 0 < e10 <= 1.5 * e_tpl, (e10, e_tpl)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -66,10 +66,55 @@ def test_planes_tables_match_jax(pair, nplanes):
         assert (g.m0, g.m1, g.i0, g.J) == (jg.m0, jg.m1, jg.i0, jg.J)
         assert len(g.pt) == len(jg.pt) == nplanes
         for a, b in zip(g.pt, jg.pt):
-            assert a.dtype == torch.bfloat16 and a.is_contiguous()
+            # views of rows zero-padded to a multiple of 8 entries (K9, K10)
+            ld = -(-g.J // 8) * 8
+            assert a.dtype == torch.bfloat16
+            assert a.stride() == (a.shape[1] * ld, ld, 1)
             np.testing.assert_array_equal(a.float().numpy(),
                                           np.asarray(b, np.float32))
 
+
+
+@pytest.mark.parametrize("nplanes", [3, 1])
+def test_planes_rows_are_padded_with_zeros(nplanes):
+    """planes_legendre stores each plane in rows zero-padded to a multiple
+    of 8 bf16 entries (16 bytes: K9 and K10 copy them so), as views of the
+    first J that keep the shape and the values of the contiguous split."""
+    res = ett.setup("O48", 47)
+    ppl = res.planes_legendre(nplanes)
+    fl = res.full_legendre(torch.float32)
+    assert any(g.J % 8 for g in ppl.groups)
+    for g, fg in zip(ppl.groups, fl.groups, strict=True):
+        ld = -(-g.J // 8) * 8
+        want = [p.transpose(1, 2) for p in lp.split_planes(fg.pn, nplanes)]
+        for a, b in zip(g.pt, want, strict=True):
+            assert a.shape == b.shape == (g.m1 - g.m0, res.ndgnh - g.i0, g.J)
+            assert a.stride() == (a.shape[1] * ld, ld, 1)
+            assert torch.equal(a, b)
+            rows = a.as_strided((*a.shape[:2], ld), a.stride())
+            assert not rows[..., g.J:].any()
+
+
+def test_plane_rows_take_padded_rows():
+    """K9's and K10's wrappers take planes in rows padded past J (the layout
+    of planes_legendre) and report the row length, and refuse other strides,
+    planes whose rows differ and a plane count other than 1 or 3."""
+    from ectrans_tpu_torch.ops.legendre_grouped import pad_rows
+
+    t = torch.randn(2, 3, 10).to(torch.bfloat16)
+    padded = pad_rows(t, 8)
+    assert torch.equal(padded, t) and padded.stride() == (48, 16, 1)
+    assert lp.plane_rows((padded,) * 3, 3, t, 2, (3, 10)) == 16
+    assert lp.plane_rows((t, padded), 1, t, 2, (3, 10)) == 10
+    with pytest.raises(ValueError, match="rows differ"):
+        lp.plane_rows((padded, t, padded), 3, t, 2, (3, 10))
+    with pytest.raises(ValueError, match="padded rows"):
+        lp.plane_rows((t.transpose(1, 2).contiguous().transpose(1, 2),), 1,
+                      t, 2, (3, 10))
+    with pytest.raises(TypeError, match="dtype"):
+        lp.plane_rows((t.float(),), 1, t, 2, (3, 10))
+    with pytest.raises(ValueError, match="1 or 3 planes"):
+        lp.plane_rows((t, t), 2, t, 2, (3, 10))
 
 
 @pytest.mark.parametrize("nplanes", [3, 1])
