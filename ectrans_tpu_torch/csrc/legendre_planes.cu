@@ -73,21 +73,26 @@
 // Rows.  J = 2 kg and kg is odd in all 16 TCO1279 groups, so a plane row of
 // J entries starts only 4-byte aligned.  Resolution.planes_legendre stores
 // the planes in rows padded with zeros to a multiple of 8 entries (views of
-// the first J), so every table row starts 16-byte aligned (ALIGNED).  Any
-// other row lands shifted in the raw buffer by its offset in its 16-byte
-// chunk (chunk_shift) and takes one more copy a row; the operand rows (J or
-// ig long) always do.  A copy that reaches past the tile's entries reads
-// only those below J (or ig) and zero-fills the rest, so the padding never
-// enters a sum; a stage whose copies all lie inside copies untested.
+// the first J), so every table row starts 16-byte aligned: the kernels take
+// only such planes (the wrappers copy any others into padded rows on the
+// card first) and copy each row in NE / 8 16-byte copies.  The operand rows
+// (J or ig long) keep their length and land shifted in the raw buffer by
+// their offset in their 16-byte chunk (chunk_shift), with one more copy a
+// row.  A copy that reaches past the tile's entries reads only those below
+// J (or ig) and zero-fills the rest, so the padding never enters a sum; a
+// stage whose copies all lie inside copies untested.
 //
 // Launch shape: K9 128 threads, __launch_bounds__(128, 2), 104,448 bytes of
-// shared memory at P = 3 and 53,248 at P = 1 (aligned tables), 2 blocks an
-// SM; K10 64 threads, __launch_bounds__(64, 4), 56,000 and 44,608 bytes, 4
-// blocks an SM; 254 and 255 registers, no spill (nvcc -Xptxas -v, in
+// shared memory at P = 3 and 53,248 at P = 1, 2 blocks an SM; K10 64
+// threads, __launch_bounds__(64, 4), 56,000 and 44,608 bytes, 4 blocks an
+// SM; 254 and 255 registers, no spill (nvcc -Xptxas -v, in
 // _build/build.log; chip_smoke.py prints them and fails on a spill).  Tried
 // on the card and kept (PERF.md): the padded rows, the untested copies of
-// the inner stages, the second raw stage, K10's balanced pass.  The register
-// staging of K5's bf16 variant was not tried: it would spill.
+// the inner stages, the second raw stage, K10's balanced pass.  Tried and
+// not kept: a second instantiation of each kernel that read table rows
+// shifted as the operand rows (contiguous planes in place, 21-34 % slower
+// than padded rows with the aligned kernels).  The register staging of
+// K5's bf16 variant was not tried: it would spill.
 
 #include <algorithm>
 #include <cstdint>
@@ -212,18 +217,17 @@ constexpr int XPITCH = NE / 2 + 4;       // words per raw operand row
 constexpr int RAWS = 2;       // raw stages in flight
 static_assert(NE % 8 == 0, "");
 
-// words per raw table row
-template <bool ALIGNED>
-constexpr int TPITCH = ALIGNED ? NE / 2 : NE / 2 + 4;
+// words per raw table row (rows start 16-byte aligned)
+constexpr int TPITCH = NE / 2;
 
 // words of a raw stage: the planes' tiles, the x_l rows
-template <int P, bool ALIGNED>
-constexpr int RAW_WORDS = P * TI * TPITCH<ALIGNED> + P * BR * XPITCH;
+template <int P>
+constexpr int RAW_WORDS = P * TI * TPITCH + P * BR * XPITCH;
 
 // bytes of shared memory: the fp32 stage and the raw stages
-template <int P, bool ALIGNED>
+template <int P>
 constexpr int smem_bytes() {
-  return 4 * (STAGE + RAWS * RAW_WORDS<P, ALIGNED>);
+  return 4 * (STAGE + RAWS * RAW_WORDS<P>);
 }
 
 struct Args {
@@ -236,16 +240,16 @@ struct Args {
 
 // stage j0 .. j0 + NE - 1: the P planes' tiles (latitudes i0 ..) and the x_l
 // rows (row0 ..) of the operand, raw
-template <int P, bool ALIGNED>
+template <int P>
 __device__ __forceinline__ void stage(uint32_t* raw, const Args& g,
                                       const bf16* am, const bf16* const* pm,
                                       int row0, int i0, int j0) {
-  uint32_t* rx = raw + P * TI * TPITCH<ALIGNED>;
+  uint32_t* rx = raw + P * TI * TPITCH;
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    stage_rows<THREADS, TI, NE, ALIGNED>(
-        raw + k * TI * TPITCH<ALIGNED>, TPITCH<ALIGNED>,
-        pm[k] + (size_t)i0 * g.ld + j0, g.ld, g.ig - i0, g.J - j0, pm[k]);
+    stage_rows<THREADS, TI, NE, true>(
+        raw + k * TI * TPITCH, TPITCH, pm[k] + (size_t)i0 * g.ld + j0, g.ld,
+        g.ig - i0, g.J - j0, pm[k]);
   }
 #pragma unroll
   for (int l = 0; l < P; ++l) {
@@ -259,12 +263,11 @@ __device__ __forceinline__ void stage(uint32_t* raw, const Args& g,
 
 // one pass over the raw stage: p = sum_k p_k and x = sum_l x_l in fp32,
 // even j into the first parity's tiles, odd j into the second's
-template <int P, bool ALIGNED>
+template <int P>
 __device__ __forceinline__ void widen(float* st, const uint32_t* raw,
-                                      const Args& g, const bf16* am,
-                                      const bf16* const* pm, int row0,
-                                      int i0, int j0) {
-  const uint32_t* rx = raw + P * TI * TPITCH<ALIGNED>;
+                                      const Args& g, const bf16* am, int row0,
+                                      int j0) {
+  const uint32_t* rx = raw + P * TI * TPITCH;
   constexpr int TG = TI * NE / 8, XG = BR * NE / 8;   // groups of 8 entries
   static_assert(TG % THREADS == 0 && XG % THREADS == 0, "");
 #pragma unroll
@@ -274,9 +277,7 @@ __device__ __forceinline__ void widen(float* st, const uint32_t* raw,
     float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      const int s = ALIGNED ? 0
-                            : chunk_shift(pm[k] + (size_t)(i0 + i) * g.ld + j0);
-      add8<ALIGNED>(raw + (k * TI + i) * TPITCH<ALIGNED>, s + 8 * q, v);
+      add8<true>(raw + (k * TI + i) * TPITCH, 8 * q, v);
     }
     float* ps = st + BR * LD + i * LD + 4 * q;
     store4(ps, v[0], v[2], v[4], v[6]);
@@ -301,7 +302,7 @@ __device__ __forceinline__ void widen(float* st, const uint32_t* raw,
 
 // north[m, r, i] = E + O, south[m, r, i] = E - O.  Block (latitude tile, m,
 // row chunk); thread (ty: rows ty + NRG r; tx: latitudes tx + NLG l)
-template <int P, bool ALIGNED>
+template <int P>
 __global__ void __launch_bounds__(THREADS, MINB) inv_planes_kernel(Args g) {
   extern __shared__ __align__(16) float smem[];
   uint32_t* raw = reinterpret_cast<uint32_t*>(smem + STAGE);
@@ -328,19 +329,18 @@ __global__ void __launch_bounds__(THREADS, MINB) inv_planes_kernel(Args g) {
 #pragma unroll
   for (int s = 0; s < RAWS; ++s) {
     if (s < nstage) {
-      stage<P, ALIGNED>(raw + s * RAW_WORDS<P, ALIGNED>, g, am, pm, row0, i0,
-                        s * NE);
+      stage<P>(raw + s * RAW_WORDS<P>, g, am, pm, row0, i0, s * NE);
     }
     cp_async_commit();
   }
   for (int c = 0; c < nstage; ++c) {
-    uint32_t* rc = raw + c % RAWS * RAW_WORDS<P, ALIGNED>;
+    uint32_t* rc = raw + c % RAWS * RAW_WORDS<P>;
     cp_async_wait<RAWS - 1>();   // this thread's copies of stage c landed
     __syncthreads();      // everyone's; and the fp32 stage is free
-    widen<P, ALIGNED>(smem, rc, g, am, pm, row0, i0, c * NE);
+    widen<P>(smem, rc, g, am, row0, c * NE);
     __syncthreads();      // the fp32 stage is full; raw stage c free
     if (c + RAWS < nstage) {
-      stage<P, ALIGNED>(rc, g, am, pm, row0, i0, (c + RAWS) * NE);
+      stage<P>(rc, g, am, pm, row0, i0, (c + RAWS) * NE);
     }
     cp_async_commit();
     stage_sums(smem + par * PSTAGE, ty, tx, tot, cmp);
@@ -354,16 +354,16 @@ inline dim3 grid_of(int gm, int fc2, int ig) {
   return dim3((ig + TI - 1) / TI, gm, (fc2 + BR - 1) / BR);
 }
 
-template <int P, bool ALIGNED>
+template <int P>
 int launch(const Args& g, int gm, void* stream) {
-  return grouped::launch(inv_planes_kernel<P, ALIGNED>, grid_of(gm, g.fc, g.ig),
-                         THREADS, smem_bytes<P, ALIGNED>(), 1, stream, g);
+  return grouped::launch(inv_planes_kernel<P>, grid_of(gm, g.fc, g.ig),
+                         THREADS, smem_bytes<P>(), 1, stream, g);
 }
 
-template <int P, bool ALIGNED>
+template <int P>
 int shape(int gm, int fc2, int ig, int* info) {
-  return ect::launch_shape(inv_planes_kernel<P, ALIGNED>, grid_of(gm, fc2, ig),
-                           THREADS, smem_bytes<P, ALIGNED>(), info);
+  return ect::launch_shape(inv_planes_kernel<P>, grid_of(gm, fc2, ig),
+                           THREADS, smem_bytes<P>(), info);
 }
 
 }  // namespace k9
@@ -380,18 +380,17 @@ constexpr int XPITCH = TJ / 2 + 4;       // words per raw operand row
 template <int P>
 constexpr int RAWS = P == 1 ? 2 : 1;
 
-// words per raw table row
-template <bool ALIGNED>
-constexpr int TPITCH = ALIGNED ? NE / 2 : NE / 2 + 4;
+// words per raw table row (rows start 16-byte aligned)
+constexpr int TPITCH = NE / 2;
 
 // words of a raw stage: the planes' tiles, the gn_l and gs_l rows
-template <int P, bool ALIGNED>
-constexpr int RAW_WORDS = P * TJ * TPITCH<ALIGNED> + 2 * P * BR * XPITCH;
+template <int P>
+constexpr int RAW_WORDS = P * TJ * TPITCH + 2 * P * BR * XPITCH;
 
 // bytes of shared memory: the fp32 stage and the raw stages
-template <int P, bool ALIGNED>
+template <int P>
 constexpr int smem_bytes() {
-  return 4 * (STAGE + RAWS<P> * RAW_WORDS<P, ALIGNED>);
+  return 4 * (STAGE + RAWS<P> * RAW_WORDS<P>);
 }
 
 struct Args {
@@ -403,16 +402,16 @@ struct Args {
 
 // stage i0 .. i0 + TJ - 1: the P planes' tiles (degrees j0 ..) and the gn_l,
 // gs_l rows (row0 ..) of the operand, raw
-template <int P, bool ALIGNED>
+template <int P>
 __device__ __forceinline__ void stage(uint32_t* raw, const Args& g,
                                       const bf16* wm, const bf16* const* pm,
                                       int row0, int i0, int j0) {
-  uint32_t* rx = raw + P * TJ * TPITCH<ALIGNED>;
+  uint32_t* rx = raw + P * TJ * TPITCH;
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    stage_rows<THREADS, TJ, NE, ALIGNED>(
-        raw + k * TJ * TPITCH<ALIGNED>, TPITCH<ALIGNED>,
-        pm[k] + (size_t)i0 * g.ld + j0, g.ld, g.ig - i0, g.J - j0, pm[k]);
+    stage_rows<THREADS, TJ, NE, true>(
+        raw + k * TJ * TPITCH, TPITCH, pm[k] + (size_t)i0 * g.ld + j0, g.ld,
+        g.ig - i0, g.J - j0, pm[k]);
   }
 #pragma unroll
   for (int h = 0; h < 2 * P; ++h) {   // gn_0, gs_0, gn_1, ...
@@ -427,12 +426,11 @@ __device__ __forceinline__ void stage(uint32_t* raw, const Args& g,
 // parity's table tile and odd j into the second's; gn = sum_l gn_l and gs =
 // sum_l gs_l, gn + gs into the first parity's operand chunk and gn - gs
 // into the second's
-template <int P, bool ALIGNED>
+template <int P>
 __device__ __forceinline__ void widen(float* st, const uint32_t* raw,
-                                      const Args& g, const bf16* wm,
-                                      const bf16* const* pm, int row0,
-                                      int i0, int j0) {
-  const uint32_t* rx = raw + P * TJ * TPITCH<ALIGNED>;
+                                      const Args& g, const bf16* wm, int row0,
+                                      int i0) {
+  const uint32_t* rx = raw + P * TJ * TPITCH;
   constexpr int TG = TJ * NE / 8, XG = BR * TJ / 8;   // groups of 8 entries
   // the two warps share the pass evenly, an operand group costing about two
   // table groups: warp 0 widens TW0 passes of table groups and XW0 operand
@@ -448,9 +446,7 @@ __device__ __forceinline__ void widen(float* st, const uint32_t* raw,
     float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      const int s = ALIGNED ? 0
-                            : chunk_shift(pm[k] + (size_t)(i0 + i) * g.ld + j0);
-      add8<ALIGNED>(raw + (k * TJ + i) * TPITCH<ALIGNED>, s + 8 * q, v);
+      add8<true>(raw + (k * TJ + i) * TPITCH, 8 * q, v);
     }
     float* ps = st + i * DK + 4 * q;
     store4(ps, v[0], v[2], v[4], v[6]);
@@ -495,7 +491,7 @@ __device__ __forceinline__ void widen(float* st, const uint32_t* raw,
 // tile x split rank, m, row chunk); rank `rank` of the cluster sums stages
 // [c0, c1) of the latitudes; thread (ty: rows RT ty ..; tx: parity degrees
 // 4 tx .. and KRUN + 4 tx ..), j = 2 k + par
-template <int P, bool ALIGNED>
+template <int P>
 __global__ void __launch_bounds__(THREADS, MINB) dir_planes_kernel(Args g) {
   extern __shared__ __align__(16) float smem[];
   uint32_t* raw = reinterpret_cast<uint32_t*>(smem + STAGE);
@@ -524,19 +520,18 @@ __global__ void __launch_bounds__(THREADS, MINB) dir_planes_kernel(Args g) {
 #pragma unroll
   for (int s = 0; s < R; ++s) {
     if (c0 + s < c1) {
-      stage<P, ALIGNED>(raw + s * RAW_WORDS<P, ALIGNED>, g, wm, pm, row0,
-                        (c0 + s) * TJ, j0);
+      stage<P>(raw + s * RAW_WORDS<P>, g, wm, pm, row0, (c0 + s) * TJ, j0);
     }
     cp_async_commit();
   }
   for (int c = c0; c < c1; ++c) {
-    uint32_t* rc = raw + (c - c0) % R * RAW_WORDS<P, ALIGNED>;
+    uint32_t* rc = raw + (c - c0) % R * RAW_WORDS<P>;
     cp_async_wait<R - 1>();   // this thread's copies of stage c landed
     __syncthreads();      // everyone's; and the fp32 stage is free
-    widen<P, ALIGNED>(smem, rc, g, wm, pm, row0, c * TJ, j0);
+    widen<P>(smem, rc, g, wm, row0, c * TJ);
     __syncthreads();      // the fp32 stage is full; raw stage c free
     if (c + R < c1) {
-      stage<P, ALIGNED>(rc, g, wm, pm, row0, (c + R) * TJ, j0);
+      stage<P>(rc, g, wm, pm, row0, (c + R) * TJ, j0);
     }
     cp_async_commit();
     stage_sums(smem + par * PSTAGE, ty, tx, tot, cmp);
@@ -566,11 +561,11 @@ inline dim3 grid_of(int gm, int fc2, int J, int split) {
 
 // the latitude split of a launch (grouped::split_for on the card's resident
 // slots)
-template <int P, bool ALIGNED>
+template <int P>
 int split_of(int gm, int fc2, int J, int ig, int* split) {
   long slots = 0;
-  const int e = ect::resident_slots<&dir_planes_kernel<P, ALIGNED>>(
-      THREADS, smem_bytes<P, ALIGNED>(), &slots);
+  const int e = ect::resident_slots<&dir_planes_kernel<P>>(
+      THREADS, smem_bytes<P>(), &slots);
   if (e != 0) return e;
   const dim3 b = grid_of(gm, fc2, J, 1);
   *split = grouped::split_for((long)b.x * b.y * b.z, (ig + TJ - 1) / TJ,
@@ -578,23 +573,23 @@ int split_of(int gm, int fc2, int J, int ig, int* split) {
   return 0;
 }
 
-template <int P, bool ALIGNED>
+template <int P>
 int launch(Args g, int gm, void* stream) {
-  const int e = split_of<P, ALIGNED>(gm, g.fc, g.J, g.ig, &g.nsplit);
+  const int e = split_of<P>(gm, g.fc, g.J, g.ig, &g.nsplit);
   if (e != 0) return e;
-  return grouped::launch(dir_planes_kernel<P, ALIGNED>,
+  return grouped::launch(dir_planes_kernel<P>,
                          grid_of(gm, g.fc, g.J, g.nsplit), THREADS,
-                         smem_bytes<P, ALIGNED>(), g.nsplit, stream, g);
+                         smem_bytes<P>(), g.nsplit, stream, g);
 }
 
-template <int P, bool ALIGNED>
+template <int P>
 int shape(int gm, int fc2, int J, int ig, int* info) {
   int split = 1;
-  const int e = split_of<P, ALIGNED>(gm, fc2, J, ig, &split);
+  const int e = split_of<P>(gm, fc2, J, ig, &split);
   if (e != 0) return e;
-  return ect::launch_shape(dir_planes_kernel<P, ALIGNED>,
+  return ect::launch_shape(dir_planes_kernel<P>,
                            grid_of(gm, fc2, J, split), THREADS,
-                           smem_bytes<P, ALIGNED>(), info);
+                           smem_bytes<P>(), info);
 }
 
 }  // namespace k10
@@ -614,17 +609,11 @@ planes::Planes planes_of(const void* p0, const void* p1, const void* p2) {
   return {{(const ect::bf16*)p0, (const ect::bf16*)p1, (const ect::bf16*)p2}};
 }
 
-// calls F<P, ALIGNED>() for nplanes 1 or 3
+// calls F<P>() for nplanes 1 or 3
 template <typename F>
-int dispatch(int nplanes, bool al, F f) {
-  if (nplanes == 3) {
-    return al ? f(std::integral_constant<int, 3>(), std::true_type())
-              : f(std::integral_constant<int, 3>(), std::false_type());
-  }
-  if (nplanes == 1) {
-    return al ? f(std::integral_constant<int, 1>(), std::true_type())
-              : f(std::integral_constant<int, 1>(), std::false_type());
-  }
+int dispatch(int nplanes, F f) {
+  if (nplanes == 3) return f(std::integral_constant<int, 3>());
+  if (nplanes == 1) return f(std::integral_constant<int, 1>());
   return (int)cudaErrorInvalidValue;
 }
 
@@ -632,16 +621,18 @@ int dispatch(int nplanes, bool al, F f) {
 
 extern "C" {
 
-// nplanes 1 or 3; the plane pointers past nplanes are not read; plane rows
-// ld >= J entries apart (padded rows, or ld = J)
+// nplanes 1 or 3; the plane pointers past nplanes are not read; every plane
+// starts 16-byte aligned, its rows ld >= J entries apart and ld a multiple
+// of 8 (padded rows; the wrappers pad any others), else cudaErrorInvalidValue
 int ect_inv_planes(const void* a, const void* p0, const void* p1,
                    const void* p2, void* north, void* south, int nplanes,
                    int gm, int fc2, int J, int ig, int ld, void* stream) {
   const void* p[3] = {p0, p1, p2};
+  if (!aligned(p, nplanes, ld)) return (int)cudaErrorInvalidValue;
   const k9::Args g = {(const ect::bf16*)a, planes_of(p0, p1, p2),
                       (float*)north, (float*)south, fc2, J, ig, ld};
-  return dispatch(nplanes, aligned(p, nplanes, ld), [&](auto P, auto al) {
-    return k9::launch<decltype(P)::value, decltype(al)::value>(g, gm, stream);
+  return dispatch(nplanes, [&](auto P) {
+    return k9::launch<decltype(P)::value>(g, gm, stream);
   });
 }
 
@@ -649,30 +640,28 @@ int ect_dir_planes(const void* w, const void* p0, const void* p1,
                    const void* p2, void* out, int nplanes, int gm, int fc2,
                    int J, int ig, int ld, void* stream) {
   const void* p[3] = {p0, p1, p2};
+  if (!aligned(p, nplanes, ld)) return (int)cudaErrorInvalidValue;
   const k10::Args g = {(const ect::bf16*)w, planes_of(p0, p1, p2),
                        (float*)out, fc2, J, ig, ld, 1};
-  return dispatch(nplanes, aligned(p, nplanes, ld), [&](auto P, auto al) {
-    return k10::launch<decltype(P)::value, decltype(al)::value>(g, gm,
-                                                                stream);
+  return dispatch(nplanes, [&](auto P) {
+    return k10::launch<decltype(P)::value>(g, gm, stream);
   });
 }
 
-// the launch of K9 or K10 (info as ect::launch_shape) on planes whose rows
-// start 16-byte aligned; K10's blocks count its latitude split's parts
+// the launch of K9 or K10 (info as ect::launch_shape); K10's blocks count
+// its latitude split's parts
 int ect_inv_planes_shape(int nplanes, int gm, int fc2, int J, int ig,
                          int* info) {
   (void)J;
-  return dispatch(nplanes, true, [&](auto P, auto al) {
-    return k9::shape<decltype(P)::value, decltype(al)::value>(gm, fc2, ig,
-                                                              info);
+  return dispatch(nplanes, [&](auto P) {
+    return k9::shape<decltype(P)::value>(gm, fc2, ig, info);
   });
 }
 
 int ect_dir_planes_shape(int nplanes, int gm, int fc2, int J, int ig,
                          int* info) {
-  return dispatch(nplanes, true, [&](auto P, auto al) {
-    return k10::shape<decltype(P)::value, decltype(al)::value>(gm, fc2, J, ig,
-                                                               info);
+  return dispatch(nplanes, [&](auto P) {
+    return k10::shape<decltype(P)::value>(gm, fc2, J, ig, info);
   });
 }
 

@@ -26,11 +26,12 @@ products of limb l and plane k with l + k < nplanes (one bf16 MXU pass
 each); the terms they drop are 2^-24 of a product, which is enough to put
 the TCO1279 round trip over its 100·eps gate.  At 1 plane both compute the
 same bf16 products.  CUDA tensors launch the kernels (bf16 in, fp32 out);
-CPU tensors take the plain versions (``torch.bmm`` in fp32).  The planes
-may be views of rows padded past J (as ``Resolution.planes_legendre``
-stores them, in rows of a multiple of 8 entries); the kernels never read
-past J.  Not carried over: the ``optimization_barrier`` around the
-packing (a TPU-compiler guard).
+CPU tensors take the plain versions (``torch.bmm`` in fp32).  The kernels
+take planes in rows padded past J to a multiple of 8 entries (as
+``Resolution.planes_legendre`` stores them) and never read past J; the
+wrappers copy planes laid out otherwise into such rows first
+(``aligned_planes``).  Not carried over: the ``optimization_barrier``
+around the packing (a TPU-compiler guard).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from .. import _build
 from .layout import diag_realign
 from .legendre_dense import (_jsgn, group_rows, hemispheres_to_fourier,
                              rows_to_dense, weighted_rows)
+from .legendre_grouped import pad_rows
 
 _TIER_PLANES = {"highest": 3, "high": 3, "bf16": 1}
 
@@ -134,6 +136,19 @@ def plane_rows(tplanes, nplanes: int, like: torch.Tensor, gm: int,
     return ld
 
 
+def aligned_planes(tplanes, nplanes: int, ld: int) -> tuple:
+    """The first ``nplanes`` planes as K9 and K10 take them, each starting
+    16-byte aligned in rows of a multiple of 8 entries, as
+    ``Resolution.planes_legendre`` stores them; planes laid out otherwise
+    are copied into such rows on their device first (``pad_rows``).
+    Returns (planes, row length)."""
+    planes = tuple(tplanes[:nplanes])
+    if ld % 8 == 0 and all(p.data_ptr() % 16 == 0 for p in planes):
+        return planes, ld
+    planes = tuple(pad_rows(p, 8) for p in planes)
+    return planes, planes[0].stride(1)
+
+
 def group_inv_planes(a: torch.Tensor, tplanes, nplanes: int, fc2: int):
     """One group's inverse LT (K9; replaces
     ``legendre_planes.group_inv_planes``): packed bf16 rows a
@@ -148,7 +163,8 @@ def group_inv_planes(a: torch.Tensor, tplanes, nplanes: int, fc2: int):
     ig = tplanes[0].shape[1]
     _build.check_operand("a", a, a, (gm, 2 * nplanes * fc2, J),
                          dtype=torch.bfloat16)
-    ld = plane_rows(tplanes, nplanes, a, gm, (ig, J))
+    tplanes, ld = aligned_planes(
+        tplanes, nplanes, plane_rows(tplanes, nplanes, a, gm, (ig, J)))
     north = torch.empty((gm, fc2, ig), dtype=torch.float32, device=a.device)
     south = torch.empty_like(north)
     if north.numel() == 0:
@@ -167,8 +183,7 @@ group_inv_planes.launches = 0
 
 def group_inv_planes_shape(gm: int, fc2: int, J: int, ig: int,
                            nplanes: int) -> dict:
-    """K9's launch for one group (``_build.launch_shape``) on planes whose
-    rows start 16-byte aligned, as ``planes_legendre`` stores them."""
+    """K9's launch for one group (``_build.launch_shape``)."""
     return _build.launch_shape("ect_inv_planes_shape", None, nplanes, gm,
                                fc2, J, ig)
 
@@ -195,7 +210,8 @@ def group_dir_planes(w: torch.Tensor, tplanes, nplanes: int,
     J = tplanes[0].shape[2]
     _build.check_operand("w", w, w, (gm, 2 * nplanes * fc2, ig),
                          dtype=torch.bfloat16)
-    ld = plane_rows(tplanes, nplanes, w, gm, (ig, J))
+    tplanes, ld = aligned_planes(
+        tplanes, nplanes, plane_rows(tplanes, nplanes, w, gm, (ig, J)))
     out = torch.empty((gm, fc2, J), dtype=torch.float32, device=w.device)
     if out.numel() == 0:
         return out
@@ -212,9 +228,8 @@ group_dir_planes.launches = 0
 
 def group_dir_planes_shape(gm: int, fc2: int, J: int, ig: int,
                            nplanes: int) -> dict:
-    """K10's launch for one group (``_build.launch_shape``) on planes whose
-    rows start 16-byte aligned: its blocks count each latitude split's
-    parts, clusters of 1 to 8 blocks."""
+    """K10's launch for one group (``_build.launch_shape``): its blocks
+    count each latitude split's parts, clusters of 1 to 8 blocks."""
     return _build.launch_shape("ect_dir_planes_shape", None, nplanes, gm,
                                fc2, J, ig)
 

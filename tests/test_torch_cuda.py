@@ -482,9 +482,9 @@ def test_planes_kernels_at_tile_edges(dev, nplanes, fc2):
     blocks, and partial ones), operands packed as the planes engine packs
     them; the planes take turns: in padded rows whose padding holds NaN (no
     kernel reads past J), contiguous, and contiguous from an odd offset (rows
-    not even 4-byte aligned); the operands of every other group start at an
-    odd offset too.  K10's launch report shows the split on group 15's shape
-    and none on the last."""
+    not even 4-byte aligned; the wrappers copy both into padded rows); the
+    operands of every other group start at an odd offset too.  K10's launch
+    report shows the split on group 15's shape and none on the last."""
     g = torch.Generator(device=dev).manual_seed(11)
     for n, (gm, ig, J) in enumerate(PLANES_EDGES):
         planes = lp.split_planes(
@@ -510,6 +510,36 @@ def test_planes_kernels_at_tile_edges(dev, nplanes, fc2):
     assert split["blocks"] > chunks, split
     whole = lp.group_dir_planes_shape(150, fc2, 258, 64, nplanes)
     assert whole["blocks"] == 150 * 3 * chunks, whole
+
+
+@pytest.mark.parametrize("entry", ["ect_inv_planes", "ect_dir_planes"])
+def test_planes_entries_refuse_unaligned_rows(dev, entry):
+    """K9's and K10's C entries launch only on planes in 16-byte aligned
+    rows of a multiple of 8 entries (the wrappers pad any others first):
+    contiguous rows of J = 10 entries, or padded rows from an odd offset,
+    are refused, not read."""
+    from ectrans_tpu_torch import _build
+
+    gm, fc2, ig, J = 2, 4, 6, 10
+    padded = lg.pad_rows(torch.zeros(gm, ig, J, device=dev,
+                                     dtype=torch.bfloat16), 8)
+    flat = padded.contiguous()
+    odd = shifted(padded.as_strided((gm * ig * 16,), (1,)), 1)
+    rows = torch.zeros(gm, 2 * fc2, ig if entry == "ect_dir_planes" else J,
+                       device=dev, dtype=torch.bfloat16)
+    outs = ([torch.empty(gm, fc2, J, device=dev)]
+            if entry == "ect_dir_planes" else
+            [torch.empty(gm, fc2, ig, device=dev) for _ in range(2)])
+
+    def launch(plane, ld):
+        _build.launch(entry, None, rows.data_ptr(), *[plane.data_ptr()] * 3,
+                      *[o.data_ptr() for o in outs], 1, gm, fc2, J, ig, ld)
+
+    launch(padded, 16)
+    torch.cuda.synchronize()
+    for plane, ld in ((flat, J), (odd, 16)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            launch(plane, ld)
 
 
 def planes_error_case(dev, nplanes: int, seed: int, inverse: bool):

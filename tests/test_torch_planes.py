@@ -17,6 +17,7 @@ test_round_trip_planes_matches_jax); splits and planes bitwise.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -115,6 +116,38 @@ def test_plane_rows_take_padded_rows():
         lp.plane_rows((t.float(),), 1, t, 2, (3, 10))
     with pytest.raises(ValueError, match="1 or 3 planes"):
         lp.plane_rows((t, t), 2, t, 2, (3, 10))
+
+
+@pytest.mark.parametrize("layout", ["padded", "contiguous", "offset"])
+@pytest.mark.parametrize("nplanes", [3, 1])
+def test_aligned_planes_pad_other_layouts(layout, nplanes):
+    """K9 and K10 take planes in 16-byte aligned rows of a multiple of 8
+    entries: aligned_planes passes the planes of planes_legendre's layout
+    through as they are, and copies contiguous rows (J = 10) and padded
+    rows that start 2 bytes into their storage into such rows, zero past
+    J, with the same values."""
+    from ectrans_tpu_torch.ops.legendre_grouped import pad_rows
+
+    gen = torch.Generator().manual_seed(nplanes)
+    planes = lp.split_planes(torch.randn(2, 3, 10, generator=gen), nplanes)
+    if layout == "padded":
+        given = tuple(pad_rows(p, 8) for p in planes)
+    elif layout == "contiguous":
+        given = tuple(planes)
+    else:
+        given = tuple(
+            torch.cat([p.new_zeros(1), F.pad(p, (0, 6)).reshape(-1)])[1:]
+            .as_strided(p.shape, (48, 16, 1)) for p in planes)
+    ld = lp.plane_rows(given, nplanes, given[0], 2, (3, 10))
+    got, ld2 = lp.aligned_planes(given + (given[0],) * (3 - nplanes),
+                                 nplanes, ld)
+    assert len(got) == nplanes and ld2 == 16
+    for g, p, q in zip(got, given, planes, strict=True):
+        assert (g is p) == (layout == "padded")
+        assert g.stride() == (48, 16, 1) and g.data_ptr() % 16 == 0
+        assert torch.equal(g, q)
+        rows = g.as_strided((2, 3, 16), g.stride())
+        assert not rows[..., 10:].any()
 
 
 @pytest.mark.parametrize("nplanes", [3, 1])
