@@ -18,7 +18,8 @@ Phases, each printing a line:
    K2, K5, K6, K7 and K8 (on the "bf16" tier's tables made on the card),
    with fields as in the round trip, K3 (packing, one launch, bit-exact),
    and at the roofline probe's 512 MiB shape K11 (copy, bit-exact) and K12
-   (read-reduce); kernel and plain times with CUDA events (mean of 3
+   (read-reduce, 1e-6 relative, bit-identical across two calls); kernel and
+   plain times with CUDA events (mean of 3
    calls, the host's launch cost included where it outlasts the kernel),
    each kernel's bound (the larger of its bytes over 3.35 TB/s and its
    operations over the data sheet's peak; the bytes each input read once
@@ -33,21 +34,22 @@ Phases, each printing a line:
    planes were summed beforehand, untimed, at twice their FLOP; a
    different function, so their ``library_ms`` stays null and the
    yardstick's time is ``yardstick_ms``), timed in turns with the kernel.
-   K1-K10, the kernels redesigned for the card, get a line each
+   K1-K12, the kernels redesigned for the card, get a line each
    (``redesign_report``): the time (for K1, K2, K7, K8 against torch.bmm's
    on the stacked rows: K7's and K8's one-call counterpart, timed in their
    turns; for K1 and K2 a reference at twice their FLOP, not a route; for
-   K5 and K6 against their own one call; for K9 and K10 against their
-   yardsticks), the bound with both its terms and the share of it, beside
-   them a second measure (the device time with the calls enqueued behind a
-   spin kernel, and the host's time to enqueue a call), the blocks per
-   launch, threads and waves, and the registers and spills from
+   K5, K6, K11 and K12 against their own one call; for K9 and K10 against
+   their yardsticks), the bound with both its terms and the share of it,
+   beside them a second measure (the device time with the calls enqueued
+   behind a spin kernel, and the host's time to enqueue a call), the blocks
+   per launch, threads and waves, and the registers and spills from
    ``build.log`` (a spill fails the run); K5's and K6's lines add their
-   bf16-table variants' times, K9's and K10's their 1-plane numbers, and
-   K6's and K10's their latitude split per group; then the padding A/B of
-   K9 and K10 (3 planes in rows padded to 8 entries against contiguous
-   copies, which the wrappers copy into padded rows on each call, in
-   turns, outputs bit-identical);
+   bf16-table variants' times, K9's and K10's their 1-plane numbers, K6's
+   and K10's their latitude split per group, and K12's its plan and its
+   second launch's registers; then the padding A/B of K9 and K10 (3 planes
+   in rows padded to 8 entries against contiguous copies, which the
+   wrappers copy into padded rows on each call, in turns, outputs
+   bit-identical);
 3. the whole inv_trans + dir_trans at T159 (O160 grid) on the card through
    every Legendre engine ("dense", "xla", "pallas", "planes"), in fp32 and
    fp64, against the same engine's plain path on the CPU in fp64;
@@ -60,7 +62,9 @@ Phases, each printing a line:
    launched, K3 once (the direct transform) and K4 once (the setup's
    full_legendre build);
 5. the same round trip on phase 4's inputs (so the cuFFT plans are reused)
-   through "pallas" and "planes" at "highest", "dense" with
+   through "xla" (its einsums alone: no Legendre kernel and no K3; the
+   ratio with one einsum a group, the order before its 32-term chunks, is
+   printed beside it), "pallas" and "planes" at "highest", "dense" with
    ECTRANS_TPU_LEG_DENSE_PACK=1 (K7 once per m-group, K8, K3 launched and
    K1, K2 not) and
    "dense" with ECTRANS_TPU_PACK_KERNEL=xla (K1, K2 and not K3), all with
@@ -415,7 +419,14 @@ REDESIGNED = {"K1": ("k116inv_dense_kernel", ("fp32", "bf16"), "K7"),
               "K8": ("k817dir_dense2_kernel", ("fp32", "bf16"), "K8"),
               "K9": ("k917inv_planes_kernel", ("3 planes", "1 plane"), "K9"),
               "K10": ("k1017dir_planes_kernel", ("3 planes", "1 plane"),
-                      "K10")}
+                      "K10"),
+              "K11": ("15k11_copy_kernel", ("fp32",), "K11"),
+              "K12": ("17k12_reduce_kernel", ("fp32",), "K12")}
+# K12's second launch, which adds the blocks' partials in order
+K12_FINAL = "16k12_final_kernel"
+# the one PyTorch call a kernel's line is timed against (torch.bmm if not
+# named)
+LIBRARY_CALLS = {"K11": "x.clone()", "K12": "sum"}
 # K1's, K2's, K7's and K8's launch-shape reports in legendre_dense, their
 # rows at the bench shapes, and the table axis (ig or J) they take last
 DENSE_SHAPES = {"K1": ("group_inv_dense_shape", FC2_INV, 2),
@@ -444,7 +455,8 @@ def redesign_report(key: str, out: dict) -> None:
               f"{k['ms'] / bmm:.2f}x)")
     elif ref == key:
         bmm = out[ref]["library_ms"]
-        vs = f" vs torch.bmm {bmm:.3f} ms, in turns ({k['ms'] / bmm:.2f}x)"
+        vs = (f" vs {LIBRARY_CALLS.get(key, 'torch.bmm')} {bmm:.3f} ms, in "
+              f"turns ({k['ms'] / bmm:.2f}x)")
     elif ref:
         bmm = out[ref]["library_ms"]
         vs = (f" vs torch.bmm on the stacked rows {bmm:.3f} ms ({ref}'s "
@@ -799,6 +811,44 @@ def padding_report(ab: dict) -> None:
           f"by {ab['K9 rel']:.2e} / {ab['K10 rel']:.2e} relative")
 
 
+def hold_streaming(x: torch.Tensor) -> dict:
+    """K11 (bit-exact) and K12 (1e-6 relative, and bit-identical across two
+    calls) on x against their plain versions, each timed in turns with its
+    one PyTorch call (``x.clone()``, the reshape-sum) and behind a spin
+    kernel, with its launch; K12's line adds its plan (slices, octets a
+    slice, ring stages a block) and its second launch's registers, where a
+    spill fails the run."""
+    from ectrans_tpu_torch import roofline
+
+    out = {"K11": hold("K11", roofline.stream_copy,
+                       roofline.stream_copy_plain, [(x,)], tol=0,
+                       library=lambda x: x.clone(), spin=True),
+           "K12": hold("K12", roofline.read_reduce,
+                       roofline.read_reduce_plain, [(x,)], tol=1e-6,
+                       flop=lambda x: x.numel(),
+                       library=lambda x: x.reshape(-1, roofline.OCTET,
+                                                   x.shape[-1]).sum(0),
+                       spin=True)}
+    check(torch.equal(roofline.read_reduce(x), roofline.read_reduce(x)),
+          "K12: two calls differ")
+    what = f"fp32 {tuple(x.shape)}, {tensor_bytes(x) / 2**20:.0f} MiB"
+    shape = roofline.read_reduce_shape(*x.shape)
+    plan = roofline.reduce_plan(*x.shape, shape["sms"])
+    stages = max(len(s) for s in roofline.reduce_stages(plan, 0))
+    final = registers("K12 final", K12_FINAL, 1)["fp32"]
+    out["K11"].update(what=f"{what}, {roofline.COPY_CHUNK * 16} B a block",
+                      shapes=[roofline.stream_copy_shape(x.numel())],
+                      moved=("read + write", 2 * tensor_bytes(x)))
+    out["K12"].update(
+        what=what + ", a block an SM", shapes=[shape],
+        moved=("reads", tensor_bytes(x)),
+        note=f"; {plan['slices']} slices of {plan['per']} octets, {stages} "
+             f"ring stages of at most {16 * roofline.STAGE_WORDS // 1024} KB "
+             f"a block; second launch (the partials in order) {final} "
+             f"registers, no spills; bit-identical across two calls")
+    return out
+
+
 def phase_kernels(dev: torch.device) -> dict:
     """Each kernel against its plain version at the TCO1279 shapes."""
     import ectrans_tpu_torch as ett
@@ -876,22 +926,9 @@ def phase_kernels(dev: torch.device) -> dict:
 
     out["K3"] = hold_k3(res, dev, gen)
 
-    # K11 (bit-exact) and K12 at the roofline probe's 512 MiB shape
+    # K11 and K12 at the roofline probe's 512 MiB shape
     x = rnd(roofline.N_ROWS, roofline.N_COLS)
-    got, want = roofline.stream_copy(x), roofline.stream_copy_plain(x)
-    check(torch.equal(got, want), "K11 vs plain: not bit-exact")
-    t_k11 = [cuda_ms(f) for f in (lambda: roofline.stream_copy(x), x.clone,
-                                   lambda: roofline.stream_copy(x), x.clone)]
-    out["K11"] = dict(max_abs_err=(got - want).abs().max().item(),
-                      ms=(t_k11[0] + t_k11[2]) / 2,
-                      plain_ms=cuda_ms(lambda: roofline.stream_copy_plain(x)),
-                      library_ms=(t_k11[1] + t_k11[3]) / 2, tol="bit-exact",
-                      **bound(0, tensor_bytes(x, got)))
-    del got, want
-    out["K12"] = hold("K12", roofline.read_reduce, roofline.read_reduce_plain,
-                      [(x,)], tol=1e-6, flop=lambda x: x.numel(),
-                      library=lambda x: x.reshape(-1, roofline.OCTET,
-                                                  x.shape[-1]).sum(0))
+    out.update(hold_streaming(x))
     del x
     for key in ("K5", "K6"):
         out[key]["note"] = grouped_note(key, out)
@@ -1068,9 +1105,13 @@ def phase_bench(dev: torch.device, counters: dict):
 # the peak shows its own
 # the largest share of the 100*eps gate an engine's fp32 row may take in
 # phase 5, and the kernels that its rows launch once per m-group each
-GATE_SHARES = {"pallas": PALLAS_GATE_SHARE, "planes": PLANES_GATE_SHARE}
+GATE_SHARES = {"pallas": PALLAS_GATE_SHARE, "planes": PLANES_GATE_SHARE,
+               "xla": 1.0}
+# the kernels of the Legendre engines, none of which the "xla" engine runs
+LEGENDRE_KERNELS = ("K1", "K2", "K5", "K6", "K7", "K8", "K9", "K10")
 GROUP_KERNELS = {"pallas": ("K5", "K6"), "planes": ("K9", "K10")}
 ENGINE_ROWS = (
+    ("xla", "highest", {}, (), LEGENDRE_KERNELS + ("K3",), ()),
     ("pallas", "highest", {}, ("K3", "K5", "K6"), ("K1", "K2"), ("K3",)),
     ("planes", "highest", {}, ("K3", "K9", "K10"), (), ("K3",)),
     ("planes", "bf16", {}, ("K3", "K9", "K10"), (), ("K3",)),
@@ -1081,6 +1122,27 @@ ENGINE_ROWS = (
     ("dense", "bf16", {}, ("K1", "K2", "K3", "K4"), (), ("K3", "K4")),
     ("pallas", "bf16", {}, ("K3", "K5", "K6"), ("K1", "K2"), ("K3",)),
 )
+
+
+def gate_ratio(out, sp) -> float:
+    """The worst field family's round-trip error over its 100*eps gate."""
+    eps32 = float(np.finfo(np.float32).eps)
+    return max(e / (100 * eps32 * m) for e, m in family_errors(out, sp))
+
+
+def one_einsum_ratio(res, sp) -> float:
+    """The "xla" round trip's gate ratio with one einsum a group (one
+    running fp32 sum over each contraction, as cuBLAS adds) in place of
+    ``legendre_matmul.chunked_einsum``: the error its chunks repair."""
+    from ectrans_tpu_torch.ops import legendre_matmul as lm
+
+    chunked = lm.chunked_einsum
+    lm.chunked_einsum = torch.einsum
+    try:
+        _, out = round_trip(res, sp, torch.float32, "xla")
+    finally:
+        lm.chunked_einsum = chunked
+    return gate_ratio(out, sp)
 
 
 def phase_engines(dev: torch.device, res, sp, counters: dict,
@@ -1117,6 +1179,10 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
                       f"{err / gate:.3f} of 100*eps*max {gate:.4e}, over "
                       f"the {share} allowed")
                 verdict += f", {err / gate:.3f} of it (at most {share})"
+            if engine == "xla":
+                verdict += (f"; {one_einsum_ratio(res, sp):.3f} of it with "
+                            f"one einsum a group, the order before the "
+                            f"chunks")
         else:
             # the 1e6*eps gate holds the scalars; vor/div go through UVTVD's
             # ~n amplification and are printed beside it

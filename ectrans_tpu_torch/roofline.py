@@ -25,11 +25,13 @@ The JAX probe's MXU pass-count and tile-size scans have no counterpart:
 the port's kernels make one FMA per term and their tiles are compile-time
 constants.  Results go to stdout and to ``_build/roofline.json`` beside the
 kernel library.  A CPU tensor takes the plain versions (``x.clone()`` and a
-reshape-sum); the probes need a CUDA card and refuse to run without one.
+reshape-sum), after the same checks; the probes need a CUDA card and refuse
+to run without one.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 
 import torch
@@ -38,7 +40,17 @@ from . import _build
 
 N_ROWS, N_COLS = 512 * 512, 512     # fp32, 512 MiB
 OCTET = 8                           # K12's output rows
-MAX_SLICES = 256                    # K12's partial-sum slices
+# K11's launch (csrc/roofline.cu): 16-byte words a block (256 threads, a
+# word each)
+COPY_CHUNK = 256
+# K12's launch: float4 lanes of an octet a block owns (256 threads, four
+# each), 16-byte words a ring stage holds (32 KB), blocks an SM, and the
+# warps of the second pass, each adding a contiguous share of the slices
+REDUCE_WINDOW = 1024
+STAGE_WORDS = 2048
+REDUCE_BLOCKS_PER_SM = 1
+FINAL_WARPS = 8
+ALIGN = 16                          # bytes; both kernels move float4
 # the JAX roofline tool's dense shape (tools/roofline.py): TCO1279 group 0's
 # gm and ig, J 2562 (twice that group's J of 1282)
 GROUP0 = dict(gm=80, J=2562, ig=1280, fc2=32)
@@ -49,6 +61,51 @@ def _check_stream(name: str, x: torch.Tensor) -> None:
         raise TypeError(f"{name} takes float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous tensor")
+    if x.data_ptr() % ALIGN:
+        raise ValueError(f"{name} takes a tensor that starts 16-byte "
+                         "aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def copy_plan(n: int) -> dict:
+    """K11's launch for n fp32 values: ``words`` 16-byte words, ``blocks``
+    blocks, block b copying the words [b per, min((b + 1) per, words))."""
+    words = n // 4
+    return dict(words=words, per=COPY_CHUNK, blocks=-(-words // COPY_CHUNK))
+
+
+def reduce_plan(rows: int, cols: int, sms: int) -> dict:
+    """K12's launch for a (rows, cols) tensor on a card of ``sms`` SMs: the
+    octets (8 rows, 2 cols float4 ``lanes``) cut into ``slices`` ranges of
+    ``per`` octets, the lanes into ``windows`` of REDUCE_WINDOW; one block a
+    (slice, window), REDUCE_BLOCKS_PER_SM an SM; ``partial`` the shape of
+    the scratch the blocks write (one (8, cols) partial a slice)."""
+    lanes, octets = 2 * cols, rows // OCTET
+    windows = -(-lanes // REDUCE_WINDOW)
+    slices = max(1, min(octets, sms * REDUCE_BLOCKS_PER_SM // windows))
+    per = -(-octets // slices)
+    slices = -(-octets // per)
+    return dict(lanes=lanes, octets=octets, windows=windows, slices=slices,
+                per=per, partial=(slices, OCTET, cols))
+
+
+def reduce_stages(plan: dict, window: int) -> list:
+    """The ring stages K12's blocks of lane window ``window`` load, as
+    ``csrc/roofline.cu`` cuts them: for each slice, [(first octet, octets),
+    ...], as many octets a stage as STAGE_WORDS holds of the window's lanes
+    (at least one)."""
+    width = min(REDUCE_WINDOW, plan["lanes"] - window * REDUCE_WINDOW)
+    ops = max(1, STAGE_WORDS // width)
+    out = []
+    for s in range(plan["slices"]):
+        q0 = s * plan["per"]
+        nq = min(plan["per"], plan["octets"] - q0)
+        out.append([(q0 + k, min(ops, nq - k)) for k in range(0, nq, ops)])
+    return out
 
 
 def stream_copy_plain(x: torch.Tensor) -> torch.Tensor:
@@ -58,24 +115,30 @@ def stream_copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 def stream_copy(x: torch.Tensor) -> torch.Tensor:
     """A copy of x (K11; replaces ``tools/roofline.py`` ``pallas_copy``):
-    fp32, contiguous, a multiple of 4 values."""
-    if _build.on_cpu(x):
-        return stream_copy_plain(x)
+    fp32, contiguous, 16-byte aligned, a multiple of 4 values."""
     _check_stream("stream_copy", x)
     if x.numel() % 4:
         raise ValueError(f"stream_copy takes a multiple of 4 values, got "
                          f"{x.numel()}")
+    if _build.on_cpu(x):
+        return stream_copy_plain(x)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     with _build.on_device(x):
         _build.launch("ect_copy", torch.float32, x.data_ptr(), out.data_ptr(),
-                      x.numel())
+                      x.numel(), copy_plan(x.numel())["blocks"])
     stream_copy.launches += 1
     return out
 
 
 stream_copy.launches = 0
+
+
+def stream_copy_shape(n: int) -> dict:
+    """K11's launch for n values on the current CUDA device
+    (``_build.launch_shape``)."""
+    return _build.launch_shape("ect_copy_shape", None, copy_plan(n)["blocks"])
 
 
 def read_reduce_plain(x: torch.Tensor) -> torch.Tensor:
@@ -86,28 +149,37 @@ def read_reduce_plain(x: torch.Tensor) -> torch.Tensor:
 def read_reduce(x: torch.Tensor) -> torch.Tensor:
     """(rows, cols) -> (8, cols), out[r, c] = sum_{i = r mod 8} x[i, c]
     (K12; replaces ``tools/roofline.py`` ``pallas_reduce``): fp32,
-    contiguous, rows a multiple of 8 and cols of 4.  Deterministic: per-slice
-    partial sums, added in a fixed order by a second pass."""
-    if _build.on_cpu(x):
-        return read_reduce_plain(x)
+    contiguous, 16-byte aligned, rows a multiple of 8 and cols of 4.
+    Deterministic: each block sums its slice's octets in order, a second
+    pass adds the slices' partials in a fixed order (``reduce_plan``)."""
     _check_stream("read_reduce", x)
     if x.ndim != 2 or x.shape[0] % OCTET or x.shape[1] % 4 or not x.numel():
         raise ValueError("read_reduce takes a non-empty (rows, cols) tensor "
                          f"with rows % 8 == 0 and cols % 4 == 0, got "
                          f"{tuple(x.shape)}")
+    if _build.on_cpu(x):
+        return read_reduce_plain(x)
     rows, cols = x.shape
-    slices = min(MAX_SLICES, rows // OCTET)
-    partial = torch.empty((slices, OCTET, cols), dtype=x.dtype,
-                          device=x.device)
+    plan = reduce_plan(rows, cols, _sm_count(x.device.index))
+    partial = torch.empty(plan["partial"], dtype=x.dtype, device=x.device)
     out = torch.empty((OCTET, cols), dtype=x.dtype, device=x.device)
     with _build.on_device(x):
         _build.launch("ect_reduce8", torch.float32, x.data_ptr(),
-                      partial.data_ptr(), out.data_ptr(), rows, cols, slices)
+                      partial.data_ptr(), out.data_ptr(), rows, cols,
+                      plan["per"], plan["slices"])
     read_reduce.launches += 1
     return out
 
 
 read_reduce.launches = 0
+
+
+def read_reduce_shape(rows: int, cols: int) -> dict:
+    """K12's first launch for a (rows, cols) tensor on the current CUDA
+    device (``_build.launch_shape``)."""
+    plan = reduce_plan(rows, cols, _sm_count(torch.cuda.current_device()))
+    return _build.launch_shape("ect_reduce8_shape", None,
+                               plan["slices"] * plan["windows"])
 
 
 def device_ms(fn, reps: int = 10) -> float:

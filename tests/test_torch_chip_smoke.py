@@ -590,3 +590,96 @@ def test_k9_k10_lines(smoke, cpu_card, capsys):
     assert ab["K9 rel"] == ab["K10 rel"] == 0.0
     smoke.padding_report(ab)
     assert "padded rows" in capsys.readouterr().out
+
+
+STREAM_LOG = (
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_115k11_copy_kernelEPK6float4PS1_x' for 'sm_90a'\n"
+    "    0 bytes stack frame, {k11} bytes spill stores, 0 bytes spill "
+    "loads\n"
+    "ptxas info    : Used 24 registers, used 0 barriers\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_117k12_reduce_kernelEPK6float4PS1_xix' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, {k12} bytes spill "
+    "loads\n"
+    "ptxas info    : Used 48 registers, used 1 barriers, 32 bytes smem\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN12_GLOBAL__N_116k12_final_kernelEPK6float4PS1_ii' for 'sm_90a'\n"
+    "    0 bytes stack frame, {fin} bytes spill stores, 0 bytes spill "
+    "loads\n"
+    "ptxas info    : Used 32 registers, used 1 barriers, 4096 bytes smem\n")
+
+
+@pytest.mark.parametrize("key,needle,regs", [
+    ("K11", "15k11_copy_kernel", 24), ("K12", "17k12_reduce_kernel", 48),
+    ("K12 final", "16k12_final_kernel", 32)])
+@pytest.mark.parametrize("spill", [0, 8])
+def test_registers_of_k11_k12_refuse_a_spill(smoke, tmp_path, monkeypatch,
+                                             key, needle, regs, spill):
+    """K11's and K12's lines read their kernels' registers (K12's two
+    launches apart) from build.log; a spill in any fails the run."""
+    log = STREAM_LOG.format(k11=spill if key == "K11" else 0,
+                            k12=spill if key == "K12" else 0,
+                            fin=spill if key == "K12 final" else 0)
+    (tmp_path / "build.log").write_text(log + DENSE_LOG.format(k1=0, k2=0,
+                                                               spill=0))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert needle == (smoke.K12_FINAL if key == "K12 final"
+                      else smoke.REDESIGNED[key][0])
+    if spill:
+        with pytest.raises(RuntimeError, match="spills"):
+            smoke.registers(key, needle, 1)
+    else:
+        assert smoke.registers(key, needle, 1) == {"fp32": regs}
+
+
+def test_k11_k12_lines(smoke, cpu_card, capsys, monkeypatch):
+    """K11's and K12's holds (hold_streaming) on a small tensor: K11
+    bit-exact, K12 within 1e-6; the bounds count x read once (K11: and its
+    copy written), both are timed against their one PyTorch call and behind
+    a spin kernel, and the lines print the call, the bound, the launch, the
+    registers and K12's plan."""
+    from ectrans_tpu_torch import roofline
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(roofline, "_sm_count", lambda index: 132)
+    (_build.BUILD_DIR / "build.log").write_text(
+        STREAM_LOG.format(k11=0, k12=0, fin=0))
+    x = torch.randn(512, 512, generator=torch.Generator().manual_seed(0))
+    out = smoke.hold_streaming(x)
+    k11, k12 = out["K11"], out["K12"]
+    assert k11["max_abs_err"] == 0.0 and k11["tol"] == "bit-exact"
+    assert k12["rel"] <= 1e-6 and k12["tol"] == "1e-06 rel"
+    nbytes = x.numel() * 4
+    assert k11["bytes_ms"] == pytest.approx(2 * nbytes / 3.35e12 * 1e3)
+    assert k12["bytes_ms"] == pytest.approx((nbytes + 8 * 512 * 4)
+                                            / 3.35e12 * 1e3)
+    for k in (k11, k12):
+        assert k["bound_by"] == "bytes" and k["library_ms"] > 0
+        assert k["spin_ms"] > 0 and k["host_ms"] > 0
+    for key, call, moved in (("K11", "x.clone()", "read + write"),
+                             ("K12", "sum", "reads")):
+        smoke.redesign_report(key, out)
+        line = capsys.readouterr().out
+        assert line.startswith(f"phase 2 {key} (fp32 (512, 512), 1 MiB")
+        for part in (f"vs {call}", "in turns", "% of it", f"{moved} ",
+                     "behind a spin kernel", "us a call", "waves",
+                     "no spills"):
+            assert part in line, (key, part)
+    assert "64 slices of 1 octets" in line and "second launch" in line
+
+
+def test_one_einsum_ratio_restores_the_chunks(smoke):
+    """The "xla" row's reference (one einsum a group) at O48 on the CPU: a
+    gate ratio like the chunked engine's, and legendre_matmul's
+    chunked_einsum back in place afterwards."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.ops import legendre_matmul as lm
+
+    res = ett.setup("O48", 47)
+    sp = smoke.bench_inputs(res.nspec2, res.nsmax)
+    chunked = lm.chunked_einsum
+    ratio = smoke.one_einsum_ratio(res, sp)
+    assert lm.chunked_einsum is chunked
+    _, out = smoke.round_trip(res, sp, torch.float32, "xla")
+    assert 0 < ratio < 1 and 0 < smoke.gate_ratio(out, sp) < 1

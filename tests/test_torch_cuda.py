@@ -420,6 +420,77 @@ def test_roofline_kernels_match_plain(dev):
         assert torch.equal(got, roofline.read_reduce(x))   # deterministic
 
 
+# K11: 4 values, a word short of a block's words, a block's, a block's and a
+# word, an uneven count.  K12: a stage holds 2 octets at 512 columns (32 KB)
+# and 85 at 12; a stage and less, and a stage and a tail, at each; 5 lane
+# windows at 2052 columns
+COPY_SIZES = [4, 4 * roofline.COPY_CHUNK - 4, 4 * roofline.COPY_CHUNK,
+              4 * roofline.COPY_CHUNK + 4, 4 * 1000003]
+REDUCE_SHAPES = [(8, 4), (8, 512), (16, 512), (24, 512), (8 * 84, 12),
+                 (8 * 85, 12), (8 * 86, 12), (64, 2052), (8 * 4099, 8)]
+
+
+@pytest.mark.parametrize("n", COPY_SIZES)
+def test_stream_copy_bit_exact(dev, n):
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(n),
+                    device=dev)
+    assert torch.equal(roofline.stream_copy(x), x)
+
+
+@pytest.mark.parametrize("shape", REDUCE_SHAPES)
+def test_read_reduce_matches_plain(dev, shape):
+    """Within 1e-6 relative of the plain version, bit-identical across two
+    calls."""
+    x = torch.randn(*shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    got = roofline.read_reduce(x)
+    assert got.shape == (8, shape[1])
+    assert rel_err(got, roofline.read_reduce_plain(x)) <= 1e-6
+    assert torch.equal(got, roofline.read_reduce(x))
+
+
+def test_streaming_kernels_on_offset_views(dev):
+    """Views 16 bytes into their storage run; 4 bytes in are refused."""
+    base = torch.randn(8 * 512 * 9 + 8, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+    x = base[4 : 4 + 8 * 512 * 9]
+    assert torch.equal(roofline.stream_copy(x), x)
+    x2 = x.view(72, 512)
+    assert rel_err(roofline.read_reduce(x2),
+                   roofline.read_reduce_plain(x2)) <= 1e-6
+    with pytest.raises(ValueError, match="aligned"):
+        roofline.stream_copy(base[1:17])
+    with pytest.raises(ValueError, match="aligned"):
+        roofline.read_reduce(base[1:33].view(8, 4))
+
+
+def test_streaming_c_entries_refuse_misaligned(dev):
+    """The C entries themselves refuse a pointer off 16 bytes (and launch
+    nothing), whatever the wrappers check."""
+    from ectrans_tpu_torch import _build
+
+    x = torch.zeros(64, device=dev)
+    out = torch.zeros(64, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("ect_copy", torch.float32, x.data_ptr() + 4,
+                      out.data_ptr(), 60, 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("ect_copy", torch.float32, x.data_ptr(),
+                      out.data_ptr() + 4, 60, 1)
+    partial = torch.zeros(8, 4, device=dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("ect_reduce8", torch.float32, x.data_ptr() + 4,
+                      partial.data_ptr(), out.data_ptr(), 8, 4, 1, 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("ect_reduce8", torch.float32, x.data_ptr(),
+                      partial.data_ptr() + 4, out.data_ptr(), 8, 4, 1, 1)
+    # and a plan that does not cover the tensor exactly once
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("ect_copy", torch.float32, x.data_ptr(),
+                      out.data_ptr(), 64, 2)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("nplanes", [3, 1])
 def test_planes_kernels_match_plain(dev, nplanes):
     """K9 and K10 on the planes derived on the card, with operands packed
