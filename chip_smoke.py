@@ -62,9 +62,8 @@ Phases, each printing a line:
    launched, K3 once (the direct transform) and K4 once (the setup's
    full_legendre build);
 5. the same round trip on phase 4's inputs (so the cuFFT plans are reused)
-   through "xla" (its einsums alone: no Legendre kernel and no K3; the
-   ratio with one einsum a group, the order before its 32-term chunks, is
-   printed beside it), "pallas" and "planes" at "highest", "dense" with
+   through "xla" (its einsums alone: no Legendre kernel and no K3; at most
+   1.0 of the gate), "pallas" and "planes" at "highest", "dense" with
    ECTRANS_TPU_LEG_DENSE_PACK=1 (K7 once per m-group, K8, K3 launched and
    K1, K2 not) and
    "dense" with ECTRANS_TPU_PACK_KERNEL=xla (K1, K2 and not K3), all with
@@ -834,7 +833,7 @@ def hold_streaming(x: torch.Tensor) -> dict:
     what = f"fp32 {tuple(x.shape)}, {tensor_bytes(x) / 2**20:.0f} MiB"
     shape = roofline.read_reduce_shape(*x.shape)
     plan = roofline.reduce_plan(*x.shape, shape["sms"])
-    stages = max(len(s) for s in roofline.reduce_stages(plan, 0))
+    stages = -(-plan["per"] // plan["ops"])
     final = registers("K12 final", K12_FINAL, 1)["fp32"]
     out["K11"].update(what=f"{what}, {roofline.COPY_CHUNK * 16} B a block",
                       shapes=[roofline.stream_copy_shape(x.numel())],
@@ -843,8 +842,7 @@ def hold_streaming(x: torch.Tensor) -> dict:
         what=what + ", a block an SM", shapes=[shape],
         moved=("reads", tensor_bytes(x)),
         note=f"; {plan['slices']} slices of {plan['per']} octets, {stages} "
-             f"ring stages of at most {16 * roofline.STAGE_WORDS // 1024} KB "
-             f"a block; second launch (the partials in order) {final} "
+             f"ring stages of {plan['ops']} octets a block; second launch (the partials in order) {final} "
              f"registers, no spills; bit-identical across two calls")
     return out
 
@@ -1124,27 +1122,6 @@ ENGINE_ROWS = (
 )
 
 
-def gate_ratio(out, sp) -> float:
-    """The worst field family's round-trip error over its 100*eps gate."""
-    eps32 = float(np.finfo(np.float32).eps)
-    return max(e / (100 * eps32 * m) for e, m in family_errors(out, sp))
-
-
-def one_einsum_ratio(res, sp) -> float:
-    """The "xla" round trip's gate ratio with one einsum a group (one
-    running fp32 sum over each contraction, as cuBLAS adds) in place of
-    ``legendre_matmul.chunked_einsum``: the error its chunks repair."""
-    from ectrans_tpu_torch.ops import legendre_matmul as lm
-
-    chunked = lm.chunked_einsum
-    lm.chunked_einsum = torch.einsum
-    try:
-        _, out = round_trip(res, sp, torch.float32, "xla")
-    finally:
-        lm.chunked_einsum = chunked
-    return gate_ratio(out, sp)
-
-
 def phase_engines(dev: torch.device, res, sp, counters: dict,
                   launches: dict) -> dict:
     """Phase 4's round trip through the other engines, tiers and knobs;
@@ -1179,10 +1156,6 @@ def phase_engines(dev: torch.device, res, sp, counters: dict,
                       f"{err / gate:.3f} of 100*eps*max {gate:.4e}, over "
                       f"the {share} allowed")
                 verdict += f", {err / gate:.3f} of it (at most {share})"
-            if engine == "xla":
-                verdict += (f"; {one_einsum_ratio(res, sp):.3f} of it with "
-                            f"one einsum a group, the order before the "
-                            f"chunks")
         else:
             # the 1e6*eps gate holds the scalars; vor/div go through UVTVD's
             # ~n amplification and are printed beside it

@@ -71,7 +71,7 @@ _ENTRIES = {
                      _TABLES),
     "ect_tablegen_shape": ([_I, _P], _TABLES),
     "ect_copy": ([_P, _P, _L, _I, _P], ("_f32",)),
-    "ect_reduce8": ([_P, _P, _P, _L, _I, _L, _I, _P], ("_f32",)),
+    "ect_reduce8": ([_P, _P, _P, _L, _I, _L, _I, _I, _P], ("_f32",)),
     "ect_copy_shape": ([_I, _P], _SINGLE),
     "ect_reduce8_shape": ([_I, _P], _SINGLE),
 }

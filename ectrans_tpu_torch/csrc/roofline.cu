@@ -14,8 +14,7 @@
 // streaming store (__stcs), on a grid sized from the tensor (256 words, 4 KB,
 // a block).  The block scheduler hands out the blocks in address order, so
 // the whole card sweeps the tensor front to back.  Every design with more in
-// flight measured slower on an H100 (PERF.md; ``python -m
-// ectrans_tpu_torch.streaming_ab`` times them): a persistent grid, whether
+// flight measured slower on an H100 (PERF.md): a persistent grid, whether
 // each block strides over the tensor or owns a contiguous range, with 1-8
 // loads in flight a thread or a cp.async.bulk ring of 32 KB stages, reached
 // 2.55-2.88 TB/s of read + write, chunks of 4 loads a thread 2.97, this 3.01.
@@ -23,8 +22,9 @@
 // K12: a persistent grid of one block an SM.  Block (s, w) owns the float4
 // lanes [w * WINDOW, ...) of the octets [s * per, (s + 1) * per) (an octet is
 // 8 consecutive rows: 2 * cols lanes, contiguous).  One thread streams them
-// through a ring of STAGES shared-memory stages of up to STAGE bytes with
-// cp.async.bulk, each stage completing on its own mbarrier (complete_tx);
+// through a ring of STAGES shared-memory stages of ``ops`` octets (at most
+// STAGE bytes; the wrapper's plan picks ``ops``) with cp.async.bulk, each
+// stage completing on its own mbarrier (complete_tx);
 // each of the block's 256 threads adds 4 float4 lanes of every octet, in
 // octet order, into 16 fp32 accumulators, and refills a stage once every
 // thread has read it.  Each block writes one partial; a second launch adds
@@ -106,11 +106,11 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "r"(smem_addr(bar)) : "memory");
 }
 
-// Grid (slices, windows) of THREADS threads; per octets a slice.  partial:
-// (slices, lanes) float4.
+// Grid (slices, windows) of THREADS threads; per octets a slice, ops octets
+// a ring stage.  partial: (slices, lanes) float4.
 __global__ void __launch_bounds__(THREADS)
 k12_reduce_kernel(const float4* __restrict__ x, float4* __restrict__ partial,
-                  long long octets, int lanes, long long per) {
+                  long long octets, int lanes, long long per, int ops) {
   extern __shared__ __align__(128) float4 ring[];
   __shared__ __align__(8) uint64_t full[STAGES];
   const int t = threadIdx.x;
@@ -118,7 +118,6 @@ k12_reduce_kernel(const float4* __restrict__ x, float4* __restrict__ partial,
   const int wl = min(WINDOW, lanes - w0);                 // this window's lanes
   const long long q0 = (long long)blockIdx.x * per;
   const int nq = (int)min(per, octets - q0);              // octets to add
-  const int ops = max(1, STAGE_WORDS / wl);               // octets a stage
   const int nst = (nq + ops - 1) / ops;
   if (t == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(&full[s]);
@@ -216,17 +215,20 @@ int ect_copy_f32(const void* x, void* out, long long n, int blocks,
 }
 
 // x: (rows, cols) fp32, rows a multiple of 8, cols of 4; slices of per
-// octets that cover rows / 8 octets; partial: slices * 8 * cols fp32 of
-// scratch; out: (8, cols); all 16-byte aligned
+// octets that cover rows / 8 octets, ops octets a ring stage (as many as a
+// stage holds of a window); partial: slices * 8 * cols fp32 of scratch;
+// out: (8, cols); all 16-byte aligned
 int ect_reduce8_f32(const void* x, void* partial, void* out, long long rows,
-                    int cols, long long per, int slices, void* stream) {
+                    int cols, long long per, int slices, int ops,
+                    void* stream) {
   const long long octets = rows / 8;
   const int lanes = 2 * cols;
   if (!aligned(x) || !aligned(partial) || !aligned(out))
     return (int)cudaErrorMisalignedAddress;
   if (rows % 8 || octets < 1 || cols % 4 || cols < 4 || per < 1 ||
       slices < 1 || (long long)slices * per < octets ||
-      (long long)(slices - 1) * per >= octets)
+      (long long)(slices - 1) * per >= octets || ops < 1 ||
+      (long long)ops * (lanes < WINDOW ? lanes : WINDOW) > STAGE_WORDS)
     return (int)cudaErrorInvalidValue;
   // the ring's dynamic shared memory, above the 48 KB default
   int rc = (int)cudaFuncSetAttribute(
@@ -235,7 +237,7 @@ int ect_reduce8_f32(const void* x, void* partial, void* out, long long rows,
   if (rc != 0) return rc;
   const dim3 grid(slices, (lanes + WINDOW - 1) / WINDOW);
   k12_reduce_kernel<<<grid, THREADS, STAGES * STAGE, (cudaStream_t)stream>>>(
-      (const float4*)x, (float4*)partial, octets, lanes, per);
+      (const float4*)x, (float4*)partial, octets, lanes, per, ops);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   k12_final_kernel<<<(lanes + 31) / 32, 32 * FINAL_WARPS, 0,

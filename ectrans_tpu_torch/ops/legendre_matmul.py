@@ -12,10 +12,10 @@ the same Legendre sums:
 * "xla"    — the grouped parity contraction as per-group ``torch.einsum``
   (this module): the plain matrix product the JAX package leaves to XLA.
   It is the fp64 engine of "planes" and runs in the working dtype (TF32
-  stays off unless the caller turns it on).  In fp32 it adds in the
-  kernels' order (``chunked_einsum``): one running fp32 sum over the
+  stays off unless the caller turns it on).  In fp32 it multiplies and adds
+  in fp64 and rounds once (``group_einsum``): one running fp32 sum over the
   640-1,280 terms of a TCO1279 group puts the round trip at 4.3x its
-  100*eps gate on an H100, 32-term chunks folded exactly at 0.70.
+  100*eps gate on an H100, the fp64 sums at 0.35.
 
 Every engine serves the three tiers of the JAX package (its
 ``_PALLAS_MODE``/``_XLA_PREC`` maps):
@@ -31,9 +31,10 @@ Every engine serves the three tiers of the JAX package (its
 * "bf16"    — tables stored in bfloat16 (``transform._table_dtype``; half
   the table bytes).  "dense" and "pallas" round the fp32 operand to bf16 and
   sum the exact products (the TPU's single-pass mode); "xla" upcasts each
-  group's bf16 tables for its einsums, as the JAX "xla" engine computes on
-  the CPU; "planes" takes 1 plane.  In fp64 the tables stay fp64, so the
-  tier is "highest" there (as in the JAX package, bf16 tables need fp32).
+  group's bf16 tables for its einsums (``group_einsum``), as the JAX "xla"
+  engine computes on the CPU; "planes" takes 1 plane.  In fp64 the tables
+  stay fp64, so the tier is "highest" there (as in the JAX package, bf16
+  tables need fp32).
 
 ``engine()`` reads ``ECTRANS_TPU_LEG_KERNEL`` as the JAX package does; its
 "auto" is "dense" on the CPU too (the JAX package picks "xla" there only
@@ -55,7 +56,6 @@ from . import legendre_planes as lp
 
 ENGINES = ("dense", "xla", "pallas", "planes")
 TIERS = ("highest", "high", "bf16")
-CHUNK = 32     # the "xla" engine's fp32 chunk: the kernels' stage of terms
 
 
 def engine() -> str:
@@ -72,48 +72,35 @@ def dense_pack() -> bool:
     return os.environ.get("ECTRANS_TPU_LEG_DENSE_PACK", "0") != "0"
 
 
-def chunked_einsum(spec: str, a: torch.Tensor,
-                   b: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum(spec, a, b)`` for a ``spec`` whose one contracted
-    label is the last of both operands ("mik,fcmk->fcmi").  In fp32 the
-    contracted axis is zero-padded to a multiple of CHUNK and cut into
-    chunks; one einsum gives every chunk's partial sum (CHUNK terms each),
-    and the partials are added in fp64 in chunk order and rounded once.
-    Other dtypes take the plain einsum."""
-    if b.dtype != torch.float32:
-        return torch.einsum(spec, a, b)
-    ins, so = spec.split("->")
-    sa, sb = ins.split(",")
-    k = sa[-1]
-    parts = torch.einsum(f"{sa[:-1]}z{k},{sb[:-1]}z{k}->{so}z",
-                         _chunks(a), _chunks(b))
-    return parts.sum(-1, dtype=torch.float64).to(b.dtype)
-
-
-def _chunks(t: torch.Tensor) -> torch.Tensor:
-    """(..., n) -> (..., ceil(n / CHUNK), CHUNK), zero-padded."""
-    return F.pad(t, (0, -t.shape[-1] % CHUNK)).unflatten(-1, (-1, CHUNK))
+def group_einsum(spec: str, table: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(spec, table, x)`` in x's dtype, the table (bf16 on
+    that tier) upcast.  In fp32 both operands go to fp64, where each
+    product is exact and the sum all but so, and the result is rounded
+    once."""
+    if x.dtype == torch.float32:
+        return torch.einsum(spec, table.double(), x.double()).float()
+    return torch.einsum(spec, table.to(x.dtype), x)
 
 
 def legendre_inv_grouped(sym: torch.Tensor, asym: torch.Tensor,
                          gl) -> torch.Tensor:
-    """Grouped inverse LT as einsums (``chunked_einsum``): sym/asym (nfld,
+    """Grouped inverse LT as einsums (``group_einsum``): sym/asym (nfld,
     2, M, kmax) -> (nfld, 2, M, ndgl) Fourier coefficients, latitudes north
-    -> south.  bf16 tables are upcast to the working dtype one group at a
-    time."""
+    -> south, one group at a time."""
     parts = []
     for g in gl.groups:
         s = sym[:, :, g.m0:g.m1, :g.kg]
         a = asym[:, :, g.m0:g.m1, :g.kg]
-        fs = chunked_einsum("mik,fcmk->fcmi", g.psym.to(sym.dtype), s)
-        fa = chunked_einsum("mik,fcmk->fcmi", g.pasym.to(sym.dtype), a)
+        fs = group_einsum("mik,fcmk->fcmi", g.psym, s)
+        fa = group_einsum("mik,fcmk->fcmi", g.pasym, a)
         parts.append(torch.cat([F.pad(fs + fa, (g.i0, 0)),
                                 F.pad((fs - fa).flip(-1), (0, g.i0))], dim=-1))
     return torch.cat(parts, dim=2)
 
 
 def legendre_dir_grouped(fourier: torch.Tensor, gl, w: torch.Tensor):
-    """Grouped direct LT as einsums (``chunked_einsum``, over the
+    """Grouped direct LT as einsums (``group_einsum``, over the
     latitudes): (nfld, 2, M, ndgl) Fourier coefficients + NH weights w ->
     (sym, asym), each (nfld, 2, M, kmax)."""
     fsym_all, fasym_all = legendre_grouped.parity_fourier(fourier, gl.ndgnh,
@@ -121,12 +108,12 @@ def legendre_dir_grouped(fourier: torch.Tensor, gl, w: torch.Tensor):
     syms, asyms = [], []
     for g in gl.groups:
         pad = (0, gl.kmax - g.kg)
-        syms.append(F.pad(chunked_einsum(
-            "mki,fcmi->fcmk", g.psym.to(fourier.dtype).transpose(1, 2),
-            fsym_all[:, :, g.m0:g.m1, g.i0:]), pad))
-        asyms.append(F.pad(chunked_einsum(
-            "mki,fcmi->fcmk", g.pasym.to(fourier.dtype).transpose(1, 2),
-            fasym_all[:, :, g.m0:g.m1, g.i0:]), pad))
+        syms.append(F.pad(group_einsum(
+            "mik,fcmi->fcmk", g.psym, fsym_all[:, :, g.m0:g.m1, g.i0:]),
+            pad))
+        asyms.append(F.pad(group_einsum(
+            "mik,fcmi->fcmk", g.pasym, fasym_all[:, :, g.m0:g.m1, g.i0:]),
+            pad))
     return torch.cat(syms, dim=2), torch.cat(asyms, dim=2)
 
 

@@ -44,12 +44,10 @@ OCTET = 8                           # K12's output rows
 # word each)
 COPY_CHUNK = 256
 # K12's launch: float4 lanes of an octet a block owns (256 threads, four
-# each), 16-byte words a ring stage holds (32 KB), blocks an SM, and the
-# warps of the second pass, each adding a contiguous share of the slices
+# each), 16-byte words a ring stage holds (32 KB), blocks an SM
 REDUCE_WINDOW = 1024
 STAGE_WORDS = 2048
 REDUCE_BLOCKS_PER_SM = 1
-FINAL_WARPS = 8
 ALIGN = 16                          # bytes; both kernels move float4
 # the JAX roofline tool's dense shape (tools/roofline.py): TCO1279 group 0's
 # gm and ig, J 2562 (twice that group's J of 1282)
@@ -82,30 +80,19 @@ def reduce_plan(rows: int, cols: int, sms: int) -> dict:
     """K12's launch for a (rows, cols) tensor on a card of ``sms`` SMs: the
     octets (8 rows, 2 cols float4 ``lanes``) cut into ``slices`` ranges of
     ``per`` octets, the lanes into ``windows`` of REDUCE_WINDOW; one block a
-    (slice, window), REDUCE_BLOCKS_PER_SM an SM; ``partial`` the shape of
-    the scratch the blocks write (one (8, cols) partial a slice)."""
+    (slice, window), REDUCE_BLOCKS_PER_SM an SM; each block loads its
+    octets in ring stages of ``ops`` octets (as many as STAGE_WORDS holds
+    of a window; the last stage of a slice may hold fewer); ``partial`` the
+    shape of the scratch the blocks write (one (8, cols) partial a
+    slice)."""
     lanes, octets = 2 * cols, rows // OCTET
     windows = -(-lanes // REDUCE_WINDOW)
     slices = max(1, min(octets, sms * REDUCE_BLOCKS_PER_SM // windows))
     per = -(-octets // slices)
     slices = -(-octets // per)
     return dict(lanes=lanes, octets=octets, windows=windows, slices=slices,
-                per=per, partial=(slices, OCTET, cols))
-
-
-def reduce_stages(plan: dict, window: int) -> list:
-    """The ring stages K12's blocks of lane window ``window`` load, as
-    ``csrc/roofline.cu`` cuts them: for each slice, [(first octet, octets),
-    ...], as many octets a stage as STAGE_WORDS holds of the window's lanes
-    (at least one)."""
-    width = min(REDUCE_WINDOW, plan["lanes"] - window * REDUCE_WINDOW)
-    ops = max(1, STAGE_WORDS // width)
-    out = []
-    for s in range(plan["slices"]):
-        q0 = s * plan["per"]
-        nq = min(plan["per"], plan["octets"] - q0)
-        out.append([(q0 + k, min(ops, nq - k)) for k in range(0, nq, ops)])
-    return out
+                per=per, ops=STAGE_WORDS // min(REDUCE_WINDOW, lanes),
+                partial=(slices, OCTET, cols))
 
 
 def stream_copy_plain(x: torch.Tensor) -> torch.Tensor:
@@ -166,7 +153,7 @@ def read_reduce(x: torch.Tensor) -> torch.Tensor:
     with _build.on_device(x):
         _build.launch("ect_reduce8", torch.float32, x.data_ptr(),
                       partial.data_ptr(), out.data_ptr(), rows, cols,
-                      plan["per"], plan["slices"])
+                      plan["per"], plan["slices"], plan["ops"])
     read_reduce.launches += 1
     return out
 

@@ -668,18 +668,3 @@ def test_k11_k12_lines(smoke, cpu_card, capsys, monkeypatch):
             assert part in line, (key, part)
     assert "64 slices of 1 octets" in line and "second launch" in line
 
-
-def test_one_einsum_ratio_restores_the_chunks(smoke):
-    """The "xla" row's reference (one einsum a group) at O48 on the CPU: a
-    gate ratio like the chunked engine's, and legendre_matmul's
-    chunked_einsum back in place afterwards."""
-    import ectrans_tpu_torch as ett
-    from ectrans_tpu_torch.ops import legendre_matmul as lm
-
-    res = ett.setup("O48", 47)
-    sp = smoke.bench_inputs(res.nspec2, res.nsmax)
-    chunked = lm.chunked_einsum
-    ratio = smoke.one_einsum_ratio(res, sp)
-    assert lm.chunked_einsum is chunked
-    _, out = smoke.round_trip(res, sp, torch.float32, "xla")
-    assert 0 < ratio < 1 and 0 < smoke.gate_ratio(out, sp) < 1

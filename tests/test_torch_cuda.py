@@ -478,16 +478,22 @@ def test_streaming_c_entries_refuse_misaligned(dev):
         _build.launch("ect_copy", torch.float32, x.data_ptr(),
                       out.data_ptr() + 4, 60, 1)
     partial = torch.zeros(8, 4, device=dev)
+    ops = roofline.reduce_plan(8, 4, 1)["ops"]
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.launch("ect_reduce8", torch.float32, x.data_ptr() + 4,
-                      partial.data_ptr(), out.data_ptr(), 8, 4, 1, 1)
+                      partial.data_ptr(), out.data_ptr(), 8, 4, 1, 1, ops)
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.launch("ect_reduce8", torch.float32, x.data_ptr(),
-                      partial.data_ptr() + 4, out.data_ptr(), 8, 4, 1, 1)
-    # and a plan that does not cover the tensor exactly once
+                      partial.data_ptr() + 4, out.data_ptr(), 8, 4, 1, 1, ops)
+    # and a plan that does not cover the tensor exactly once, or whose
+    # stages overflow the ring
     with pytest.raises(RuntimeError, match="launch failed"):
         _build.launch("ect_copy", torch.float32, x.data_ptr(),
                       out.data_ptr(), 64, 2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.launch("ect_reduce8", torch.float32, x.data_ptr(),
+                      partial.data_ptr(), out.data_ptr(), 8, 4, 1, 1,
+                      ops + 1)
     torch.cuda.synchronize()
 
 

@@ -2,8 +2,8 @@
 (``stream_copy``) and K12 (``read_reduce``) of ``ectrans_tpu_torch.roofline``,
 and the wrappers' refusals, on the CPU: the CUDA kernels need a card,
 but their launches are computed in Python (``copy_plan``, ``reduce_plan``,
-``reduce_stages``, which ``csrc/roofline.cu`` follows) and K12's result
-rests on the order in which it adds.
+which the wrappers pass to ``csrc/roofline.cu``) and K12's result rests on
+the order in which it adds.
 
 * Plans: every 16-byte word (K11) and every octet of 8 rows in every lane
   window (K12) is covered exactly once, no block is empty, a K12 stage holds
@@ -26,6 +26,7 @@ import torch
 from ectrans_tpu_torch import roofline as rf
 
 F32 = np.float32
+FINAL_WARPS = 8     # K12's second pass (csrc/roofline.cu k12_final_kernel)
 SMS = (132, 114, 1)
 REDUCE_SHAPES = [(rf.N_ROWS, rf.N_COLS), (262144, 16), (1000, 12), (8, 4),
                  (64, 2052), (8 * 4099, 8), (8 * 17, 512)]
@@ -37,6 +38,19 @@ def assert_tiles(starts, stops, total):
     assert (stops > starts).all()
     assert starts[0] == 0 and stops[-1] == total
     assert (stops[:-1] == starts[1:]).all()
+
+
+def ring_stages(plan):
+    """The ring stages each K12 block loads under ``plan``: for each slice,
+    [(first octet, octets), ...], ``ops`` octets a stage from the slice's
+    first, the last stage what is left."""
+    out = []
+    for s in range(plan["slices"]):
+        q0 = s * plan["per"]
+        nq = min(plan["per"], plan["octets"] - q0)
+        out.append([(q0 + k, min(plan["ops"], nq - k))
+                    for k in range(0, nq, plan["ops"])])
+    return out
 
 
 @pytest.mark.parametrize("n", [4, 4 * 511, 4 * rf.COPY_CHUNK,
@@ -67,18 +81,18 @@ def test_reduce_plan_covers_every_octet_once(shape, sms):
     starts = np.arange(plan["slices"]) * plan["per"]
     assert_tiles(starts, np.minimum(starts + plan["per"], plan["octets"]),
                  plan["octets"])
-    for w, width in enumerate(widths):
-        stages = [st for sl in rf.reduce_stages(plan, w) for st in sl]
-        assert_tiles([q for q, _ in stages], [q + n for q, n in stages],
-                     plan["octets"])
-        assert max(n for _, n in stages) * width * 16 <= 16 * rf.STAGE_WORDS
+    stages = [st for sl in ring_stages(plan) for st in sl]
+    assert_tiles([q for q, _ in stages], [q + n for q, n in stages],
+                 plan["octets"])
+    assert plan["ops"] * max(widths) <= rf.STAGE_WORDS
 
 
 def test_reduce_plan_at_the_probe_shape():
     """132 blocks of 249 octets (one an SM), 2 octets (32 KB) a stage."""
     plan = rf.reduce_plan(rf.N_ROWS, rf.N_COLS, 132)
-    assert (plan["windows"], plan["slices"], plan["per"]) == (1, 132, 249)
-    stages = rf.reduce_stages(plan, 0)
+    assert (plan["windows"], plan["slices"], plan["per"],
+            plan["ops"]) == (1, 132, 249, 2)
+    stages = ring_stages(plan)
     assert [len(s) for s in stages] == [125] * 131 + [len(stages[-1])]
     assert {n for s in stages[:-1] for _, n in s} == {1, 2}
 
@@ -95,9 +109,9 @@ def k12_order(x, plan):
     acc = np.zeros((slices, 8 * cols), F32)
     for q in range(per):
         acc += blocks[:, q]
-    chunk = -(-slices // rf.FINAL_WARPS)
+    chunk = -(-slices // FINAL_WARPS)
     sums = []
-    for w in range(rf.FINAL_WARPS):
+    for w in range(FINAL_WARPS):
         s = np.zeros(8 * cols, F32)
         for i in range(w * chunk, min(slices, (w + 1) * chunk)):
             s = s + acc[i]

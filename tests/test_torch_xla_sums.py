@@ -1,18 +1,17 @@
 """The summation order of the "xla" Legendre engine in fp32
-(``legendre_matmul.chunked_einsum``) against one running sum, in an fp32
-emulation on the CPU: the card's einsum runs through cuBLAS, whose order a
-CPU run cannot reproduce, and the engine's accuracy at TCO1279 rests on
-the order in which it adds.
+(``legendre_matmul.group_einsum``) against one running fp32 sum, on the
+CPU: the card's einsum runs through cuBLAS, whose order a CPU run cannot
+reproduce, and the engine's accuracy at TCO1279 rests on the order in which
+it adds.
 
-One running fp32 sum over a TCO1279 group's 640-1,280 terms (one einsum,
-one cuBLAS accumulation) misses the 100*eps round-trip gate 4.3x on an H100;
-the engine cuts the contracted axis into 32-term chunks, sums each chunk in
-fp32 and adds the chunks' partials in fp64, rounding once.  Both orders
-are held against an fp64 product over 1,280 terms (TCO1279's largest
-latitude count a group): the chunked order must be at least 3x more
-accurate.  FMA is emulated exactly: the product of two fp32 values is exact
-in fp64.  Then ``chunked_einsum`` itself: the plain einsum in fp64, the
-chunked order in fp32 at 1e-6 relative to the fp64 product.
+One running fp32 sum over a TCO1279 group's 640-1,280 terms (one fp32
+einsum, one cuBLAS accumulation) misses the 100*eps round-trip gate 4.3x on
+an H100; the engine multiplies and adds in fp64 and rounds once.  Both
+orders are held against an fp64 product over 1,280 terms (TCO1279's largest
+latitude count a group): the fp64 order must be within one fp32 rounding
+and at least 3x more accurate.  FMA is emulated exactly: the product of two
+fp32 values is exact in fp64.  Then ``group_einsum`` itself: the plain
+einsum in fp64, the fp64 product rounded once in fp32, bf16 tables upcast.
 """
 
 import numpy as np
@@ -29,49 +28,46 @@ def fma(acc, a, b):
 
 
 def running_order(a, b):
-    """One running fp32 FMA sum over every term (one einsum's order)."""
+    """One running fp32 FMA sum over every term (one fp32 einsum's order)."""
     acc = np.zeros((a.shape[0], b.shape[1]), F32)
     for k in range(a.shape[1]):
         acc = fma(acc, a[:, k, None], b[None, k])
     return acc
 
 
-def chunked_order(a, b, chunk=lm.CHUNK):
-    """The engine's order: an fp32 FMA chain a chunk, the chunks' partials
-    added in fp64 in chunk order, rounded once."""
-    total = np.zeros((a.shape[0], b.shape[1]), np.float64)
-    for k0 in range(0, a.shape[1], chunk):
-        part = np.zeros_like(total, dtype=F32)
-        for k in range(k0, min(a.shape[1], k0 + chunk)):
-            part = fma(part, a[:, k, None], b[None, k])
-        total += part
-    return total.astype(F32)
+def fp64_order(a, b):
+    """The engine's order: the exact products added in fp64, rounded once."""
+    return (a.astype(np.float64) @ b.astype(np.float64)).astype(F32)
 
 
 @pytest.mark.parametrize("terms", [1280, 1022])
-def test_chunked_order_beats_one_running_sum(terms):
+def test_fp64_order_beats_one_running_sum(terms):
     rng = np.random.default_rng(terms)
     a = rng.standard_normal((48, terms)).astype(F32)
     b = rng.standard_normal((terms, 64)).astype(F32)
     exact = a.astype(np.float64) @ b.astype(np.float64)
     scale = np.abs(exact).max()
     e_run = np.abs(running_order(a, b) - exact).max() / scale
-    e_chunk = np.abs(chunked_order(a, b) - exact).max() / scale
-    assert 0 < 3 * e_chunk <= e_run, (e_chunk, e_run)
+    e_64 = np.abs(fp64_order(a, b) - exact).max() / scale
+    assert 0 < e_64 <= np.finfo(F32).eps / 2 and 3 * e_64 <= e_run, (
+        e_64, e_run)
 
 
 @pytest.mark.parametrize("spec, a_shape, b_shape", [
     ("mik,fcmk->fcmi", (3, 7, 45), (2, 2, 3, 45)),     # inverse, 45 degrees
-    ("mki,fcmi->fcmk", (3, 5, 70), (2, 2, 3, 70)),     # direct, 70 latitudes
+    ("mik,fcmi->fcmk", (3, 70, 5), (2, 2, 3, 70)),     # direct, 70 latitudes
 ])
-def test_chunked_einsum(spec, a_shape, b_shape):
+def test_group_einsum(spec, a_shape, b_shape):
     rng = np.random.default_rng(7)
     a64 = torch.from_numpy(rng.standard_normal(a_shape))
     b64 = torch.from_numpy(rng.standard_normal(b_shape))
     want = torch.einsum(spec, a64, b64)
-    assert torch.equal(lm.chunked_einsum(spec, a64, b64), want)
-    got = lm.chunked_einsum(spec, a64.float(), b64.float())
+    assert torch.equal(lm.group_einsum(spec, a64, b64), want)
+    a32, b32 = a64.float(), b64.float()
+    got = lm.group_einsum(spec, a32, b32)
     assert got.dtype == torch.float32 and got.shape == want.shape
-    want32 = torch.einsum(spec, a64.float().double(), b64.float().double())
-    assert ((got.double() - want32).abs().max()
-            / want32.abs().max()).item() <= 1e-6
+    assert torch.equal(got, torch.einsum(spec, a32.double(),
+                                         b32.double()).float())
+    a16 = a64.bfloat16()
+    assert torch.equal(lm.group_einsum(spec, a16, b32),
+                       lm.group_einsum(spec, a16.float(), b32))
