@@ -25,11 +25,13 @@ Phases, each printing a line:
    operations over the data sheet's peak; the bytes each input read once
    and each output written once, so K3's count each packed value twice
    and K4's the tables and the inputs its columns read; K4's operations
-   are the fp64-pipe issue slots of its loop) and, for K5, K6, K7, K8
+   are the fp64-pipe issue slots of its loop) and, for K3, K5, K6, K7, K8
    (fp32), K11 and K12, the one PyTorch call that computes the same
-   function (torch.bmm: for K5 on the rows [sym, asym; sym, -asym] against
-   [psym, pasym], which gives north and south at twice K5's FLOP, for K6
-   on its parity operands stacked along the batch; clone, sum), and for K9
+   function (torch.take for K3, on the groups' rows concatenated and the
+   index of each packed value in them, both made untimed; torch.bmm: for
+   K5 on the rows [sym, asym; sym, -asym] against [psym, pasym], which
+   gives north and south at twice K5's FLOP, for K6 on its parity operands
+   stacked along the batch; clone, sum), and for K9
    and K10 a yardstick (one torch.bmm on fp32 operands whose limbs and
    planes were summed beforehand, untimed, at twice their FLOP; a
    different function, so their ``library_ms`` stays null and the
@@ -38,7 +40,8 @@ Phases, each printing a line:
    (``redesign_report``): the time (for K1, K2, K7, K8 against torch.bmm's
    on the stacked rows: K7's and K8's one-call counterpart, timed in their
    turns; for K1 and K2 a reference at twice their FLOP, not a route; for
-   K5, K6, K11 and K12 against their own one call; for K9 and K10 against
+   K3 (one torch.take on the concatenated group rows), K5, K6, K11 and K12
+   against their own one call; for K9 and K10 against
    their yardsticks), the bound with both its terms and the share of it,
    beside them a second measure (the device time with the calls enqueued
    behind a spin kernel, and the host's time to enqueue a call), the blocks
@@ -88,11 +91,32 @@ Phases, each printing a line:
    it), setup, first call, median of 3, and K1-K4's launches (K3 and K4
    once).
 
-Between phases 5 and 6, the DENSE_PACK A/B line: K7 + K8 against K1 + K2
+Between phases 5 and 6, phase 8, the handle at TCO1279, on phase 4's
+inputs: (a) ``SpectralTransform("TCO1279")`` on the default device, the
+card, gets phase 4's Resolution from the setup cache; its round trip must
+match phase 4's outputs (the largest difference and bit identity printed)
+and take at most 0.65 of the 100*eps gate, with K1 and K2 once per m-group
+and K3 once; (b) the same round trip with npromatr=4 (one uv packet, two
+scalar packets, the second padded with two zero fields; each way): within
+2e-5 abs + 1e-5 of each output's max of the single call, at most 0.65 of the
+gate, K1 and K2 16 launches a packet and K3 one a direct packet, median and
+peak beside the single call's; (c) the adjoint identity in fp32 on the
+bench fields (random cotangents from a seeded generator, the inner products
+in fp64) within 2000 eps for inv_trans_adj and dir_trans_adj, with the
+forward on "xla" and on the default "dense", no kernel launched inside an
+adjoint (first call, median of 3, peak); (d) specnorm of the input spectra
+and gpnorm of the inverse grid on the card against the CPU in fp64 (1e-6
+relative; the average's error against each field's mean |value|; min and
+max exact); (e) the allocated memory before and after trans_end() and
+empty_cache: the tables must be freed.  Phase 8 raises the cuFFT plan
+cache to 16,384 plans: its packets and adjoints add four field counts of
+1,280 lengths each.  Then the DENSE_PACK A/B line: K7 + K8 against K1 + K2
 from phase 2 (the same call), and the two round trips' gate ratios, medians
-and launch counts from phases 4 and 5.
+and launch counts from phases 4 and 5.  Phase 2 ends with trans_end, so
+that phase 4 times a setup of its own.
 
-Then one JSON line with the kernels, and last the line
+Then one JSON line with the kernels (K1-K4's launches: phase 4's and phase
+8's (a) and (b)), and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 2 before doing anything.  TF32 is off for every
 matmul and convolution (the plain Legendre versions use torch.bmm).
@@ -410,7 +434,7 @@ YARDSTICKS = ("K9", "K10")
 # the same outputs at twice the FLOP, a reference only; None: no one call)
 REDESIGNED = {"K1": ("k116inv_dense_kernel", ("fp32", "bf16"), "K7"),
               "K2": ("k216dir_dense_kernel", ("fp32", "bf16"), "K8"),
-              "K3": ("14k3_pack_kernel", ("fp32", "fp64"), None),
+              "K3": ("14k3_pack_kernel", ("fp32", "fp64"), "K3"),
               "K4": ("18k4_tablegen_kernel", ("fp32", "fp64", "bf16"), None),
               "K5": ("k518inv_grouped_kernel", ("fp32", "bf16"), "K5"),
               "K6": ("k618dir_grouped_kernel", ("fp32", "bf16"), "K6"),
@@ -425,7 +449,7 @@ REDESIGNED = {"K1": ("k116inv_dense_kernel", ("fp32", "bf16"), "K7"),
 K12_FINAL = "16k12_final_kernel"
 # the one PyTorch call a kernel's line is timed against (torch.bmm if not
 # named)
-LIBRARY_CALLS = {"K11": "x.clone()", "K12": "sum"}
+LIBRARY_CALLS = {"K3": "torch.take", "K11": "x.clone()", "K12": "sum"}
 # K1's, K2's, K7's and K8's launch-shape reports in legendre_dense, their
 # rows at the bench shapes, and the table axis (ig or J) they take last
 DENSE_SHAPES = {"K1": ("group_inv_dense_shape", FC2_INV, 2),
@@ -575,12 +599,34 @@ def hold_k3(res, dev: torch.device, gen: torch.Generator) -> dict:
             for m0, m1, i0, J in res.legendre_groups()]
     k = hold("K3", lambda r: pack.packed_from_group_rows(r, res),
              lambda r: pack.packed_from_group_rows_plain(r, res), [(rows,)],
-             tol=0, nbytes=lambda args, got: 2 * tensor_bytes(got), spin=True)
+             tol=0, nbytes=lambda args, got: 2 * tensor_bytes(got), spin=True,
+             library=(lambda r: k3_library(r, res), torch.take))
     k.update(what=f"fp32, {nfld} fields, {len(rows)} groups, one launch, a "
                   f"warp a field row of an m",
              shapes=[pack.packed_from_group_rows_shape(nfld, res.nsmax)],
              moved=("moves", 2 * 4 * nfld * res.nspec2))
     return k
+
+
+def k3_library(rows: list, res) -> tuple:
+    """K3's one-call counterpart's operands: the groups' rows concatenated
+    into one flat tensor, and the (nfld, nspec2) index of each packed
+    value in it (both made before the timing), for one ``torch.take``."""
+    from ectrans_tpu_torch.ops import pack
+
+    nfld = rows[0].shape[1] // 2
+    f = np.arange(nfld)[:, None]
+    idx, off = [], 0
+    for r, (m0, _, seg0, seg1) in zip(rows, pack.segments(res)):
+        gm, nrow, J = r.shape
+        sl = slice(seg0, seg1)
+        m, c = res.packed_gather_m[sl], res.packed_gather_c[sl]
+        j = res.packed_gather_n[sl] - m
+        idx.append(off + ((m - m0) * nrow + c * nfld + f) * J + j)
+        off += r.numel()
+    flat = torch.cat([r.reshape(-1) for r in rows])
+    return flat, torch.as_tensor(np.concatenate(idx, axis=1),
+                                 device=flat.device)
 
 
 def k6_split(shape: dict, gm: int, kg: int) -> int:
@@ -1075,6 +1121,8 @@ def phase_bench(dev: torch.device, counters: dict):
     grid, out, t_first, launches = drive(res, sp, counters,
                                          ("K1", "K2", "K3", "K4"),
                                          reset=False, once=("K3", "K4"))
+    # phase 8 holds the handle's outputs to these, kept on the host
+    outputs = (grid.cpu(), [x.cpu() for x in out])
     del grid
 
     eps32 = float(np.finfo(np.float32).eps)
@@ -1092,7 +1140,7 @@ def phase_bench(dev: torch.device, counters: dict):
           f"max {hi:.1f}, n 5); peak {peak:.2f} GiB; launches {launches}; "
           f"cuFFT plans cached {torch.backends.cuda.cufft_plan_cache[dev.index].size}")
     return res, sp, launches, dict(ratio=err / gate, median=med,
-                                   launches=dict(launches))
+                                   launches=dict(launches), outputs=outputs)
 
 
 # phase 5 rows: engine, tier, environment, kernels that must run, kernels
@@ -1250,6 +1298,275 @@ def phase_tco639(dev: torch.device, counters: dict) -> None:
     res.drop_cached("full_legendre")
 
 
+# phase 8: the handle's adjoint identity must hold within 2000 fp32 eps
+# (tests/trans/test_adjoint.F90), its packets within the fp32 tolerance of
+# the single call, and its norms within 1e-6 of the CPU's fp64 ones
+ADJOINT_TOL = 2000 * float(np.finfo(np.float32).eps)
+PACKET_TOL = (2e-5, 1e-5)
+NORM_TOL = 1e-6
+NPROMATR = 4
+# cuFFT plans cached: a round trip's field counts take 2 x 1,280 at
+# TCO1279, and phase 8's packets and adjoints four more field counts
+CUFFT_PLANS = 16384
+
+
+def inner(a, b) -> float:
+    """Inner product in fp64 of two tensors, or of two lists of them."""
+    if isinstance(a, (tuple, list)):
+        return sum(inner(x, y) for x, y in zip(a, b))
+    return float((a.double() * b.double()).sum())
+
+
+def adjoint_identity(fx, y, x, fty) -> float:
+    """|<F x, y> - <x, F^T y>| / |<F x, y>|, the inner products in fp64."""
+    lhs = inner(fx, y)
+    return abs(lhs - inner(x, fty)) / abs(lhs)
+
+
+def packet_share(got, want) -> float:
+    """The worst difference of packets' outputs from the single call's, as
+    a share of the fp32 tolerance (2e-5 abs + 1e-5 of each output's max):
+    the grid, then the spectra."""
+    atol, rtol = PACKET_TOL
+    return max((g - w).abs().max().item()
+               / (atol + rtol * w.abs().max().item())
+               for g, w in zip(got, want))
+
+
+def gate_share(out, sp) -> float:
+    """The round trip's worst family error as a share of the 100*eps
+    gate."""
+    eps32 = float(np.finfo(np.float32).eps)
+    return max(e / (100 * eps32 * m) for e, m in family_errors(out, sp))
+
+
+def handle_round_trip(st, sp, npromatr=None):
+    """The bench round trip through a SpectralTransform handle."""
+    grid = st.inv_trans(*sp, npromatr=npromatr, scders=True, uvders=True)
+    u = grid[:NFLD_UV]
+    v = grid[NFLD_UV : 2 * NFLD_UV]
+    sc = grid[2 * NFLD_UV : 2 * NFLD_UV + NFLD_SC]
+    return grid, st.dir_trans(u, v, sc, npromatr=npromatr)
+
+
+def cotangents(res, nout: int, dev: torch.device, seed: int = 12):
+    """Random cotangents from a seeded generator: a grid of nout fields and
+    spectra of the bench's families (m = 0 imaginary parts zero)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y_grid = torch.randn(nout, res.ndgl, res.grid.ndlon, generator=gen,
+                         device=dev)
+    y_spec = []
+    for n in (NFLD_UV, NFLD_UV, NFLD_SC):
+        y = torch.randn(n, res.nspec2, generator=gen, device=dev)
+        y[:, 1 : 2 * (res.nsmax + 1) : 2] = 0.0
+        y_spec.append(y)
+    return y_grid, y_spec
+
+
+def bench_fields(grid):
+    """u, v and the scalars of the bench's inverse output."""
+    return [grid[:NFLD_UV], grid[NFLD_UV : 2 * NFLD_UV],
+            grid[2 * NFLD_UV : 2 * NFLD_UV + NFLD_SC]]
+
+
+def handle_identities(sp, x_grid, fx_grid, fx_out, y_grid, y_spec, inv_ad,
+                      dir_ad) -> tuple:
+    """The adjoint identities of inv_trans_adj (x the bench spectra sp, F x
+    the grid fx_grid) and dir_trans_adj (x the grid fields x_grid, F x the
+    spectra fx_out), against the cotangents y_grid and y_spec."""
+    return (adjoint_identity(fx_grid, y_grid, list(sp), inv_ad),
+            adjoint_identity(list(fx_out), y_spec, x_grid, dir_ad))
+
+
+def first_call(fn):
+    """(result, seconds) of one call of fn() on the card, with the peak
+    memory counted from it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def median_peak(fn, n: int = 3) -> tuple:
+    """(median ms of n calls of fn(), peak GiB since the last reset)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return (statistics.median(times) * 1e3,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_handle(dev: torch.device, res, sp, outputs, counters: dict,
+                 name: str = "TCO1279") -> dict:
+    """Phase 8: ``SpectralTransform(name)`` on the default device, on phase
+    4's inputs and Resolution: (a) its round trip against phase 4's outputs;
+    (b) NPROMATR packets; (c) the adjoint identity in fp32 with the forward
+    on "xla" and on the default "dense", no kernel inside an adjoint; (d)
+    the norms against the CPU's fp64; (e) trans_end frees the tables.
+    Returns the launches of K1-K4 in (a) and (b)."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import norms
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.cufft_plan_cache[dev.index].max_size = CUFFT_PLANS
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("K1", "K2", "K3", "K4")
+    ngroups = len(res.legendre_groups())
+
+    # (a) the handle's round trip against phase 4's
+    for c in counters.values():
+        c.launches = 0
+    st = ett.SpectralTransform(name)
+    check(st.device.type == "cuda" and st.res is res,
+          "the handle is not on the card or did not get phase 4's "
+          "Resolution from the setup cache")
+    (grid, out), first = first_call(lambda: handle_round_trip(st, sp))
+    single = {k: counters[k].launches for k in keys}
+    check(single["K1"] == single["K2"] == ngroups and single["K3"] == 1,
+          f"the handle launched {single}; expected K1 and K2 {ngroups} "
+          "times, K3 once")
+    ref_grid, ref_out = outputs
+    got_host = [grid.cpu()] + [x.cpu() for x in out]
+    want_host = [ref_grid] + list(ref_out)
+    diff = max((a - b).abs().max().item() for a, b in zip(got_host,
+                                                          want_host))
+    same = all(torch.equal(a, b) for a, b in zip(got_host, want_host))
+    share = packet_share(got_host, want_host)
+    check(share <= 1.0, f"the handle's outputs differ from phase 4's by "
+                        f"{diff:.3e} ({share:.3f} of the fp32 tolerance)")
+    del got_host, want_host
+    ratio = gate_share(out, sp)
+    check(ratio <= DENSE_GATE_SHARE,
+          f"handle round trip at {ratio:.3f} of the 100*eps gate")
+    med, peak = median_peak(lambda: handle_round_trip(st, sp))
+    print(f"phase 8a TCO1279 SpectralTransform({name!r}) on "
+          f"{st.device}, phase 4's Resolution: round trip vs phase 4 max "
+          f"diff {diff:.3e}, bit-identical {same}; {ratio:.3f} of the 100 "
+          f"eps gate (at most {DENSE_GATE_SHARE}); first call {first:.3f} s "
+          f"(K4 tables made again); median {med:.1f} ms (n 3); peak "
+          f"{peak:.2f} GiB; launches {single}")
+
+    # (b) NPROMATR packets: 1 uv packet of 2 pairs, 2 scalar packets of 4
+    # (the second padded with 2 zero fields), each way
+    for c in counters.values():
+        c.launches = 0
+    (pgrid, pout), pfirst = first_call(
+        lambda: handle_round_trip(st, sp, NPROMATR))
+    packets = {k: counters[k].launches for k in keys}
+    npk = -(-NFLD_UV // (NPROMATR // 2)) + -(-NFLD_SC // NPROMATR)
+    check(packets["K1"] == packets["K2"] == ngroups * npk
+          and packets["K3"] == npk,
+          f"packets launched {packets}; expected K1 and K2 {ngroups} a "
+          f"packet ({npk} packets each way), K3 once a direct packet")
+    pshare = packet_share([pgrid] + list(pout), [grid] + list(out))
+    psame = all(torch.equal(a, b) for a, b in zip([pgrid, *pout],
+                                                  [grid, *out]))
+    check(pshare <= 1.0, f"packets differ from the single call: "
+                         f"{pshare:.3f} of the fp32 tolerance")
+    pratio = gate_share(pout, sp)
+    check(pratio <= DENSE_GATE_SHARE,
+          f"packet round trip at {pratio:.3f} of the 100*eps gate")
+    del pgrid, pout
+    pmed, ppeak = median_peak(lambda: handle_round_trip(st, sp, NPROMATR))
+    print(f"phase 8b packets (npromatr {NPROMATR}: {npk} packets each way): "
+          f"{pshare:.3e} of the fp32 tolerance from the single call, "
+          f"bit-identical {psame}; "
+          f"{pratio:.3f} of the 100 eps gate; first call {pfirst:.3f} s "
+          f"(cuFFT plans of their field counts); median {pmed:.1f} ms vs "
+          f"the single call's {med:.1f} ms; peak {ppeak:.2f} GiB vs "
+          f"{peak:.2f} GiB; launches {packets}")
+
+    # (c) the adjoint identity in fp32 on the bench fields
+    flags = ett.InvFlags(scders=True, uvders=True)
+    y_grid, y_spec = cotangents(res, grid.shape[0], dev)
+    adj = {}
+    for label, fn in (
+            ("inv_trans_adj", lambda: st.inv_trans_adj(
+                y_grid, NFLD_UV, NFLD_SC, flags=flags)),
+            ("dir_trans_adj", lambda: st.dir_trans_adj(
+                *y_spec, nfld_uv=NFLD_UV, nfld_sc=NFLD_SC))):
+        for c in counters.values():
+            c.launches = 0
+        result, t_first = first_call(fn)
+        ran = {k: c.launches for k, c in counters.items() if c.launches}
+        check(not ran, f"{label} launched kernels: {ran}")
+        adj[label] = (result, t_first) + median_peak(fn)
+    inv_ad, dir_ad = adj["inv_trans_adj"][0], adj["dir_trans_adj"][0]
+    # x: the bench spectra and the bench grid's fields; F x on "xla", and
+    # on the default "dense" engine from (a)
+    x_grid = bench_fields(grid)
+    xgrid = ett.inv_trans(res, *sp, flags=flags, _engine="xla")
+    xout = ett.dir_trans(res, *x_grid, _engine="xla")
+    ids = {eng: handle_identities(sp, x_grid, fg, fo, y_grid, y_spec, inv_ad,
+                                  dir_ad)
+           for eng, fg, fo in (("xla", xgrid, xout), ("dense", grid, out))}
+    del xgrid, xout
+    for eng, (r_inv, r_dir) in ids.items():
+        check(r_inv <= ADJOINT_TOL and r_dir <= ADJOINT_TOL,
+              f"adjoint identity with the {eng} forward: inverse {r_inv:.3e}"
+              f", direct {r_dir:.3e}, over 2000 eps {ADJOINT_TOL:.3e}")
+    print("phase 8c adjoint identity, fp32, bench fields (2000 eps = "
+          f"{ADJOINT_TOL:.3e}): " + "; ".join(
+              f"{eng} forward: inverse {r[0]:.3e} ({r[0] / ADJOINT_TOL:.4f} "
+              f"of it), direct {r[1]:.3e} ({r[1] / ADJOINT_TOL:.4f})"
+              for eng, r in ids.items()) + "; " + "; ".join(
+              f"{k} first call {v[1]:.3f} s, median {v[2]:.1f} ms (n 3), "
+              f"peak {v[3]:.2f} GiB" for k, v in adj.items())
+          + "; no kernel launched inside an adjoint")
+    del adj, inv_ad, dir_ad, y_grid, y_spec, x_grid
+
+    # (d) norms on the card (fp32) against the CPU's fp64
+    spec = torch.cat(list(sp))
+    sn = st.specnorm(spec).cpu().double()
+    sn64 = norms.specnorm(res, spec.cpu().double())
+    sn_rel = ((sn - sn64).abs() / sn64).max().item()
+    ave, gmin, gmax = (x.cpu().double() for x in st.gpnorm(grid))
+    g64 = grid.cpu().double()
+    ave64, min64, max64 = norms.gpnorm(res, g64)
+    # an average of 0 (a field without the (0, 0) mode) has no relative
+    # error: the average's error is taken against the field's mean |value|
+    scale = norms.gpnorm(res, g64.abs(), ave_only=True)[0]
+    del g64
+    ave_rel = ((ave - ave64).abs() / scale).max().item()
+    exact = torch.equal(gmin, min64) and torch.equal(gmax, max64)
+    check(sn_rel <= NORM_TOL and ave_rel <= NORM_TOL and exact,
+          f"norms on the card vs the CPU fp64: specnorm {sn_rel:.3e}, "
+          f"gpnorm average {ave_rel:.3e}, min/max exact {exact}")
+    print(f"phase 8d norms, card fp32 vs CPU fp64: specnorm {sn_rel:.3e} "
+          f"relative, gpnorm average {ave_rel:.3e} of each field's mean "
+          f"|value| (at most {NORM_TOL:g}), min and max exact {exact}")
+    del grid, out, spec
+
+    # (e) trans_end frees the tables
+    tables = [k for k in res._cache if k[0] in (
+        "full_legendre", "grouped_legendre", "planes_legendre")]
+    table_bytes = sum(tensor_bytes([g.pn] if hasattr(g, "pn") else
+                                   [g.psym, g.pasym])
+                      for k in tables for g in res._cache[k].groups)
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    ett.trans_end()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    check(not res._cache and before - after >= table_bytes,
+          f"trans_end freed {(before - after) / 2**30:.2f} GiB of the "
+          f"tables' {table_bytes / 2**30:.2f} GiB")
+    print(f"phase 8e trans_end: allocated {before / 2**30:.2f} GiB before, "
+          f"{after / 2**30:.2f} GiB after (with empty_cache); tables "
+          f"{[k[:2] for k in tables]} {table_bytes / 2**30:.2f} GiB freed; "
+          f"cuFFT plans cached "
+          f"{torch.backends.cuda.cufft_plan_cache[dev.index].size}")
+    print(f"phase 8 done in {time.perf_counter() - t_phase:.1f} s")
+    return {k: single[k] + packets[k] for k in keys}
+
+
 def phase_roofline(dev: torch.device, counters: dict) -> dict:
     """The roofline probes, with K11 and K12 counted."""
     from ectrans_tpu_torch import roofline
@@ -1270,17 +1587,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    import ectrans_tpu_torch as ett
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     phase_build()
     kern = phase_kernels(dev)
+    ett.trans_end()      # phase 4 times a setup of its own
     gc.collect()
     torch.cuda.empty_cache()
     phase_small(dev)
     counters = launch_counters()
     res, sp, launches, dense = phase_bench(dev, counters)
     packed = phase_engines(dev, res, sp, counters, launches)
+    for k, n in phase_handle(dev, res, sp, dense.pop("outputs"),
+                             counters).items():
+        launches[k] += n
     del res, sp
     ab_report(kern, dense, packed)
     launches.update(phase_roofline(dev, counters))

@@ -11,20 +11,41 @@ through their plain PyTorch versions.
     res = ett.setup("O48", 47)
     grid = ett.inv_trans(res, spscalar=torch.randn(4, res.nspec2))
 
+The handle runs on a CUDA card unless it is given ``device="cpu"``:
+
+    st = ett.SpectralTransform("TCO1279")
+    grid = st.inv_trans(spscalar=sc)
+    _, _, sc_ad = st.inv_trans_adj(grid, 0, sc.shape[0])
+
 This package imports neither ``jax`` nor ``ectrans_tpu``.
 """
 
+from .adjoint import dir_trans_adj, inv_trans_adj
+from .api import SpectralTransform, vordiv_to_uv
 from .grids import GridSpec, make_grid
-from .resolution import Resolution, setup
+from .norms import gpnorm, gpnorm_ad, gpnorm_tl, specnorm
+from .resolution import Resolution, get_current, setup, trans_end
 from .transform import InvFlags, dir_trans, inv_trans, num_inv_output_fields
+
+__version__ = "0.1.0"
 
 __all__ = [
     "GridSpec",
     "InvFlags",
     "Resolution",
+    "SpectralTransform",
     "dir_trans",
+    "dir_trans_adj",
+    "get_current",
+    "gpnorm",
+    "gpnorm_ad",
+    "gpnorm_tl",
     "inv_trans",
+    "inv_trans_adj",
     "make_grid",
     "num_inv_output_fields",
     "setup",
+    "specnorm",
+    "trans_end",
+    "vordiv_to_uv",
 ]

@@ -98,6 +98,11 @@ class GridSpec:
         m = np.arange(self.nsmax + 1)
         return (nmen_nh[None, :] >= m[:, None]).sum(axis=1).astype(np.int32)
 
+    def latitudes_deg(self) -> np.ndarray:
+        """Gaussian latitudes in degrees, north -> south."""
+        mu, _ = self.gauss()
+        return np.degrees(np.arcsin(mu))
+
 
 def full_gaussian_grid(nsmax: int, gauss_number: int) -> GridSpec:
     """F<N> regular Gaussian grid."""

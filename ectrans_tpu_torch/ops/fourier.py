@@ -16,7 +16,14 @@ Contract (``tpm_fftw.F90:251-377``):
   input.
 
 ``irfft`` reads the Nyquist bin differently from 2 Re(.), so rows with
-2 nmen >= NLOEN (lat-lon output grids) are refused.  The JAX package's
+2 nmen >= NLOEN (lat-lon output grids) are refused.
+
+Both directions are linear, and each one's transpose is the other one
+scaled row by row (``_Synthesis``, ``_Analysis``): autograd through them
+(the adjoints of ``adjoint.py``) takes two FFT calls a row batch, as the
+forward does, and the cotangents of the ignored inputs (m = 0 imaginary
+parts, modes above nmen, points past NLOEN) are exactly 0, as
+``jax.linear_transpose`` gives them.  The JAX package's
 chirp-z / four-step / real-FFT machinery and its RMS pair normalization
 exist because the TPU backend has no FFT op or complex dtype; they are not
 ported.
@@ -48,8 +55,64 @@ def _plan(res, device: torch.device) -> dict:
     return res.cached(("fourier_plan", str(device)), build)
 
 
+def _adjoint_scale(res, device: torch.device, dtype: torch.dtype):
+    """(2, M, ndgl) c_m * NLOEN(row), c_0 = 1 and c_m = 2 above (0 on the
+    m = 0 imaginary part): synthesis^T = this * analysis."""
+    def build():
+        nloen = np.asarray(res.grid.nloen, np.float64)
+        c = np.where(np.arange(res.M) == 0, 1.0, 2.0)
+        s = np.broadcast_to(c[:, None] * nloen[None, :], (2, res.M, res.ndgl))
+        s = s.copy()
+        s[1, 0] = 0.0
+        return torch.tensor(s, dtype=dtype, device=device)
+
+    return res.cached(("fourier_adjoint_scale", dtype, str(device)), build)
+
+
+class _Synthesis(torch.autograd.Function):
+    """synthesis with its transpose: the grid cotangent's analysis times
+    c_m * NLOEN (``_adjoint_scale``)."""
+
+    @staticmethod
+    def forward(ctx, fourier, res):
+        ctx.res = res
+        return _synthesis(fourier, res)
+
+    @staticmethod
+    def backward(ctx, grad):
+        res = ctx.res
+        return (_analysis(grad, res)
+                * _adjoint_scale(res, grad.device, grad.dtype), None)
+
+
+class _Analysis(torch.autograd.Function):
+    """analysis with its transpose: the synthesis of the Fourier cotangent
+    divided by c_m * NLOEN (the m = 0 imaginary part, which analysis leaves
+    at 0 whatever the grid, is ignored by synthesis)."""
+
+    @staticmethod
+    def forward(ctx, grid, res):
+        ctx.res = res
+        return _analysis(grid, res)
+
+    @staticmethod
+    def backward(ctx, grad):
+        res = ctx.res
+        scale = _adjoint_scale(res, grad.device, grad.dtype)
+        return _synthesis(grad / scale[0], res), None
+
+
 def synthesis(fourier: torch.Tensor, res) -> torch.Tensor:
     """(nfld, 2, M, ndgl) Fourier coefficients -> (nfld, ndgl, ndlon) grid."""
+    return _Synthesis.apply(fourier, res)
+
+
+def analysis(grid: torch.Tensor, res) -> torch.Tensor:
+    """(nfld, ndgl, ndlon) grid -> (nfld, 2, M, ndgl) Fourier coefficients."""
+    return _Analysis.apply(grid, res)
+
+
+def _synthesis(fourier: torch.Tensor, res) -> torch.Tensor:
     nfld, _, M, ndgl = fourier.shape
     if M != res.M or ndgl != res.ndgl:
         raise ValueError(f"synthesis expects (nfld, 2, {res.M}, {res.ndgl}), "
@@ -67,8 +130,7 @@ def synthesis(fourier: torch.Tensor, res) -> torch.Tensor:
     return out.transpose(0, 1).contiguous()
 
 
-def analysis(grid: torch.Tensor, res) -> torch.Tensor:
-    """(nfld, ndgl, ndlon) grid -> (nfld, 2, M, ndgl) Fourier coefficients."""
+def _analysis(grid: torch.Tensor, res) -> torch.Tensor:
     nfld, ndgl, ndlon = grid.shape
     if ndgl != res.ndgl or ndlon != res.grid.ndlon:
         raise ValueError(f"analysis expects (nfld, {res.ndgl}, "

@@ -27,6 +27,10 @@ n ascending, (re, im) interleaved at offsets NASM0 (``suwavedi_mod.F90``);
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
+import sys
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -357,10 +361,11 @@ class Resolution:
 
         return self.cached(("planes_legendre", nplanes, str(device)), build)
 
-    def drop_cached(self, name: str) -> None:
+    def drop_cached(self, name: str | None = None) -> None:
         """Free the cached state called ``name`` ("full_legendre",
-        "grouped_legendre", "planes_legendre", ...) on every device."""
-        for key in [k for k in self._cache if k[0] == name]:
+        "grouped_legendre", "planes_legendre", ...) on every device; all
+        of it (tables, plans, index maps) when ``name`` is None."""
+        for key in [k for k in self._cache if name is None or k[0] == name]:
             del self._cache[key]
 
     def device_tables(self, dtype=torch.float32, device="cpu") -> DeviceTables:
@@ -408,7 +413,8 @@ def build_packed_maps(nsmax: int):
 
 def resolution_from_arrays(grid: GridSpec, radius: float, mu, w, nmen,
                            ndglu, eps, racthe=None) -> Resolution:
-    """Resolution from its host arrays; the derived maps are rebuilt."""
+    """Resolution from its host arrays; the derived maps are rebuilt, and
+    racthe from mu when it is not given."""
     nsmax = grid.nsmax
     NP = nsmax + 2
     mu = np.asarray(mu, np.float64)
@@ -429,18 +435,99 @@ def resolution_from_arrays(grid: GridSpec, radius: float, mu, w, nmen,
         packed_gather_n=pn)
 
 
+def printlev() -> int:
+    """Verbosity level (the reference NPRINTLEV, ``tpm_gen.F90``): 0 silent
+    (default), 1 setup banners, 2 detailed tables.  Set via
+    ECTRANS_TPU_PRINTLEV."""
+    try:
+        return int(os.environ.get("ECTRANS_TPU_PRINTLEV", "0"))
+    except ValueError:
+        return 0
+
+
+def _setup_banner(res: Resolution) -> None:
+    """Setup banner at NPRINTLEV >= 1 (reference setup_trans0.F90:115-153).
+    The tables are made on first use for a device, so level 2 gives their
+    size on one device in fp32 (the full-n tables of ``full_legendre``)."""
+    from . import __version__
+
+    g = res.grid
+    print(f"ectrans_tpu_torch {__version__}: setup T{res.nsmax} "
+          f"ndgl={res.ndgl} ndlon={g.ndlon} ngptot={g.ngptot} "
+          f"nspec2={res.nspec2}", file=sys.stderr)
+    if printlev() >= 2:
+        entries = sum((m1 - m0) * J * (res.ndgnh - i0)
+                      for m0, m1, i0, J in res.legendre_groups())
+        print(f"  legendre tables: {4 * entries / 1e9:.2f} GB in fp32 "
+              f"(kmax={res.kmax}, ndgnh={res.ndgnh}); radius={res.radius}",
+              file=sys.stderr)
+        print(f"  nloen: {g.nloen[0]}..{max(g.nloen)}; "
+              f"nmen: {int(res.nmen[0])}..{int(res.nmen.max())}",
+              file=sys.stderr)
+
+
+_CURRENT: list = []  # most recently set up Resolutions (GET_CURRENT parity)
+# every Resolution the setup cache made, to drop their state in trans_end
+_MADE: weakref.WeakSet = weakref.WeakSet()
+
+
+def get_current() -> Resolution | None:
+    """Most recently set-up Resolution (reference GET_CURRENT,
+    ``get_current.F90``); None before any setup."""
+    return _CURRENT[-1] if _CURRENT else None
+
+
+def trans_end() -> None:
+    """Release every cached resolution and the tables, plans and index maps
+    it caches on any device (reference TRANS_END, ``trans_end.F90``).
+    Resolutions held by a caller keep working: their state is made again
+    on first use."""
+    _CURRENT.clear()
+    _setup_cached.cache_clear()
+    for res in list(_MADE):
+        res.drop_cached()
+    _MADE.clear()
+
+
 def setup(grid_or_name: Any, nsmax: int | None = None,
-          radius: float = EARTH_RADIUS) -> Resolution:
+          radius: float = EARTH_RADIUS, stretch: float = 1.0) -> Resolution:
     """Build a Resolution (the SETUP_TRANS equivalent):
     ``setup("O48", 47)``, ``setup("TCO1279")`` or ``setup(GridSpec(...))``.
 
     Only O(ndgl + nspec2) host work happens here; the Legendre tables are
     made on first use by ``full_legendre`` for the device that needs them.
+    The Resolution is cached on (grid, radius, stretch), so every caller of
+    the same configuration shares it and its tables until ``trans_end``.
+
+    ``stretch`` is the Schmidt stretching factor c (reference PSTRET,
+    ``setup_trans.F90:49``): when != 1 the Legendre polynomials are
+    evaluated at the stretched latitudes mu' = (t + mu)/(1 + t*mu),
+    t = (1 - c^2)/(1 + c^2) (``suleg_mod.F90:272-287``), and 1/(a cos)
+    follows them, while the Gaussian weights stay those of the
+    computational sphere.
     """
     if isinstance(grid_or_name, GridSpec):
         grid = grid_or_name
     else:
         grid = make_grid(grid_or_name, nsmax)
+    res = _setup_cached(grid, float(radius), float(stretch))
+    if not _CURRENT or _CURRENT[-1] is not res:
+        _CURRENT.append(res)
+        del _CURRENT[:-4]  # keep a short history only
+        if printlev() >= 1:
+            _setup_banner(res)
+    return res
+
+
+@functools.lru_cache(maxsize=16)
+def _setup_cached(grid: GridSpec, radius: float, stretch: float) -> Resolution:
     mu, w = grid.gauss()
-    return resolution_from_arrays(grid, radius, mu, w, grid.nmen(),
-                                  grid.ndglu(), eps_table(grid.nsmax, 3))
+    if abs(stretch - 1.0) > 1e-13:
+        t = (1.0 - stretch**2) / (1.0 + stretch**2)
+        north = mu[: grid.ndgnh]
+        mu = np.concatenate([(t + north) / (1.0 + t * north),
+                             ((t - north) / (1.0 - t * north))[::-1]])
+    res = resolution_from_arrays(grid, radius, mu, w, grid.nmen(),
+                                 grid.ndglu(), eps_table(grid.nsmax, 3))
+    _MADE.add(res)
+    return res

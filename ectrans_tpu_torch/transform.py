@@ -41,10 +41,20 @@ GPU).  Field order of the inverse output (``inv_trans.F90:58-106``): vor?,
 div?, u, v, scalars, N-S derivatives of scalars?, E-W derivatives of u and
 v?, E-W derivatives of scalars?.
 
+NPROMATR packets (``npromatr``): a call with 2 nuv + nsc > npromatr runs
+as packets, uv pairs (npromatr // 2 a packet) then scalars (npromatr a
+packet), each zero-padded to its kind's uniform size, so that every packet
+launches the same kernel shapes and sums in the same order; the inverse
+output is reassembled in the single call's PGP order (``FieldLayout``), the
+direct output drops the padded fields.
+
+Both transforms are linear in their fields and differentiable through
+every layer on the "xla" engine (the adjoints of ``adjoint.py``); the
+kernels of the other engines have no autograd rule.
+
 Not carried over from the JAX package: the dispatch splits and
 ``optimization_barrier`` guards against TPU-compiler faults, and the
-analysis of u/v and scalars in separate calls.  NPROMATR packets are not
-ported yet.
+analysis of u/v and scalars in separate calls.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ import dataclasses
 
 import torch
 
+from .field_layout import FieldLayout
 from .ops import (fourier, layout, legendre_dense, legendre_matmul, pack,
                   spectral)
 from .ops.legendre_planes import planes_for_tier
@@ -90,14 +101,10 @@ def _resolve_engine(eng: str | None, dtype: torch.dtype) -> str:
     return eng
 
 
-def _check_options(precision: str, npromatr) -> None:
+def _check_precision(precision: str) -> None:
     if precision not in legendre_matmul.TIERS:
         raise ValueError(f"unknown precision tier {precision!r}; expected "
                          f"one of {legendre_matmul.TIERS}")
-    if npromatr:
-        raise NotImplementedError(
-            "npromatr field packets are not ported (ROADMAP.md, queue A "
-            "item 2: transform.py and field_layout.py)")
 
 
 def _table_dtype(dtype: torch.dtype, precision: str) -> torch.dtype:
@@ -172,16 +179,19 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
         raise ValueError("nothing to transform: pass spvor/spdiv and/or spscalar")
     for nm, arr in (("spvor", spvor), ("spdiv", spdiv), ("spscalar", spscalar)):
         _check_spec(nm, arr, res)
+    nfld_uv = 0 if spvor is None else spvor.shape[0]
+    nfld_sc = 0 if spscalar is None else spscalar.shape[0]
+    if npromatr and 2 * nfld_uv + nfld_sc > npromatr:
+        return _inv_packets(res, spvor, spdiv, spscalar, flags, dtype,
+                            fspgl_proc, npromatr, precision, _engine)
     dtype = check_dtype(dtype)
     eng = _resolve_engine(_engine, dtype)
     pack2 = legendre_matmul.dense_pack()
-    _check_options(precision, npromatr)
+    _check_precision(precision)
     device = _device_of(spvor, spdiv, spscalar)
     tables = res.device_tables(dtype, device)
     gl = _leg_tables(res, eng, dtype, precision, device)
     racthe = tables.racthe
-    nfld_uv = 0 if spvor is None else spvor.shape[0]
-    nfld_sc = 0 if spscalar is None else spscalar.shape[0]
 
     # all fields go through ONE Legendre call: the tables are streamed once
     lt_inputs = []
@@ -250,15 +260,19 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
         raise ValueError("nothing to transform: pass u/v and/or scalars")
     for nm, arr in (("u", u), ("v", v), ("scalars", scalars)):
         _check_grid_arg(nm, arr, res)
+    nfld_uv = 0 if u is None else u.shape[0]
+    nfld_sc = 0 if scalars is None else scalars.shape[0]
+    if npromatr and 2 * nfld_uv + nfld_sc > npromatr:
+        return _dir_packets(res, u, v, scalars, dtype, npromatr, precision,
+                            _engine)
     dtype = check_dtype(dtype)
     eng = _resolve_engine(_engine, dtype)
     pack2 = legendre_matmul.dense_pack()
     packing = pack.pack_kernel()
-    _check_options(precision, npromatr)
+    _check_precision(precision)
     device = _device_of(u, v, scalars)
     tables = res.device_tables(dtype, device)
     gl = _leg_tables(res, eng, dtype, precision, device)
-    nfld_uv = 0 if u is None else u.shape[0]
     grids = [x.to(dtype) for x in (u, v, scalars) if x is not None]
 
     four = fourier.analysis(torch.cat(grids), res)
@@ -273,11 +287,67 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
     else:
         packed = _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng,
                                    precision, pack2, packing)
-    nsc = four.shape[0] - 2 * nfld_uv
     spvor = packed[:nfld_uv] if nfld_uv else None
     spdiv = packed[nfld_uv: 2 * nfld_uv] if nfld_uv else None
-    spsc = packed[2 * nfld_uv:] if nsc else None
+    spsc = packed[2 * nfld_uv:] if nfld_sc else None
     return spvor, spdiv, spsc
+
+
+def _chunk_pad(x: torch.Tensor, size: int):
+    """Yield equal-``size`` leading-axis chunks of x (the last padded with
+    zeros), with the count of real fields in each."""
+    for i in range(0, x.shape[0], size):
+        c = x[i : i + size]
+        real = c.shape[0]
+        if real < size:
+            c = torch.cat([c, c.new_zeros((size - real,) + c.shape[1:])])
+        yield c, real
+
+
+def _inv_packets(res, spvor, spdiv, spscalar, flags, dtype, fspgl_proc,
+                 npromatr, precision, engine):
+    """NPROMATR packet loop: uv pairs then scalars, group-wise reassembly
+    into the single call's PGP order."""
+    nuv = 0 if spvor is None else spvor.shape[0]
+    nsc = 0 if spscalar is None else spscalar.shape[0]
+    kw = dict(flags=flags, dtype=dtype, fspgl_proc=fspgl_proc,
+              precision=precision, _engine=engine)
+    parts = {}
+    if nuv:
+        size = max(1, npromatr // 2)
+        for (cv, real), (cd, _) in zip(_chunk_pad(spvor, size),
+                                       _chunk_pad(spdiv, size)):
+            out = inv_trans(res, cv, cd, None, **kw)
+            fl = FieldLayout.inv(real, 0, flags, pad_uv=size)
+            for k, blk in fl.split(out).items():
+                parts.setdefault(k, []).append(blk)
+    if nsc:
+        size = max(1, npromatr)
+        for csc, real in _chunk_pad(spscalar, size):
+            out = inv_trans(res, None, None, csc, **kw)
+            fl = FieldLayout.inv(0, real, flags, pad_sc=size)
+            for k, blk in fl.split(out).items():
+                parts.setdefault(k, []).append(blk)
+    order = FieldLayout.inv(nuv, nsc, flags).names
+    return torch.cat([blk for k in order for blk in parts[k]])
+
+
+def _dir_packets(res, u, v, scalars, dtype, npromatr, precision, engine):
+    """NPROMATR packet loop of the direct transform: uv pairs then scalars,
+    the padded fields of each packet's output dropped."""
+    kw = dict(dtype=dtype, precision=precision, _engine=engine)
+    sv_p, sd_p, ss_p = [], [], []
+    if u is not None:
+        size = max(1, npromatr // 2)
+        for (cu, real), (cv, _) in zip(_chunk_pad(u, size),
+                                       _chunk_pad(v, size)):
+            sv, sd, _ = dir_trans(res, cu, cv, None, **kw)
+            sv_p.append(sv[:real])
+            sd_p.append(sd[:real])
+    if scalars is not None:
+        for csc, real in _chunk_pad(scalars, max(1, npromatr)):
+            ss_p.append(dir_trans(res, None, None, csc, **kw)[2][:real])
+    return tuple(torch.cat(p) if p else None for p in (sv_p, sd_p, ss_p))
 
 
 def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision,

@@ -668,3 +668,74 @@ def test_k11_k12_lines(smoke, cpu_card, capsys, monkeypatch):
             assert part in line, (key, part)
     assert "64 slices of 1 octets" in line and "second launch" in line
 
+
+
+def test_k3_library_call_computes_k3s_function(smoke):
+    """K3's one-call counterpart: torch.take on the concatenated group rows
+    and the index k3_library makes gives the packed layout, bit for bit."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.ops import pack
+
+    res = ett.setup("O48", 47)
+    g = torch.Generator().manual_seed(3)
+    rows = [torch.randn(m1 - m0, 2 * 10, J + extra, generator=g)
+            for extra, (m0, m1, _, J) in zip(range(9),
+                                             res.legendre_groups())]
+    flat, idx = smoke.k3_library(rows, res)
+    assert idx.shape == (10, res.nspec2) and flat.dim() == 1
+    assert torch.equal(torch.take(flat, idx),
+                       pack.packed_from_group_rows_plain(rows, res))
+
+
+def test_phase8_helpers(smoke, cpu_card):
+    """Phase 8's helpers on the CPU at O48 through a handle on the CPU: the
+    packet comparison (npromatr 4 against the single call), the gate share,
+    the cotangents, and the adjoint identity with the "xla" and the "dense"
+    forward; each helper flags a wrong result."""
+    import ectrans_tpu_torch as ett
+
+    st = ett.SpectralTransform("O48", 47, device=cpu_card)
+    res = st.res
+    sp = smoke.bench_inputs(res.nspec2, res.nsmax)
+    grid, out = smoke.handle_round_trip(st, sp)
+    pgrid, pout = smoke.handle_round_trip(st, sp, smoke.NPROMATR)
+    assert tuple(grid.shape) == (26, res.ndgl, res.grid.ndlon)
+    assert smoke.packet_share([pgrid, *pout], [grid, *out]) <= 0.01
+    bad = pgrid.clone()
+    bad[3, 5, 7] += 1e-3 * grid.abs().max()
+    assert smoke.packet_share([bad, *pout], [grid, *out]) > 1.0
+    assert smoke.gate_share(out, sp) < smoke.DENSE_GATE_SHARE
+    assert smoke.gate_share(pout, sp) < smoke.DENSE_GATE_SHARE
+
+    y_grid, y_spec = smoke.cotangents(res, grid.shape[0], cpu_card)
+    assert y_grid.shape == grid.shape
+    assert [tuple(y.shape) for y in y_spec] == [tuple(x.shape) for x in sp]
+    assert not any(y[:, 1: 2 * (res.nsmax + 1): 2].any() for y in y_spec)
+    flags = ett.InvFlags(scders=True, uvders=True)
+    inv_ad = st.inv_trans_adj(y_grid, 2, 6, flags=flags)
+    dir_ad = st.dir_trans_adj(*y_spec, nfld_uv=2, nfld_sc=6)
+    x_grid = smoke.bench_fields(grid)
+    assert [x.shape[0] for x in x_grid] == [2, 2, 6]
+    xgrid = ett.inv_trans(res, *sp, flags=flags, _engine="xla")
+    xout = ett.dir_trans(res, *x_grid, _engine="xla")
+    for fg, fo in ((xgrid, xout), (grid, out)):
+        r_inv, r_dir = smoke.handle_identities(sp, x_grid, fg, fo, y_grid,
+                                               y_spec, inv_ad, dir_ad)
+        assert r_inv < smoke.ADJOINT_TOL and r_dir < smoke.ADJOINT_TOL
+    wrong = [1.01 * a for a in inv_ad]
+    assert smoke.handle_identities(sp, x_grid, grid, out, y_grid, y_spec,
+                                   wrong, dir_ad)[0] > smoke.ADJOINT_TOL
+    assert smoke.inner([torch.ones(2), torch.ones(3)],
+                       [torch.full((2,), 2.0), torch.ones(3)]) == 7.0
+
+
+def test_phase8_timing_helpers(smoke, cpu_card, monkeypatch):
+    """first_call and median_peak: the result of the first call, its
+    seconds, the median of n more calls and the peak memory."""
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 2**31)
+    calls = []
+    result, t = smoke.first_call(lambda: calls.append(1) or "out")
+    assert result == "out" and t >= 0 and calls == [1]
+    med, peak = smoke.median_peak(lambda: calls.append(1), 3)
+    assert len(calls) == 4 and med >= 0 and peak == 2.0

@@ -45,6 +45,16 @@ VARIANTS = [(torch.float32, torch.float32), (torch.float64, torch.float64),
 SLICE_TOL = {torch.float64: (0.0, 1e-10), torch.float32: (2e-5, 1e-5)}
 
 
+@pytest.fixture(autouse=True)
+def fresh_setup():
+    """Each test starts from a setup of its own, as if no other test had run
+    (``setup`` shares one Resolution, and its tables, among its callers), so
+    that a test counting K4's launches sees its own table build."""
+    ett.trans_end()
+    yield
+    ett.trans_end()
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():

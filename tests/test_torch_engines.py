@@ -115,6 +115,7 @@ def test_derived_tables_cache_and_drop():
     """Derived tables are cached per device, keep no full-n copy of their
     own, and drop_cached frees them."""
     res = ett.setup("O48", 47)
+    res.drop_cached("full_legendre")    # the setup cache shares res
     gl = res.grouped_legendre(torch.float32)
     ppl = res.planes_legendre(1)
     assert res.grouped_legendre(torch.float32) is gl

@@ -3,6 +3,7 @@ index maps and host Legendre tables (bitwise, or 1e-15 relative in fp64),
 the numpy carry-over (convert.resolution_from_numpy), and the package's
 independence from JAX."""
 
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -37,8 +38,18 @@ def numpy_state(jres, with_tables=True) -> dict:
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys; import ectrans_tpu_torch, ectrans_tpu_torch.convert, "
-            "ectrans_tpu_torch.transform, ectrans_tpu_torch._build; "
+    """Every module of the package (found by walking it) imports neither
+    jax nor ectrans_tpu."""
+    mods = ["ectrans_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(ett.__path__,
+                                              "ectrans_tpu_torch.")]
+    assert {"ectrans_tpu_torch.convert", "ectrans_tpu_torch.transform",
+            "ectrans_tpu_torch._build", "ectrans_tpu_torch.api",
+            "ectrans_tpu_torch.adjoint", "ectrans_tpu_torch.norms",
+            "ectrans_tpu_torch.field_layout",
+            "ectrans_tpu_torch.utils.timing"} <= set(mods)
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'ectrans_tpu.'))] + [m for m in ('ectrans_tpu',) "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")

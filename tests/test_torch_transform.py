@@ -166,12 +166,16 @@ def test_spectral_operators_match_jax(pair):
 
 
 def test_options_not_ported_raise():
-    """npromatr packets are not ported and bf16 is no working dtype; the
-    tiers "high" and "bf16" run on the default "dense" engine."""
+    """npromatr packets (one field a packet here) give the single call's
+    output; bf16 is no working dtype; the tiers "high" and "bf16" run on
+    the default "dense" engine."""
     res = ett.setup("T47")
     sc = torch.from_numpy(packed(res, 1, 0))
-    with pytest.raises(NotImplementedError, match="npromatr"):
-        ett.inv_trans(res, spscalar=sc, npromatr=1)
+    sc2 = torch.from_numpy(packed(res, 2, 0)).double()
+    one = ett.inv_trans(res, spscalar=sc2, dtype=torch.float64)
+    assert torch.allclose(ett.inv_trans(res, spscalar=sc2, npromatr=1,
+                                        dtype=torch.float64),
+                          one, rtol=0, atol=1e-11 * one.abs().max().item())
     with pytest.raises(TypeError):
         ett.inv_trans(res, spscalar=sc, dtype=torch.bfloat16)
     g = ett.inv_trans(res, spscalar=sc)
