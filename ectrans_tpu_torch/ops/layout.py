@@ -14,11 +14,31 @@ import torch
 import torch.nn.functional as F
 
 
+class _PackedToDense(torch.autograd.Function):
+    """The gather of ``packed_to_dense``, with its transpose as a scatter
+    without accumulation: every packed value has one dense position, and
+    the appended zero slot, which takes every position outside the
+    triangle, is dropped.  (Autograd's own transpose of the gather adds
+    the ~nspec2 duplicates of that slot one after another on a GPU.)"""
+
+    @staticmethod
+    def forward(ctx, spec, gather):
+        ctx.save_for_backward(gather)
+        ctx.nspec2 = spec.shape[1]
+        return F.pad(spec, (0, 1))[:, gather]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (gather,) = ctx.saved_tensors
+        out = grad.new_zeros((grad.shape[0], ctx.nspec2 + 1))
+        out[:, gather] = grad
+        return out[:, : ctx.nspec2], None
+
+
 def packed_to_dense(spec: torch.Tensor, tables) -> torch.Tensor:
     """(nfld, nspec2) -> (nfld, 2, M, NP); exact zeros outside
     m <= n <= nsmax (those entries gather the appended zero slot)."""
-    specp = torch.nn.functional.pad(spec, (0, 1))
-    return specp[:, tables.dense_gather]
+    return _PackedToDense.apply(spec, tables.dense_gather)
 
 
 def dense_to_packed(dense: torch.Tensor, res) -> torch.Tensor:
