@@ -115,8 +115,39 @@ from phase 2 (the same call), and the two round trips' gate ratios, medians
 and launch counts from phases 4 and 5.  Phase 2 ends with trans_end, so
 that phase 4 times a setup of its own.
 
-Then one JSON line with the kernels (K1-K4's launches: phase 4's and phase
-8's (a) and (b)), and last the line
+After phase 7, two phases at full width:
+
+9. the lat-lon output at TCO1279 onto the 0.25 degree grid with poles (721 x
+   1440, ECMWF's open-data grid; every row folds modes, 2 * 1279 >= 1440):
+   ``SpectralTransform("TCO1279").inv_trans_latlon`` on phase 4's inputs and
+   flags (26 fields, fp32; the tables set up again after phase 8e's
+   trans_end, by K4 in one launch, and timed), with no Legendre or packing
+   kernel; (a) against the card's fp64 path, (b) against a host fp64
+   evaluation by direct sums at 10 sample rows (both poles and their
+   neighbours, the equator and its neighbours, rows between):
+   ``compute_legendre_table`` and explicit cos/sin sums over every
+   longitude, no FFT and no folding code; (c) ``dir_trans_latlon`` fp32
+   against fp64 (the Gaussian tables by K4, a launch a group), and the
+   interpolation-limited round trip of the scalars truncated at n <= 319
+   (printed: the error on n <= 319 and the aliases above it); (d) the
+   adjoint identity by autograd, 2000 eps; (a)-(c) at 100 eps of each
+   field's largest |value|; K4 held against its plain version at the
+   lat-lon nodes (the pole row included);
+10. the LAM at the 1.3 km domain (1536 x 1280, C+I 1440 x 1200, dx = dy =
+   1300 m, truncation (767, 639)) through ``LamTransform``: 10 vor/div
+   pairs and 10 scalars (the physical-field mask, seed 0), the mean wind,
+   every flag (90 fields, fp32); (a) the round trip at 100 eps of each
+   family's largest |value| (the mean wind of its wind field's: it is that
+   field's (0, 0) coefficient); (b) one (m, n) mode of each component and
+   its derivatives against the closed form in fp64, 1e-10; (c)
+   ``biperiodicize("spline")`` of a smooth C+I field and its round trip,
+   fp32 on the card against the CPU's fp64, 100 eps; (d) both adjoint
+   identities, 2000 eps; (e) the norms against the CPU's fp64 (as 8d); no
+   kernel may run.
+
+Each prints its times, peak memory and seconds.  Then one JSON line with the
+kernels (K1-K4's launches: phase 4's and phase 8's (a) and (b), and K4's of
+phase 9), and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 2 before doing anything.  TF32 is off for every
 matmul and convolution (the plain Legendre versions use torch.bmm).
@@ -1583,6 +1614,470 @@ def phase_roofline(dev: torch.device, counters: dict) -> dict:
     return launches
 
 
+# phases 9 and 10: the lat-lon output at TCO1279 onto the 0.25 degree grid
+# with poles (ECMWF's open-data grid), and the LAM at the 1.3 km domain
+# (BASELINE.md:287); every gate relative to each field's largest |value|
+EPS32 = float(np.finfo(np.float32).eps)
+LATLON_GATE = 100 * EPS32
+LATLON = (721, 1440)
+LATLON_TRUNC = 319           # (c)'s interpolation-limited round trip
+LAM_DOMAIN = dict(nx=1536, ny=1280, nxux=1440, nyux=1200, dx=1300.0,
+                  dy=1300.0)
+LAM_NUV, LAM_NSC = 10, 10
+LAM_MODE = (300, 200)        # (m, n) of check (b), inside the ellipse
+LAM_MODE_TOL = 1e-10
+
+
+def field_shares(got, want, gate: float, scale=None) -> list:
+    """Per field (the leading axis): max |got - want| over the field as a
+    share of gate times the field's largest |value| (of ``scale`` where it
+    is given, else of want)."""
+    ref = want if scale is None else scale
+    d = (got.double() - want.double()).flatten(1).abs().amax(1)
+    m = ref.double().flatten(1).abs().amax(1)
+    return (d / (gate * m.clamp(min=torch.finfo(torch.float64).tiny))
+            ).tolist()
+
+
+def sample_rows(nlat: int) -> list:
+    """Lat-lon rows for the direct evaluation: both poles and their
+    neighbours, the equator (and its neighbours), and rows between."""
+    return sorted({0, 1, nlat // 8, nlat // 4, nlat // 2 - 1, nlat // 2,
+                   nlat // 2 + 1, 3 * nlat // 4, nlat - 2, nlat - 1})
+
+
+def latlon_direct(res, ll, sp, flags, rows) -> torch.Tensor:
+    """inv_trans_latlon's fields at the lat-lon ``rows`` in fp64 on the
+    host by direct sums, with no FFT and no folding: the dense spectra
+    (VDTUV, SPNSDE), P̄_n^m at the rows (``compute_legendre_table``) summed
+    over n, 1/(a cos) and the E-W derivative, then explicit cos/sin sums
+    over every longitude.  Returns (nout, len(rows), nlon)."""
+    from ectrans_tpu_torch.legendre import compute_legendre_table
+    from ectrans_tpu_torch.ops import layout, spectral
+
+    t = res.device_tables(torch.float64, "cpu")
+    spvor, spdiv, spsc = (x.detach().cpu().double() for x in sp)
+    dvor = layout.packed_to_dense(spvor, t)
+    ddiv = layout.packed_to_dense(spdiv, t)
+    du, dv = spectral.vordiv_to_uv(dvor, ddiv, t.vd)
+    dsc = layout.packed_to_dense(spsc, t)
+    mu = ll.mu[rows]
+    P = torch.from_numpy(compute_legendre_table(res.nsmax, mu, 1))
+
+    def four(d):                               # (f, 2, M, rows)
+        return torch.einsum("fcmn,mnr->fcmr", d, P)
+
+    cos = np.sqrt(np.maximum(0.0, 1.0 - mu * mu))
+    rc = np.where(cos > 0, 1.0 / np.where(cos > 0, cos, 1.0), 0.0)
+    if ll.include_poles:
+        rc[[i for i, r in enumerate(rows) if r in (0, ll.nlat - 1)]] = 0.0
+    rc = torch.from_numpy(rc / res.radius)
+    m = torch.arange(res.M, dtype=torch.float64)[None, :, None]
+
+    def ew(f):
+        return torch.stack([-f[:, 1] * m, f[:, 0] * m], 1) * rc
+
+    uv = torch.cat([four(du), four(dv)]) * rc
+    sc = four(dsc)
+    groups = ([four(dvor)] if flags.vorgp else []) + (
+        [four(ddiv)] if flags.divgp else []) + [uv, sc]
+    if flags.scders:
+        groups.append(four(spectral.ns_derivative(dsc, t.nsd)) * rc)
+    if flags.uvders:
+        groups.append(ew(uv))
+    if flags.scders:
+        groups.append(ew(sc))
+    F = torch.cat(groups)                          # (nout, 2, M, rows)
+    # cos/sin of 2 pi m j / nlon, the phase reduced exactly mod nlon
+    mj = np.outer(np.arange(res.M), np.arange(ll.nlon)) % ll.nlon
+    ph = torch.from_numpy(2 * np.pi * mj / ll.nlon)
+    w = torch.full((res.M,), 2.0, dtype=torch.float64)
+    w[0] = 1.0
+    re = F[:, 0] * w[None, :, None]
+    im = F[:, 1] * w[None, :, None]
+    im[:, 0] = 0.0
+    return (torch.einsum("fmr,mj->frj", re, torch.cos(ph))
+            - torch.einsum("fmr,mj->frj", im, torch.sin(ph)))
+
+
+def latlon_identity(res, ll, sp, flags, y) -> float:
+    """The adjoint identity of inv_trans_latlon in fp32 by autograd: x the
+    spectra sp, F x the lat-lon fields, F^T y the vector-Jacobian product
+    with the cotangent y."""
+    import ectrans_tpu_torch as ett
+
+    xs = [x.detach().clone().requires_grad_(True) for x in sp]
+    with torch.enable_grad():
+        fx = ett.inv_trans_latlon(res, ll, *xs, flags=flags)
+        fty = torch.autograd.grad(fx, xs, y)
+    return adjoint_identity(fx.detach(), y, [x.detach() for x in xs],
+                            list(fty))
+
+
+def truncate(spec: torch.Tensor, res, nmax: int) -> torch.Tensor:
+    """spec with every coefficient of degree n > nmax set to 0."""
+    keep = torch.as_tensor(res.packed_gather_n <= nmax, device=spec.device)
+    return spec * keep
+
+
+def truncated_errors(back, spec, res, nmax: int) -> tuple:
+    """The round trip of spectra truncated at n <= nmax: the largest error
+    on the coefficients n <= nmax and the largest coefficient above it (the
+    lat-lon analysis's periodic continuation past nlon / 2 aliases low
+    zonal modes onto m >= nlon / 2), both relative to the largest
+    |input|."""
+    low = torch.as_tensor(res.packed_gather_n <= nmax, device=spec.device)
+    scale = spec.abs().max()
+    return (((back - spec).abs() * low).max() / scale).item(), (
+        (back.abs() * ~low).max() / scale).item()
+
+
+def hold_k4_latlon(res, ll, dev: torch.device) -> tuple:
+    """K4 at the lat-lon nodes (the north pole's row included; its sectoral
+    seeds of m > 0 are 0) against its plain version: (max abs difference,
+    largest |value|, bit-identical)."""
+    from ectrans_tpu_torch import latlon
+    from ectrans_tpu_torch.ops import legendre_tablegen as tg
+
+    mu = latlon.latlon_nodes(ll)
+    inp = {k: torch.as_tensor(v, device=dev).contiguous()
+           for k, v in tg.recurrence_inputs(
+               res.nsmax, mu, np.full(mu.size, res.nsmax)).items()}
+    groups = latlon.latlon_groups(res)
+    got = tg.gen_groups(inp, groups, torch.float32)
+    want = [tg.gen_group_plain(inp, m0, m1, J, i0, torch.float32)
+            for m0, m1, i0, J in groups]
+    return compare("K4 lat-lon", got, want)
+
+
+def phase_latlon(dev: torch.device, counters: dict,
+                 name: str = "TCO1279", shape=LATLON) -> dict:
+    """Phase 9: ``SpectralTransform(name).inv_trans_latlon`` onto the
+    regular lat-lon grid with poles ``shape``, the bench's fields and
+    flags (phase 4's inputs), in fp32 on the card: its setup (the lat-lon
+    tables by K4, one launch) timed; (a) against the card's fp64 path;
+    (b) against a host fp64 evaluation by direct sums at sample rows; (c)
+    ``dir_trans_latlon`` fp32 against fp64, and the interpolation-limited
+    round trip of fields truncated at n <= 319 (printed, not gated); (d)
+    the adjoint identity by autograd.  No Legendre kernel may run (the
+    grouped einsums carry the sums); K4 is held against its plain version
+    on the lat-lon nodes.  Returns K4's launches."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import latlon
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    flags = ett.InvFlags(scders=True, uvders=True)
+    ll = ett.LatLonGrid(*shape)
+    legendre = ("K1", "K2", "K3", "K5", "K6", "K7", "K8", "K9", "K10")
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    st = ett.SpectralTransform(name)
+    st64 = ett.SpectralTransform(name, dtype=torch.float64)
+    res = st.res
+    latlon.latlon_tables(res, ll, torch.float32, dev)
+    res.device_tables(torch.float32, dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    sp = [x.to(dev) for x in bench_inputs(res.nspec2, res.nsmax)]
+    torch.cuda.reset_peak_memory_stats()
+    grid, t_first = first_call(lambda: st.inv_trans_latlon(ll, *sp,
+                                                           flags=flags))
+    launches = {k: counters[k].launches for k in ("K4",) + legendre}
+    check(launches["K4"] == 1 and not any(launches[k] for k in legendre),
+          f"the lat-lon path launched {launches}; expected K4 once (its "
+          "tables) and no Legendre or packing kernel")
+    nout = grid.shape[0]
+    check(tuple(grid.shape) == (26, *shape) and grid.device == dev
+          and bool(torch.isfinite(grid).all()),
+          f"lat-lon output {tuple(grid.shape)} on {grid.device}")
+    med, peak = median_peak(lambda: st.inv_trans_latlon(ll, *sp,
+                                                        flags=flags))
+    # (a) fp32 against the card's fp64 path on the same inputs
+    grid64 = st64.inv_trans_latlon(ll, *sp, flags=flags)
+    share_a = max(field_shares(grid, grid64, LATLON_GATE))
+    check(share_a <= 1.0, f"lat-lon fp32 vs fp64: {share_a:.3f} of 100 eps")
+    # (b) the host's direct sums at the sample rows
+    rows = sample_rows(shape[0])
+    t0 = time.perf_counter()
+    want = latlon_direct(res, ll, sp, flags, rows)
+    t_host = time.perf_counter() - t0
+    share_b = max(field_shares(grid[:, rows].cpu(), want, LATLON_GATE))
+    b64 = field_shares(grid64[:, rows].cpu(), want, 1.0)
+    worst64 = int(np.argmax(b64))
+    share_b64 = b64[worst64]
+    same64 = torch.equal(grid64, st64.inv_trans_latlon(ll, *sp, flags=flags))
+    check(share_b <= 1.0, f"lat-lon fp32 vs the host's direct sums: "
+                          f"{share_b:.3f} of 100 eps")
+    del want, grid64
+    # (c) the direct transform from the lat-lon grid
+    x_grid = bench_fields(grid)
+    out32, t_dir = first_call(lambda: st.dir_trans_latlon(ll, *x_grid))
+    out64 = st64.dir_trans_latlon(ll, *x_grid)
+    share_c = max(max(field_shares(a, b, LATLON_GATE))
+                  for a, b in zip(out32, out64))
+    check(share_c <= 1.0, f"dir_trans_latlon fp32 vs fp64: {share_c:.3f} "
+                          "of 100 eps")
+    del out32, out64
+    sc_t = truncate(sp[2], res, LATLON_TRUNC)
+    back = st.dir_trans_latlon(ll, scalars=st.inv_trans_latlon(
+        ll, spscalar=sc_t))[2]
+    trunc_err, alias = truncated_errors(back, sc_t, res, LATLON_TRUNC)
+    res.drop_cached("grouped_legendre")
+    # (d) the adjoint identity by autograd
+    gen = torch.Generator(device=dev).manual_seed(12)
+    y = torch.randn(grid.shape, generator=gen, device=dev)
+    del grid, x_grid
+    ident, t_adj = first_call(lambda: latlon_identity(res, ll, sp, flags, y))
+    check(ident <= ADJOINT_TOL, f"lat-lon adjoint identity {ident:.3e} over "
+                                f"2000 eps {ADJOINT_TOL:.3e}")
+    peak_all = torch.cuda.max_memory_allocated() / 2**30
+    k4 = counters["K4"].launches
+    k4_err, k4_scale, k4_same = hold_k4_latlon(res, ll, dev)
+    check(k4_err <= 1e-7 * k4_scale, f"K4 at the lat-lon nodes: "
+                                     f"{k4_err:.3e} from its plain version")
+    table_gib = sum(tensor_bytes([g.psym, g.pasym]) for g in
+                    latlon.latlon_tables(res, ll, torch.float32,
+                                         dev)[0].groups) / 2**30
+    print(f"phase 9 TCO1279 -> lat-lon {shape[0]} x {shape[1]} with poles "
+          f"({nout} fields, fp32): setup {t_setup:.2f} s (lat-lon "
+          f"tables {table_gib:.2f} GiB by K4); first call {t_first:.3f} s; "
+          f"median {med:.1f} ms (n 3); peak {peak:.2f} GiB; (a) vs the card's "
+          f"fp64 {share_a:.3f} of 100 eps; (b) vs host direct sums at rows "
+          f"{rows}: fp32 {share_b:.3f} of 100 eps, fp64 {share_b64:.2e} "
+          f"relative (field {worst64}; a second fp64 call bit-identical "
+          f"{same64}; host {t_host:.1f} s); (c) dir_trans_latlon fp32 vs "
+          f"fp64 {share_c:.3f} of 100 eps (first call {t_dir:.3f} s), round "
+          f"trip of fields truncated at n <= {LATLON_TRUNC}: {trunc_err:.3e} "
+          f"of their max on n <= {LATLON_TRUNC}, {alias:.3e} above it (the "
+          f"aliases of m >= {shape[1] // 2}; not gated); (d) adjoint identity {ident:.3e} "
+          f"({ident / ADJOINT_TOL:.4f} of 2000 eps, {t_adj:.2f} s); peak of "
+          f"the phase {peak_all:.2f} GiB; K4 launches {k4} (1 lat-lon table "
+          f"build a dtype, 16 for the Gaussian tables of each "
+          f"dir_trans_latlon dtype), at the lat-lon nodes {k4_err:.2e} from "
+          f"its plain version (bit-identical {k4_same}); no Legendre or "
+          f"packing kernel {launches}")
+    del y, sp
+    ett.trans_end()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 9 done in {time.perf_counter() - t_phase:.1f} s")
+    return {"K4": k4}
+
+
+def lam_inputs(res, nuv: int, nsc: int, seed: int = 0):
+    """Packed LAM spectra with the physical-field mask (purely real modes
+    where a conjugate pair degenerates: the m = 0 zonal-imaginary and the
+    n = 0 meridional-imaginary parts; tests/test_lam.py), vor/div without
+    their (0, 0) mode (it carries no wind), and a mean wind."""
+    rng = np.random.default_rng(seed)
+    pm, pn, pc = res.packed_m, res.packed_n, res.packed_c
+    kill = ((pm == 0) & (pc >= 2)) | ((pn == 0) & (pc % 2 == 1))
+
+    def packed(n):
+        x = rng.standard_normal((n, res.nspec2)).astype(np.float32)
+        x[:, kill] = 0.0
+        return x
+
+    vor, div, sc = packed(nuv), packed(nuv), packed(nsc)
+    vor[:, :4] = 0.0
+    div[:, :4] = 0.0
+    mean = rng.standard_normal((2, nuv)).astype(np.float32)
+    return [torch.from_numpy(x) for x in (vor, div, sc, mean[0], mean[1])]
+
+
+def lam_round_trip_shares(out, x, u, v) -> tuple:
+    """Check (a): the round trip's worst error as a share of 100 eps, for
+    vor, div and the scalars of each family's largest |value|, for the mean
+    wind of its wind field's (u's for meanu, v's for meanv): the mean wind
+    is the (0, 0) coefficient of that field, so fp32 carries it to eps of
+    the field, not of itself.  Also the mean wind's share of its own
+    largest |value| (printed)."""
+    spectra = max(max(field_shares(a[None], b[None], LATLON_GATE))
+                  for a, b in zip(out[:3], x[:3]))
+    wind = max(max(field_shares(a[None], b[None], LATLON_GATE, w[None]))
+               for a, b, w in zip(out[3:], x[3:], (u, v)))
+    own = max(max(field_shares(a[None], b[None], LATLON_GATE))
+              for a, b in zip(out[3:], x[3:]))
+    return max(spectra, wind), own
+
+
+def lam_mode_fields(grid, m: int, n: int) -> torch.Tensor:
+    """The closed forms of one (m, n) coefficient of value 1 in each of the
+    four components (RR, RI, IR, II): (3, 4, ny, nx) fp64 — the field, its
+    N-S and its E-W derivatives — with kx = m exwn, ky = n eywn, the phases
+    reduced exactly mod nx and ny."""
+    kx, ky = m * grid.exwn, n * grid.eywn
+    ax = 2 * np.pi * ((m * np.arange(grid.nx)) % grid.nx) / grid.nx
+    ay = 2 * np.pi * ((n * np.arange(grid.ny)) % grid.ny) / grid.ny
+    cx, sx = np.cos(ax)[None, :], np.sin(ax)[None, :]
+    cy, sy = np.cos(ay)[:, None], np.sin(ay)[:, None]
+    f = [4 * cy * cx, -4 * sy * cx, -4 * cy * sx, 4 * sy * sx]
+    dy = [-4 * ky * sy * cx, -4 * ky * cy * cx, 4 * ky * sy * sx,
+          4 * ky * cy * sx]
+    dx = [-4 * kx * cy * sx, 4 * kx * sy * sx, -4 * kx * cy * cx,
+          4 * kx * sy * cx]
+    return torch.from_numpy(np.stack([np.stack(f), np.stack(dy),
+                                      np.stack(dx)]))
+
+
+def lam_mode_share(lt, m: int, n: int) -> float:
+    """Check (b): one (m, n) mode of each component through the handle's
+    inverse with scders, against ``lam_mode_fields``: the worst error
+    relative to each field's largest |value|."""
+    res = lt.res
+    spec = torch.zeros(4, res.nspec2, dtype=torch.float64)
+    for c in range(4):
+        spec[c, int(res.nesm0[m]) + 4 * n + c] = 1.0
+    from ectrans_tpu_torch.lam import LamInvFlags
+
+    got = lt.inv_trans(spscalar=spec, flags=LamInvFlags(scders=True))
+    want = lam_mode_fields(res.grid, m, n).to(got.device)
+    return max(field_shares(got, want.reshape(12, *got.shape[1:]), 1.0))
+
+
+def smooth_ci_field(grid) -> torch.Tensor:
+    """A smooth (1, nyux, nxux) fp64 field on the C+I zone, not periodic."""
+    gy, gx = np.meshgrid(np.arange(grid.nyux), np.arange(grid.nxux),
+                         indexing="ij")
+    f = (np.sin(2 * np.pi * 3 * gx / grid.nx) * np.cos(2 * np.pi * 2 * gy
+                                                     / grid.ny)
+         + 0.5 * np.cos(gx / 97.0 + gy / 131.0) + 1e-3 * gx)
+    return torch.from_numpy(f[None])
+
+
+def biper_round_trip(res, field: torch.Tensor, dtype) -> tuple:
+    """biperiodicize("spline") of a C+I field, then dir_trans_lam and
+    inv_trans_lam of it: (extended field, round-trip field)."""
+    from ectrans_tpu_torch import lam
+
+    ext = lam.biperiodicize(field.to(dtype), res.grid, mode="spline")
+    spec = lam.dir_trans_lam(res, scalars=ext, dtype=dtype)[2]
+    return ext, lam.inv_trans_lam(res, spscalar=spec, dtype=dtype)
+
+
+def phase_lam(dev: torch.device, counters: dict, domain=LAM_DOMAIN,
+              nuv: int = LAM_NUV, nsc: int = LAM_NSC) -> None:
+    """Phase 10: ``LamTransform`` at the 1.3 km LAM domain in fp32 on the
+    card, 10 vor/div pairs and 10 scalars with the mean wind and every
+    flag (90 fields): (a) the round trip against the inputs; (b) one mode
+    of each component and its derivatives against the closed form, fp64;
+    (c) biperiodicize + round trip against the CPU's fp64; (d) both
+    adjoint identities; (e) the norms against the CPU's fp64.  No kernel
+    may run (the path has none)."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.lam import LamInvFlags, norms
+    from ectrans_tpu_torch.transform import num_inv_output_fields
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.launches = 0
+    flags = LamInvFlags(vorgp=True, divgp=True, scders=True, uvders=True)
+    t0 = time.perf_counter()
+    lt = ett.LamTransform(**domain)
+    res, g = lt.res, lt.grid
+    res.device_tables(torch.float32, dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    x = [v.to(dev) for v in lam_inputs(res, nuv, nsc)]
+    torch.cuda.reset_peak_memory_stats()
+    grid, t_first = first_call(lambda: lt.inv_trans(*x, flags=flags))
+    nout = num_inv_output_fields(nuv, nsc, flags)
+    check(tuple(grid.shape) == (nout, g.ny, g.nx)
+          and grid.device == dev and bool(torch.isfinite(grid).all()),
+          f"LAM output {tuple(grid.shape)} on {grid.device}")
+    med, peak = median_peak(lambda: lt.inv_trans(*x, flags=flags))
+    # (a) the round trip: u, v and the scalars back to the inputs
+    u = grid[2 * nuv: 3 * nuv]
+    v = grid[3 * nuv: 4 * nuv]
+    sc = grid[4 * nuv: 4 * nuv + nsc]
+    out, t_dir = first_call(lambda: lt.dir_trans(u, v, sc))
+    share_a, mean_own = lam_round_trip_shares(out, x, u, v)
+    check(share_a <= 1.0, f"LAM round trip: {share_a:.3f} of 100 eps")
+    dmed, _ = median_peak(lambda: lt.dir_trans(u, v, sc))
+    # (b) one mode of each component, fp64 on the card
+    lt64 = ett.LamTransform(**domain, dtype=torch.float64)
+    share_b = lam_mode_share(lt64, *LAM_MODE)
+    check(share_b <= LAM_MODE_TOL, f"LAM mode {LAM_MODE} vs closed form: "
+                                   f"{share_b:.3e}")
+    # (c) biperiodicize + round trip against the CPU's fp64
+    field = smooth_ci_field(g)
+    t0 = time.perf_counter()
+    ext64, back64 = biper_round_trip(res, field, torch.float64)
+    t_cpu = time.perf_counter() - t0
+    ext, back = biper_round_trip(res, field.to(dev), torch.float32)
+    share_c = max(max(field_shares(ext.cpu(), ext64, LATLON_GATE)),
+                  max(field_shares(back.cpu(), back64, LATLON_GATE)))
+    check(share_c <= 1.0, f"LAM biperiodicize + round trip, card fp32 vs "
+                          f"CPU fp64: {share_c:.3f} of 100 eps")
+    ci = (back64[0, : g.nyux, : g.nxux] - field[0]).abs().max().item()
+    del ext, back, ext64, back64
+    # (d) both adjoint identities, fp32
+    gen = torch.Generator(device=dev).manual_seed(12)
+    y = torch.randn(grid.shape, generator=gen, device=dev)
+    y_spec = [torch.randn(n, res.nspec2, generator=gen, device=dev)
+              for n in (nuv, nuv, nsc)] + [
+        torch.randn(nuv, generator=gen, device=dev) for _ in range(2)]
+    inv_ad, t_iad = first_call(lambda: lt.inv_trans_adj(y, nuv, nsc,
+                                                        flags=flags))
+    dir_ad, t_dad = first_call(lambda: lt.dir_trans_adj(
+        *y_spec, nfld_uv=nuv, nfld_sc=nsc))
+    r_inv = adjoint_identity(grid, y, x, list(inv_ad))
+    r_dir = adjoint_identity(list(out), y_spec, [u, v, sc], list(dir_ad))
+    check(r_inv <= ADJOINT_TOL and r_dir <= ADJOINT_TOL,
+          f"LAM adjoint identities: inverse {r_inv:.3e}, direct {r_dir:.3e}"
+          f" over 2000 eps {ADJOINT_TOL:.3e}")
+    del y, y_spec, inv_ad, dir_ad
+    # (e) the norms against the CPU's fp64
+    spec = torch.cat(x[:3])
+    sn = lt.specnorm(spec).cpu().double()
+    sn64 = norms.especnorm(res, spec.cpu().double())
+    sn_rel = ((sn - sn64).abs() / sn64).max().item()
+    g64 = grid.cpu().double()
+    worst, exact = 0.0, True
+    for full in (True, False):
+        ave, gmin, gmax = (t.cpu().double() for t in lt.gpnorm(
+            grid, full_domain=full))
+        ave64, min64, max64 = norms.egpnorm(res, g64, full_domain=full)
+        scale = norms.egpnorm(res, g64.abs(), ave_only=True,
+                              full_domain=full)[0]
+        worst = max(worst, ((ave - ave64).abs() / scale).max().item())
+        exact = exact and torch.equal(gmin, min64) and torch.equal(gmax,
+                                                                   max64)
+    del g64
+    check(sn_rel <= NORM_TOL and worst <= NORM_TOL and exact,
+          f"LAM norms vs the CPU fp64: especnorm {sn_rel:.3e}, egpnorm "
+          f"average {worst:.3e}, min/max exact {exact}")
+    peak_all = torch.cuda.max_memory_allocated() / 2**30
+    ran = {k: c.launches for k, c in counters.items() if c.launches}
+    check(not ran, f"the LAM path launched kernels: {ran}")
+    print(f"phase 10 LAM {g.nx} x {g.ny} (C+I {g.nxux} x {g.nyux}, dx "
+          f"{g.dx:g} m, truncation ({g.msmax}, {g.nsmax}), nspec2 "
+          f"{res.nspec2:,}; {nuv} vor/div pairs, {nsc} scalars, mean wind, "
+          f"every flag: {nout} fields, fp32): setup {t_setup:.2f} s; inverse "
+          f"first call {t_first:.3f} s, median {med:.1f} ms (n 3), peak "
+          f"{peak:.2f} GiB; direct first call {t_dir:.3f} s, median "
+          f"{dmed:.1f} ms; (a) round trip {share_a:.3f} of 100 eps (the mean "
+          f"wind of its wind field's max; of its own {mean_own:.3g}, not "
+          f"gated); (b) mode "
+          f"{LAM_MODE} of each component, fp64 vs closed form {share_b:.2e} "
+          f"(at most {LAM_MODE_TOL:g}); (c) biperiodicize + round trip, card "
+          f"fp32 vs CPU fp64 {share_c:.3f} of 100 eps (CPU {t_cpu:.1f} s; "
+          f"C+I error of the truncated round trip {ci:.2e}, not gated); (d) "
+          f"adjoint identities inverse {r_inv:.3e}, direct {r_dir:.3e} "
+          f"({max(r_inv, r_dir) / ADJOINT_TOL:.4f} of 2000 eps; first calls "
+          f"{t_iad:.2f} / {t_dad:.2f} s); (e) especnorm {sn_rel:.2e}, "
+          f"egpnorm average {worst:.2e} (full domain and C+I), min/max exact "
+          f"{exact}; peak of the phase {peak_all:.2f} GiB; no kernel "
+          "launched")
+    res.drop_cached()
+    print(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1592,6 +2087,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
+    t_run = time.perf_counter()
     phase_build()
     kern = phase_kernels(dev)
     ett.trans_end()      # phase 4 times a setup of its own
@@ -1608,6 +2104,10 @@ def main() -> int:
     ab_report(kern, dense, packed)
     launches.update(phase_roofline(dev, counters))
     phase_tco639(dev, counters)
+    launches["K4"] += phase_latlon(dev, counters)["K4"]
+    phase_lam(dev, counters)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f}"
+          " s")
     print(json.dumps({"kernels": [
         dict(KERNELS[k], launches=launches[k],
              **{f: kern[k][f] for f in ("max_abs_err", "ms", "plain_ms",

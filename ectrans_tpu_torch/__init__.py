@@ -16,6 +16,12 @@ The handle runs on a CUDA card unless it is given ``device="cpu"``:
     st = ett.SpectralTransform("TCO1279")
     grid = st.inv_trans(spscalar=sc)
     _, _, sc_ad = st.inv_trans_adj(grid, 0, sc.shape[0])
+    ll = st.inv_trans_latlon(ett.LatLonGrid(721, 1440), spscalar=sc)
+
+and so does the limited-area handle (``ectrans_tpu_torch.lam``):
+
+    lam = ett.LamTransform(1536, 1280, nxux=1440, nyux=1200)
+    grid = lam.inv_trans(spscalar=lam_sc)
 
 This package imports neither ``jax`` nor ``ectrans_tpu``.
 """
@@ -23,6 +29,8 @@ This package imports neither ``jax`` nor ``ectrans_tpu``.
 from .adjoint import dir_trans_adj, inv_trans_adj
 from .api import SpectralTransform, vordiv_to_uv
 from .grids import GridSpec, make_grid
+from .lam import LamTransform
+from .latlon import LatLonGrid, dir_trans_latlon, inv_trans_latlon
 from .norms import gpnorm, gpnorm_ad, gpnorm_tl, specnorm
 from .resolution import Resolution, get_current, setup, trans_end
 from .transform import InvFlags, dir_trans, inv_trans, num_inv_output_fields
@@ -32,16 +40,20 @@ __version__ = "0.1.0"
 __all__ = [
     "GridSpec",
     "InvFlags",
+    "LamTransform",
+    "LatLonGrid",
     "Resolution",
     "SpectralTransform",
     "dir_trans",
     "dir_trans_adj",
+    "dir_trans_latlon",
     "get_current",
     "gpnorm",
     "gpnorm_ad",
     "gpnorm_tl",
     "inv_trans",
     "inv_trans_adj",
+    "inv_trans_latlon",
     "make_grid",
     "num_inv_output_fields",
     "setup",

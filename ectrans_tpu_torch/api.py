@@ -12,12 +12,12 @@ package, covering the reference's public API surface (SURVEY.md §2.1):
   TRANS_PNM                 -> .legendre_polynomials(m)
   DIST_GRID/GATH_GRID/...   -> .dist_grid()/.gath_grid()/.dist_spec()/.gath_spec()
   TRANS_RELEASE             -> .release() (drops the cached tables)
+  LDLL lat-lon output       -> .inv_trans_latlon() / .dir_trans_latlon()
 
 A handle runs on one device, a CUDA card unless it is given
 ``device="cpu"``; it moves its array arguments there.  Without a card a
 CUDA handle refuses to start: it never falls back to the CPU.  Not ported
-yet: the distributed transforms (``mesh=``, ROADMAP.md queue A item 8) and
-the lat-lon output (``*_latlon``, item 6).
+yet: the distributed transforms (``mesh=``, ROADMAP.md queue A item 8).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from . import adjoint, norms, transform
+from . import adjoint, latlon, norms, transform
 from .ops import layout, spectral
 from .resolution import (EARTH_RADIUS, Resolution, canonical_device,
                          check_dtype, setup)
@@ -218,14 +218,18 @@ class SpectralTransform:
 
     def inv_trans_latlon(self, ll, spvor=None, spdiv=None, spscalar=None,
                          flags: InvFlags = InvFlags()):
-        raise NotImplementedError(
-            "inverse transform onto a lat-lon grid: latlon.py is not ported "
-            "yet (ROADMAP.md, queue A item 6)")
+        """Inverse transform onto a regular lat-lon grid (LDLL mode, exact
+        spectral evaluation; ``latlon.inv_trans_latlon``)."""
+        return latlon.inv_trans_latlon(
+            self.res, ll, self._put(spvor), self._put(spdiv),
+            self._put(spscalar), flags=flags, dtype=self.dtype)
 
     def dir_trans_latlon(self, ll, u=None, v=None, scalars=None):
-        raise NotImplementedError(
-            "direct transform from a lat-lon grid: latlon.py is not ported "
-            "yet (ROADMAP.md, queue A item 6)")
+        """Direct transform from a regular lat-lon grid (direct LDLL mode,
+        interpolation-limited; ``latlon.dir_trans_latlon``)."""
+        return latlon.dir_trans_latlon(
+            self.res, ll, self._put(u), self._put(v), self._put(scalars),
+            dtype=self.dtype)
 
     # -- norms / utilities ----------------------------------------------
     def specnorm(self, spec, met=None):

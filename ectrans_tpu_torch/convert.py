@@ -12,6 +12,13 @@ the same arrays), so that both packages transform with identical tables:
 ``full_legendre`` (one (gm, J, ig) array per m-group) and becomes the host
 table source.  The derived index maps are rebuilt, and ``nasm0`` is checked
 against them.
+
+``lam_resolution_from_numpy`` does the same for a LAM resolution: the
+fields of a ``LamGrid`` (nx, ny, nxux, nyux, msmax, nsmax, dx, dy) and,
+when given, the packed maps of the other implementation (``packed_c``,
+``packed_m``, ``packed_n``, ``dense_gather``, ``nesm0``), which must equal
+the ones rebuilt here.  A lat-lon output grid crosses as its three fields:
+``LatLonGrid(nlat, nlon, include_poles)``.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 
 from .grids import make_grid
+from .lam.geometry import LamGrid
+from .lam.resolution import LamResolution, setup_lam
 from .resolution import EARTH_RADIUS, Resolution, resolution_from_arrays
 
 
@@ -40,4 +49,21 @@ def resolution_from_numpy(d: dict) -> Resolution:
                          f"T{grid.nsmax}")
     if d.get("pn") is not None:
         res.use_host_tables(d["pn"])
+    return res
+
+
+LAM_GRID_FIELDS = ("nx", "ny", "nxux", "nyux", "msmax", "nsmax", "dx", "dy")
+LAM_MAPS = ("packed_c", "packed_m", "packed_n", "dense_gather", "nesm0")
+
+
+def lam_resolution_from_numpy(d: dict) -> LamResolution:
+    """A port LamResolution from a LAM grid's fields; the packed maps in
+    ``d`` (any of ``LAM_MAPS``) are checked against the rebuilt ones."""
+    grid = LamGrid(**{k: (float(d[k]) if k in ("dx", "dy") else int(d[k]))
+                      for k in LAM_GRID_FIELDS if k in d})
+    res = setup_lam(grid)
+    for k in LAM_MAPS:
+        if k in d and not np.array_equal(np.asarray(d[k]), getattr(res, k)):
+            raise ValueError(f"{k} does not match the packed layout of "
+                             f"{grid}")
     return res

@@ -35,10 +35,18 @@ class _PackedToDense(torch.autograd.Function):
         return out[:, : ctx.nspec2], None
 
 
+def gather_packed(spec: torch.Tensor, gather: torch.Tensor) -> torch.Tensor:
+    """(nfld, nspec2) -> (nfld, *gather.shape): spec's values at the
+    positions ``gather`` (nspec2 for the appended zero slot), each packed
+    value at one position; the transpose is a scatter (``_PackedToDense``).
+    Shared by the global and the LAM packed layouts."""
+    return _PackedToDense.apply(spec, gather)
+
+
 def packed_to_dense(spec: torch.Tensor, tables) -> torch.Tensor:
     """(nfld, nspec2) -> (nfld, 2, M, NP); exact zeros outside
     m <= n <= nsmax (those entries gather the appended zero slot)."""
-    return _PackedToDense.apply(spec, tables.dense_gather)
+    return gather_packed(spec, tables.dense_gather)
 
 
 def dense_to_packed(dense: torch.Tensor, res) -> torch.Tensor:

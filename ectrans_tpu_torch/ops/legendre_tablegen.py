@@ -42,14 +42,21 @@ _OUT_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
 def host_inputs(res) -> dict:
-    """fp64 recurrence inputs: coefficients A, B (M, nsmax+4), seed mantissas
-    (M, ndgnh) in [0.5, 1) (0 where m > nmen(lat)), int32 seed exponents,
-    and the NH nodes mu (ndgnh,)."""
-    nsmax, ndgnh = res.nsmax, res.ndgnh
+    """fp64 recurrence inputs of a Resolution's NH Gaussian latitudes
+    (``recurrence_inputs``)."""
+    return recurrence_inputs(res.nsmax, res.mu[: res.ndgnh],
+                             res.nmen[: res.ndgnh])
+
+
+def recurrence_inputs(nsmax: int, mu, nmen) -> dict:
+    """fp64 recurrence inputs at the nodes mu (nlat,): coefficients A, B
+    (M, nsmax+4), seed mantissas (M, nlat) in [0.5, 1) (0 where
+    m > nmen(lat), and where the seed is 0: the sectoral seeds of m > 0 at
+    a pole), int32 seed exponents, and the nodes mu."""
     M = nsmax + 1
     nmax = nsmax + 1
-    mu = np.array(res.mu[:ndgnh], np.float64)
-    nmen = np.asarray(res.nmen[:ndgnh])
+    mu = np.array(mu, np.float64)
+    nmen = np.asarray(nmen)
 
     smant64, sexp64 = sectoral_seeds(nsmax, mu)
     mant, e2 = np.frexp(smant64)

@@ -318,10 +318,18 @@ def test_not_ported_options_raise(handles):
         ett.SpectralTransform("O48", 47, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         st._inquire_distributed()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        st.inv_trans_latlon(None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        st.dir_trans_latlon(None)
+    # the lat-lon methods are ported: the handle's outputs are the
+    # function API's
+    ll = ett.LatLonGrid(19, 36)
+    sp = [packed(st.res, n, seed) for n, seed in ((1, 17), (1, 18), (2, 19))]
+    grid = st.inv_trans_latlon(ll, *sp, flags=ett.InvFlags(**BENCH))
+    assert torch.equal(grid, ett.inv_trans_latlon(
+        st.res, ll, *map(torch.from_numpy, sp),
+        flags=ett.InvFlags(**BENCH), dtype=st.dtype))
+    fields = [grid[:1], grid[1:2], grid[2:4]]
+    assert all(torch.equal(a, b) for a, b in zip(
+        st.dir_trans_latlon(ll, *fields),
+        ett.dir_trans_latlon(st.res, ll, *fields, dtype=st.dtype)))
     sc = packed(st.res, 1, 15)
     with pytest.raises(ValueError, match="kvset"):
         st.inv_trans(spscalar=sc, kvsetsc=[1])

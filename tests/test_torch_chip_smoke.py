@@ -739,3 +739,87 @@ def test_phase8_timing_helpers(smoke, cpu_card, monkeypatch):
     assert result == "out" and t >= 0 and calls == [1]
     med, peak = smoke.median_peak(lambda: calls.append(1), 3)
     assert len(calls) == 4 and med >= 0 and peak == 2.0
+
+
+def test_phase9_helpers(smoke):
+    """Phase 9's helpers on the CPU at T47 onto a 37 x 36 lat-lon grid
+    with poles (every row folds): the sample rows, the host's direct sums
+    against inv_trans_latlon in fp64, the field shares, the truncated
+    round trip's split, the adjoint identity, and K4's hold at the lat-lon
+    nodes; each flags a wrong result."""
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup("F24", 47)
+    ll = ett.LatLonGrid(37, 36)
+    rows = smoke.sample_rows(ll.nlat)
+    assert rows[:2] == [0, 1] and rows[-2:] == [35, 36] and 18 in rows
+    assert len(rows) >= 8
+    assert smoke.sample_rows(721) == [0, 1, 90, 180, 359, 360, 361, 540,
+                                      719, 720]
+    sp = [x.double() for x in smoke.bench_inputs(res.nspec2, res.nsmax)]
+    flags = ett.InvFlags(scders=True, uvders=True)
+    grid = ett.inv_trans_latlon(res, ll, *sp, flags=flags,
+                                dtype=torch.float64)
+    want = smoke.latlon_direct(res, ll, sp, flags, rows)
+    assert want.shape == (26, len(rows), 36)
+    assert max(smoke.field_shares(grid[:, rows], want, 1.0)) < 1e-12
+    bad = grid[:, rows].clone()
+    bad[20, 3, 5] += 1e-4 * want[20].abs().max()
+    assert max(smoke.field_shares(bad, want, smoke.LATLON_GATE)) > 1.0
+    flags_all = ett.InvFlags(vorgp=True, divgp=True, scders=True,
+                             uvders=True)
+    g_all = ett.inv_trans_latlon(res, ll, *sp, flags=flags_all,
+                                 dtype=torch.float64)
+    w_all = smoke.latlon_direct(res, ll, sp, flags_all, rows)
+    assert max(smoke.field_shares(g_all[:, rows], w_all, 1.0)) < 1e-12
+
+    sc_t = smoke.truncate(sp[2], res, 20)
+    assert not sc_t[:, torch.from_numpy(res.packed_gather_n > 20)].any()
+    low, high = smoke.truncated_errors(sc_t + 1e-3 * (sp[2] - sc_t), sc_t,
+                                       res, 20)
+    assert low == 0.0 and 0 < high <= 1e-3
+
+    y = torch.randn(grid.shape, generator=torch.Generator().manual_seed(1))
+    assert smoke.latlon_identity(res, ll, [x.float() for x in sp], flags,
+                                 y.float()) < smoke.ADJOINT_TOL
+    err, scale, same = smoke.hold_k4_latlon(res, ll, torch.device("cpu"))
+    assert err == 0.0 and same and scale > 1.0
+
+
+def test_phase10_helpers(smoke):
+    """Phase 10's helpers on the CPU at 64 x 48 (C+I 53 x 37, 1.3 km): the
+    inputs' physical-field mask, the closed-form modes against the handle
+    in fp64, the round-trip shares (the mean wind against its wind field),
+    and the biperiodicization round trip in fp32 against fp64."""
+    import ectrans_tpu_torch as ett
+
+    lt = ett.LamTransform(64, 48, nxux=53, nyux=37, dx=1300.0, dy=1300.0,
+                          dtype=torch.float64, device="cpu")
+    res = lt.res
+    vor, div, sc, mu, mv = smoke.lam_inputs(res, 2, 3)
+    assert vor.shape == (2, res.nspec2) and sc.shape == (3, res.nspec2)
+    assert mu.shape == mv.shape == (2,) and vor.dtype == torch.float32
+    kill = torch.from_numpy(((res.packed_m == 0) & (res.packed_c >= 2))
+                            | ((res.packed_n == 0) & (res.packed_c % 2 == 1)))
+    assert not any(x[:, kill].any() for x in (vor, div, sc))
+    assert not vor[:, :4].any() and not div[:, :4].any()
+    assert smoke.lam_mode_share(lt, 5, 3) < 1e-12
+    assert smoke.lam_mode_fields(res.grid, 5, 3).shape == (3, 4, 48, 64)
+
+    x = [vor, div, sc, mu, mv]
+    grid = ett.lam.inv_trans_lam(res, *x)
+    u, v = grid[:2], grid[2:4]
+    out = ett.lam.dir_trans_lam(res, u, v, grid[4:7])
+    share, own = smoke.lam_round_trip_shares(out, x, u, v)
+    assert share < 0.1 and own > share
+    wrong = list(out)
+    wrong[3] = out[3] + 1e-3 * u.abs().max()
+    assert smoke.lam_round_trip_shares(wrong, x, u, v)[0] > 1.0
+
+    field = smoke.smooth_ci_field(res.grid)
+    assert field.shape == (1, 37, 53) and field.dtype == torch.float64
+    ext64, back64 = smoke.biper_round_trip(res, field, torch.float64)
+    ext, back = smoke.biper_round_trip(res, field, torch.float32)
+    assert ext.dtype == back.dtype == torch.float32
+    assert torch.equal(ext64[:, :37, :53], field)
+    assert max(smoke.field_shares(back, back64, smoke.LATLON_GATE)) < 1.0

@@ -15,9 +15,9 @@ and K6's (test_torch_k5_sums.py), K9/K10 5e-6 (fp32 sums of exact bf16
 products) and within 1.5x the error of the template K9's and K10's order
 (test_torch_k9_sums.py); K4 1e-7
 of the table scale one group a launch, and bit-exact on the all-groups
-launch; K3 and K11 bit-exact; K12 1e-6 relative; the slice as
-in test_torch_transform.py (fp64 1e-10 relative, fp32 2e-5 + 1e-5
-relative).
+launch; K3 and K11 bit-exact; K12 1e-6 relative; the slice, the
+lat-lon output and the LAM transforms as in test_torch_transform.py (fp64
+1e-10 relative, fp32 2e-5 + 1e-5 relative).
 """
 
 import numpy as np
@@ -861,3 +861,94 @@ def test_wrappers_reject_bad_operands(dev):
         lp.group_dir_planes(torch.zeros(2, 8, 5, device=dev,
                                         dtype=torch.bfloat16), planes * 2, 2,
                             2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("poles", [True, False])
+def test_latlon_on_card_matches_cpu(dev, dtype, poles):
+    """inv_trans_latlon (every row folds: T47 onto 36 longitudes) and
+    dir_trans_latlon on the card against the CPU in fp64 (the slice's
+    tolerance): the lat-lon tables by K4 (one launch a build, pole rows
+    included) against the host recurrence, no Legendre kernel."""
+    from ectrans_tpu_torch import latlon
+
+    res = ett.setup("O48", 47)
+    ll = ett.LatLonGrid(37, 36, poles)
+    sp = [packed(res, n, seed) for n, seed in ((2, 6), (2, 7), (3, 8))]
+    flags = ett.InvFlags(vorgp=True, divgp=True, scders=True, uvders=True)
+    want = ett.inv_trans_latlon(res, ll, *map(torch.from_numpy, sp),
+                                flags=flags, dtype=torch.float64)
+    tg.gen_groups.launches = 0
+    ld.group_inv_dense.launches = 0
+    got = ett.inv_trans_latlon(res, ll, *(torch.as_tensor(x, device=dev)
+                                          for x in sp),
+                               flags=flags, dtype=dtype)
+    assert tg.gen_groups.launches == 1 and ld.group_inv_dense.launches == 0
+    atol, rtol = SLICE_TOL[dtype]
+    assert got.device == dev and got.dtype == dtype
+    assert (got.cpu().double() - want).abs().max() <= atol + rtol * (
+        want.abs().max())
+    gl, racthe = latlon.latlon_tables(res, ll, torch.float64, dev)
+    hgl, hrac = latlon.latlon_tables(res, ll, torch.float64, "cpu")
+    for g, h in zip(gl.groups, hgl.groups):
+        assert (g.psym.cpu() - h.psym).abs().max() <= 1e-12
+        assert (g.pasym.cpu() - h.pasym).abs().max() <= 1e-12
+    assert torch.equal(racthe.cpu(), hrac)
+    fields = [want[4:6], want[6:8], want[8:11]]
+    back = ett.dir_trans_latlon(res, ll, *(f.to(dev, dtype) for f in fields),
+                                dtype=dtype)
+    ref = ett.dir_trans_latlon(res, ll, *fields, dtype=torch.float64)
+    for a, b in zip(back, ref):
+        assert a.device == dev
+        err = (a.cpu().double() - b).abs().max().item()
+        assert err <= atol + rtol * b.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lam_on_card_matches_cpu(dev, dtype):
+    """inv_trans_lam, dir_trans_lam, both adjoints and biperiodicize on the
+    card against the CPU in fp64 (the slice's tolerance); no kernel."""
+    from ectrans_tpu_torch import lam
+
+    res = lam.setup_lam(lam.make_lam_grid(64, 48, nxux=53, nyux=37,
+                                          dx=1300.0, dy=1300.0))
+    rng = np.random.default_rng(9)
+    sp = [rng.standard_normal((n, res.nspec2)) for n in (2, 2, 3)]
+    sp += [rng.standard_normal(2), rng.standard_normal(2)]
+    flags = lam.LamInvFlags(vorgp=True, divgp=True, scders=True, uvders=True)
+    counters = [tg.gen_groups, ld.group_inv_dense, ld.group_dir_dense]
+    for c in counters:
+        c.launches = 0
+    want = lam.inv_trans_lam(res, *map(torch.from_numpy, sp), flags=flags,
+                             dtype=torch.float64)
+    got = lam.inv_trans_lam(res, *(torch.as_tensor(x, device=dev)
+                                   for x in sp), flags=flags, dtype=dtype)
+    atol, rtol = SLICE_TOL[dtype]
+
+    def close(a, b, scale=None):
+        assert a.device == dev and a.dtype == dtype
+        err = (a.cpu().double() - b).abs().max().item()
+        scale = b.abs().max().item() if scale is None else scale
+        assert err <= atol + rtol * scale
+
+    close(got, want)
+    fields = [want[4:6], want[6:8], want[8:11]]
+    out = lam.dir_trans_lam(res, *(f.to(dev, dtype) for f in fields),
+                            dtype=dtype)
+    ref = lam.dir_trans_lam(res, *fields, dtype=torch.float64)
+    for a, b in zip(out[:3], ref[:3]):
+        close(a, b)
+    # the mean wind is its wind field's (0, 0) coefficient: as exact as
+    # that field (~4e5 here, at 1.3 km), not as its own size
+    for a, b, w in zip(out[3:], ref[3:], fields[:2]):
+        close(a, b, w.abs().max().item())
+    y = torch.from_numpy(rng.standard_normal(tuple(want.shape)))
+    for a, b in zip(lam.inv_trans_lam_adj(res, y.to(dev), 2, 3, flags=flags,
+                                          dtype=dtype),
+                    lam.inv_trans_lam_adj(res, y, 2, 3, flags=flags,
+                                          dtype=torch.float64)):
+        close(a, b)
+    f = torch.from_numpy(rng.standard_normal((2, 37, 53)))
+    close(lam.biperiodicize(f.to(dev, dtype), res.grid),
+          lam.biperiodicize(f, res.grid))
+    assert not any(c.launches for c in counters)

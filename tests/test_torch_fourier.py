@@ -111,10 +111,20 @@ def test_ragged_rows_and_truncation():
 
 def test_nyquist_rows_refused():
     """Rows with 2 nmen >= NLOEN (never made by the grid rules; lat-lon
-    output grids have them) are refused: irfft reads the Nyquist bin."""
+    output grids have them) are no longer refused: the Nyquist mode counts
+    twice (2 Re(.)), as in the direct DFT and ectrans_tpu's chirp-z, where
+    irfft would read it once.  (More cases, folding past the Nyquist bin,
+    in test_torch_latlon.py.)"""
     ref = ett.setup("F24", 47)
     grid = GridSpec("custom", 47, 48, (94,) * 48, reduced=False)
     res = resolution_from_arrays(grid, ref.radius, ref.mu, ref.w,
                                  np.full(48, 47), ref.ndglu, ref.eps)
-    with pytest.raises(ValueError, match="Nyquist"):
-        fourier.synthesis(torch.zeros(1, 2, res.M, res.ndgl), res)
+    four = _random_fourier(res, 2, seed=4)
+    got = fourier.synthesis(torch.from_numpy(four), res).numpy()
+    want = _dft_synthesis(four, res)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    nyq = np.zeros_like(four)
+    nyq[:, 0, 47] = 1.0
+    out = fourier.synthesis(torch.from_numpy(nyq), res).numpy()
+    assert np.abs(out[0, 0, :94] - 2 * np.cos(np.pi * np.arange(94))).max() \
+        < 1e-13
