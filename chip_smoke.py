@@ -115,7 +115,7 @@ from phase 2 (the same call), and the two round trips' gate ratios, medians
 and launch counts from phases 4 and 5.  Phase 2 ends with trans_end, so
 that phase 4 times a setup of its own.
 
-After phase 7, two phases at full width:
+After phase 7, three phases at full width:
 
 9. the lat-lon output at TCO1279 onto the 0.25 degree grid with poles (721 x
    1440, ECMWF's open-data grid; every row folds modes, 2 * 1279 >= 1440):
@@ -145,9 +145,31 @@ After phase 7, two phases at full width:
    identities, 2000 eps; (e) the norms against the CPU's fp64 (as 8d); no
    kernel may run.
 
+11. the distributed transforms (``parallel/``, ``lam/sharded.py``) on a
+   (w, v) mesh of 4 ranks, all on the card, spawned with
+   ``torch.multiprocessing`` and joined within their own limit, in one gloo
+   group (NCCL refuses two ranks on one device; gloo stages its collectives
+   through the host, so the phase's times are a check's, not distributed
+   performance); each rank makes its inputs from phase 4's seed and takes
+   its shard (``dist_spec``/``dist_grid``): (a) the bench round trip at
+   TCO1279 on (2, 2), fp32 "dense", at most 0.65 of the 100 eps gate and
+   within 100 eps of each family's max of phase 4's grid and spectra, K1
+   and K2 16 times a rank, K3 and K4 once (first call, median of 3, peak
+   per rank, MiB each collective sends); (e) its handle's
+   ``inv_trans_latlon`` onto 721 x 1440 against phase 9's output (100 eps
+   of each field's max; K4 once a rank); (b) T159 fp64 on (1, 1), (2, 1),
+   (1, 2), (2, 2), (4, 1), (1, 4) (the smaller meshes on subgroups), each
+   within 1e-12 of the single device, every pair within 1e-13; (c) the
+   same meshes in fp32 "dense" (and "bf16" on (2, 2)) within 100 eps of
+   each family's max of the single device's tier, K1-K3 on every rank;
+   (d) kvsetuv/kvsetsc and npromatr=4 packets on (1, 2) within 1e-12 of
+   the plain mesh call; (f) the LAM of phase 10 on (2, 2), both
+   directions against phase 10's outputs at 100 eps, no kernel.
+
 Each prints its times, peak memory and seconds.  Then one JSON line with the
-kernels (K1-K4's launches: phase 4's and phase 8's (a) and (b), and K4's of
-phase 9), and last the line
+kernels (K1-K4's launches: phase 4's and phase 8's (a) and (b), K4's of
+phase 9, and phase 11's (a) and (e) summed over its ranks), and last the
+line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 2 before doing anything.  TF32 is off for every
 matmul and convolution (the plain Legendre versions use torch.bmm).
@@ -1761,7 +1783,8 @@ def phase_latlon(dev: torch.device, counters: dict,
     round trip of fields truncated at n <= 319 (printed, not gated); (d)
     the adjoint identity by autograd.  No Legendre kernel may run (the
     grouped einsums carry the sums); K4 is held against its plain version
-    on the lat-lon nodes.  Returns K4's launches."""
+    on the lat-lon nodes.  Returns K4's launches and the fp32 lat-lon
+    grid (on the host)."""
     import ectrans_tpu_torch as ett
     from ectrans_tpu_torch import latlon
 
@@ -1829,6 +1852,7 @@ def phase_latlon(dev: torch.device, counters: dict,
     # (d) the adjoint identity by autograd
     gen = torch.Generator(device=dev).manual_seed(12)
     y = torch.randn(grid.shape, generator=gen, device=dev)
+    grid_host = grid.cpu()       # phase 11 holds its mesh to it
     del grid, x_grid
     ident, t_adj = first_call(lambda: latlon_identity(res, ll, sp, flags, y))
     check(ident <= ADJOINT_TOL, f"lat-lon adjoint identity {ident:.3e} over "
@@ -1864,7 +1888,7 @@ def phase_latlon(dev: torch.device, counters: dict,
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 9 done in {time.perf_counter() - t_phase:.1f} s")
-    return {"K4": k4}
+    return {"K4": k4, "grid": grid_host}
 
 
 def lam_inputs(res, nuv: int, nsc: int, seed: int = 0):
@@ -1959,14 +1983,15 @@ def biper_round_trip(res, field: torch.Tensor, dtype) -> tuple:
 
 
 def phase_lam(dev: torch.device, counters: dict, domain=LAM_DOMAIN,
-              nuv: int = LAM_NUV, nsc: int = LAM_NSC) -> None:
+              nuv: int = LAM_NUV, nsc: int = LAM_NSC) -> dict:
     """Phase 10: ``LamTransform`` at the 1.3 km LAM domain in fp32 on the
     card, 10 vor/div pairs and 10 scalars with the mean wind and every
     flag (90 fields): (a) the round trip against the inputs; (b) one mode
     of each component and its derivatives against the closed form, fp64;
     (c) biperiodicize + round trip against the CPU's fp64; (d) both
     adjoint identities; (e) the norms against the CPU's fp64.  No kernel
-    may run (the path has none)."""
+    may run (the path has none).  Returns the inverse grid and the direct
+    outputs of (a) (on the host)."""
     import ectrans_tpu_torch as ett
     from ectrans_tpu_torch.lam import LamInvFlags, norms
     from ectrans_tpu_torch.transform import num_inv_output_fields
@@ -2074,8 +2099,607 @@ def phase_lam(dev: torch.device, counters: dict, domain=LAM_DOMAIN,
           f"egpnorm average {worst:.2e} (full domain and C+I), min/max exact "
           f"{exact}; peak of the phase {peak_all:.2f} GiB; no kernel "
           "launched")
+    outputs = dict(grid=grid.cpu(), spec=[o.cpu() for o in out])
+    del grid, out
     res.drop_cached()
     print(f"phase 10 done in {time.perf_counter() - t_phase:.1f} s")
+    return outputs
+
+
+# -- phase 11: the distributed transforms on four ranks sharing the card ------
+
+MESH_WORLD = 4               # ranks, all on cuda:0, in one gloo group
+MESH_SHAPES = ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (1, 4))
+MESH_LIMIT = 480             # s: the world's own limit, joined with it
+MESH_COLLECTIVE_LIMIT = 300  # s: a collective that waits longer raises
+MESH_FP64_TOL = 1e-12        # each mesh against the single-device fp64
+MESH_PAIR_TOL = 1e-13        # every pair of meshes (tests/test_sharded.py)
+MESH_GATE = 100 * float(np.finfo(np.float32).eps)
+MESH_SMALL = ("O160", 159)   # rows (b)-(d): T159
+MESH_KVSET = ([1, 0], [1, 0, 0, 1, 1, 0])    # row (d): kvsetuv, kvsetsc
+MESH_NPROMATR = 4
+# what the ranks run: the bench grid of (a) and (e), the lat-lon grid of
+# (e), the grid of (b)-(d), the LAM domain of (f) and the device (a CPU
+# rehearsal passes small ones and "cpu")
+MESH_CONFIG = dict(bench="TCO1279", latlon=LATLON, small=MESH_SMALL,
+                   lam=LAM_DOMAIN, device="cuda")
+# the rows of phase 11: key, what it runs, on which meshes
+MESH_ROWS = (
+    ("a", "TCO1279 bench round trip, fp32 dense, vs phase 4", ((2, 2),)),
+    ("e", "TCO1279 -> lat-lon 721 x 1440, vs phase 9", ((2, 2),)),
+    ("b", "T159 decomposition invariance, fp64", MESH_SHAPES),
+    ("c", "T159 fp32 dense (and bf16 on 2 x 2) vs single device",
+     MESH_SHAPES),
+    ("d", "T159 kvset and npromatr packets, fp64", ((1, 2),)),
+    ("f", "LAM 1.3 km, both directions, vs phase 10", ((2, 2),)),
+)
+
+
+def mesh_rows() -> tuple:
+    """Phase 11's rows in the order the ranks run them (the TCO1279 handle
+    of (a) serves (e))."""
+    return MESH_ROWS
+
+
+def family_stats(got, want, sizes) -> list:
+    """Per family of consecutive leading-axis fields (``sizes``): [max
+    |got - want|, max |want|, bit-identical] on this rank's shard."""
+    out, i = [], 0
+    for n in sizes:
+        a = torch.as_tensor(got[i: i + n]).double().cpu()
+        b = torch.from_numpy(np.array(want[i: i + n])).double()
+        d = (a - b).abs().max().item() if a.numel() else 0.0
+        s = b.abs().max().item() if b.numel() else 0.0
+        out.append([d, s, bool(torch.equal(a, b))])
+        i += n
+    return out
+
+
+def merge_families(per_rank: list) -> list:
+    """The ranks' ``family_stats`` of one comparison combined: the largest
+    difference and the largest |value| over the ranks, and whether every
+    shard was bit-identical."""
+    return [[max(r[k][0] for r in per_rank), max(r[k][1] for r in per_rank),
+             all(r[k][2] for r in per_rank)]
+            for k in range(len(per_rank[0]))]
+
+
+def worst_share(merged: list, gate: float) -> float:
+    """The worst family's difference as a share of gate times its largest
+    |value|."""
+    return max(d / (gate * max(s, np.finfo(np.float64).tiny))
+               for d, s, _ in merged)
+
+
+def merge_launches(launches: dict, per_rank: list) -> dict:
+    """Add the ranks' launch counts of the main path to the kernels line's
+    ``launches``; returns the per-kernel totals added."""
+    added = {}
+    for counts in per_rank:
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+            added[k] = added.get(k, 0) + n
+    return added
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev) -> float:
+    """Peak GiB allocated on dev since the last reset (0 on the CPU)."""
+    return (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0)
+
+
+def _timed(dev, fn):
+    """(fn(), seconds) on dev."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _counts(counters: dict, keys=("K1", "K2", "K3", "K4")) -> dict:
+    return {k: counters[k].launches for k in keys}
+
+
+def _zero(counters: dict) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def mesh_round_trip(st, loc, nuv: int, nsc: int, flags):
+    """inv_trans of this rank's spectra, then dir_trans of the u, v and
+    scalars of its grid block."""
+    grid = st.inv_trans(*loc, flags=flags)
+    return grid, st.dir_trans(grid[:nuv], grid[nuv: 2 * nuv],
+                              grid[2 * nuv: 2 * nuv + nsc])
+
+
+def mesh_bench(dev, counters, tmp: str, rank: int, cfg: dict) -> tuple:
+    """Row (a) and, on the same handle, row (e); returns their reports and
+    the handle's Resolution."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.field_layout import FieldLayout
+    from ectrans_tpu_torch.parallel import comm, make_mesh
+
+    flags = ett.InvFlags(scders=True, uvders=True)
+    _reset_peak(dev)
+    _zero(counters)
+    t_row = time.perf_counter()
+    mesh = make_mesh(2, 2, device=dev)
+    st, t_setup = _timed(dev, lambda: ett.SpectralTransform(cfg["bench"],
+                                                            mesh=mesh))
+    res = st.res
+    sp = bench_inputs(res.nspec2, res.nsmax)
+    loc = [st.dist_spec(x) for x in sp]
+    comm.TRAFFIC.clear()
+    (grid, out), t_first = _timed(dev, lambda: mesh_round_trip(
+        st, loc, NFLD_UV, NFLD_SC, flags))
+    launches = _counts(counters)
+    traffic = dict(comm.TRAFFIC)
+    first = int(st.inquire()["nfrstlat"][mesh.rank])
+    end = first + grid.shape[1]
+    sizes = FieldLayout.inv(NFLD_UV, NFLD_SC, flags).sizes_padded
+    check(tuple(grid.shape) == (26, res.ndgl // 4, res.grid.ndlon)
+          and bool(torch.isfinite(grid).all()),
+          f"rank {rank}: grid block {tuple(grid.shape)}")
+    ref = np.load(os.path.join(tmp, "a_grid.npy"), mmap_mode="r")
+    grid_stats = family_stats(grid, ref[:, first:end], sizes)
+    del ref
+    want = np.load(os.path.join(tmp, "a_spec.npz"))
+    spec_stats = [family_stats(o, st.dist_spec(want[k]).cpu(), [o.shape[0]])[0]
+                  for o, k in zip(out, ("vor", "div", "sc"))]
+    gate = family_errors(out, loc)
+    med = statistics.median(_timed(dev, lambda: mesh_round_trip(
+        st, loc, NFLD_UV, NFLD_SC, flags))[1] for _ in range(3)) * 1e3
+    peak = _peak(dev)
+    del grid, out
+    report_a = dict(setup=t_setup, first=t_first, median=med, peak=peak,
+                    groups=len(res.legendre_groups()),
+                    launches=launches, traffic=traffic, grid=grid_stats,
+                    spec=spec_stats, gate=gate,
+                    seconds=time.perf_counter() - t_row)
+    # (e): the lat-lon output on the same handle
+    t_row = time.perf_counter()
+    ll = ett.LatLonGrid(*cfg["latlon"])
+    _zero(counters)
+    _reset_peak(dev)
+    lgrid, t_first = _timed(dev, lambda: st.inv_trans_latlon(ll, *loc,
+                                                             flags=flags))
+    R = -(-ll.nlat // 4)
+    lo = min(mesh.rank * R, ll.nlat)
+    ref = np.load(os.path.join(tmp, "e_grid.npy"), mmap_mode="r")
+    check(tuple(lgrid.shape) == (26, min(lo + R, ll.nlat) - lo, ll.nlon),
+          f"rank {rank}: lat-lon block {tuple(lgrid.shape)}")
+    report_e = dict(first=t_first, peak=_peak(dev),
+                    launches=_counts(counters),
+                    fields=family_stats(lgrid, ref[:, lo: lo + R], [1] * 26),
+                    seconds=time.perf_counter() - t_row)
+    del lgrid, ref, st
+    ett.trans_end()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return report_a, report_e
+
+
+def mesh_small(dev, counters, groups: dict, rank: int, cfg: dict) -> dict:
+    """Rows (b), (c) and (d) at T159 on the meshes of their rows, each on
+    the first w*v ranks: every rank of a mesh against the single-device
+    transform on its shard; rank 0 (in every mesh) gathers the global
+    results for the cross-mesh deltas."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.field_layout import FieldLayout
+    from ectrans_tpu_torch.parallel import make_mesh
+
+    name, nsmax = cfg["small"]
+    flags = ett.InvFlags(vorgp=True, divgp=True, scders=True, uvders=True)
+    sizes = FieldLayout.inv(NFLD_UV, NFLD_SC, flags).sizes_padded
+    nout = sum(sizes)
+    rep = {"b": {}, "c": {}, "d": {}}
+    t_row = {k: 0.0 for k in rep}
+
+    def single(dtype, precision="highest"):
+        st = ett.SpectralTransform(name, nsmax, dtype=dtype,
+                                   precision=precision, device=dev)
+        sp = [x.to(dev, dtype) for x in bench_inputs(st.res.nspec2, nsmax)]
+        grid = st.inv_trans(*sp, flags=flags)
+        fields = (grid[2 * NFLD_UV: 3 * NFLD_UV],
+                  grid[3 * NFLD_UV: 4 * NFLD_UV],
+                  grid[4 * NFLD_UV: 4 * NFLD_UV + NFLD_SC])
+        return sp, grid, fields, st.dir_trans(*fields)
+
+    def on_mesh(w, v, dtype, precision="highest"):
+        mesh = make_mesh(w, v, group=groups[w * v], device=dev)
+        st = ett.SpectralTransform(name, nsmax, mesh=mesh, dtype=dtype,
+                                   precision=precision)
+        return mesh, st
+
+    gathered = {}
+    for tier, dtype, precision in (("b", torch.float64, "highest"),
+                                   ("c", torch.float32, "highest"),
+                                   ("c", torch.float32, "bf16")):
+        sp, grid, fields, spec = single(dtype, precision)
+        for w, v in MESH_SHAPES:
+            if precision == "bf16" and (w, v) != (2, 2):
+                continue
+            if rank >= w * v:
+                continue
+            t0 = time.perf_counter()
+            _zero(counters)
+            mesh, st = on_mesh(w, v, dtype, precision)
+            g = st.inv_trans(*[st.dist_spec(x.cpu()) for x in sp],
+                             flags=flags)
+            first = int(st.inquire()["nfrstlat"][mesh.rank])
+            end = first + g.shape[1]
+            out = st.dir_trans(*[st.dist_grid(f.cpu()) for f in fields])
+            _sync(dev)
+            key = f"{w}x{v}" + ("" if precision == "highest" else " bf16")
+            ent = dict(launches=_counts(counters))
+            if tier == "b":
+                ent["inv"] = (g.double().cpu() - grid[:, first:end].cpu()
+                              ).abs().max().item() / grid.abs().max().item()
+                ent["dir"] = max(
+                    family_stats(o, st.dist_spec(s.cpu()).cpu(),
+                                 [o.shape[0]])[0][0] / s.abs().max().item()
+                    for o, s in zip(out, spec))
+                G = st.gath_grid(g)
+                S = [st.gath_spec(o) for o in out]
+                if rank == 0:
+                    gathered[key] = (G, S)
+            else:
+                ent["grid"] = family_stats(g, grid[:, first:end].cpu(),
+                                           sizes)
+                ent["spec"] = [family_stats(o, st.dist_spec(s.cpu()).cpu(),
+                                            [o.shape[0]])[0]
+                               for o, s in zip(out, spec)]
+            rep[tier][key] = ent
+            t_row[tier] += time.perf_counter() - t0
+            del st, g, out
+        del sp, grid, fields, spec
+    if rank == 0:
+        keys = sorted(gathered)
+        scale_g = max(np.abs(gathered[k][0]).max() for k in keys)
+        scale_s = max(np.abs(s).max() for k in keys for s in gathered[k][1])
+        pair = 0.0
+        for i, a in enumerate(keys):
+            for b in keys[i + 1:]:
+                ga, sa = gathered[a]
+                gb, sb = gathered[b]
+                pair = max(pair, np.abs(ga - gb).max() / scale_g,
+                           max(np.abs(x - y).max() for x, y in zip(sa, sb))
+                           / scale_s)
+        rep["b"]["pairs"] = pair
+        del gathered
+    # (d): ownership vectors and packets against the plain mesh call
+    t0 = time.perf_counter()
+    if rank < 2:
+        kvuv, kvsc = MESH_KVSET
+        sp, grid, fields, spec = single(torch.float64)
+        mesh, st = on_mesh(1, 2, torch.float64)
+        host = [x.cpu() for x in sp]
+        plain = st.inv_trans(*[st.dist_spec(x) for x in host], flags=flags)
+        kv = st.inv_trans(st.dist_spec(host[0], kvuv),
+                          st.dist_spec(host[1], kvuv),
+                          st.dist_spec(host[2], kvsc), flags=flags,
+                          kvsetuv=kvuv, kvsetsc=kvsc)
+        pk = st.inv_trans(*[st.dist_spec(x) for x in host], flags=flags,
+                          npromatr=MESH_NPROMATR)
+        scale = plain.abs().max().item()
+        inv = max((x - plain).abs().max().item() for x in (kv, pk)) / scale
+        blk = [st.dist_grid(f.cpu()) for f in fields]
+        d_plain = [st.gath_spec(o) for o in st.dir_trans(*blk)]
+        d_kv = st.dir_trans(*blk, kvsetuv=kvuv, kvsetsc=kvsc)
+        d_kv = [st.gath_spec(o, k) for o, k in zip(d_kv, (kvuv, kvuv, kvsc))]
+        d_pk = [st.gath_spec(o) for o in st.dir_trans(
+            *blk, npromatr=MESH_NPROMATR)]
+        dirs = max(np.abs(a - b).max() / np.abs(b).max()
+                   for got in (d_kv, d_pk) for a, b in zip(got, d_plain))
+        rep["d"]["1x2"] = dict(inv=inv, dir=dirs, nout=nout)
+        del st, plain, kv, pk
+    t_row["d"] = time.perf_counter() - t0
+    for k in rep:
+        rep[k]["seconds"] = t_row[k]
+    ett.trans_end()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rep
+
+
+def mesh_lam(dev, counters, tmp: str, rank: int, cfg: dict) -> dict:
+    """Row (f): ``LamTransform(..., mesh=)`` at phase 10's domain and
+    inputs on (2, 2), both directions against phase 10's outputs; no
+    kernel may run."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.field_layout import FieldLayout
+    from ectrans_tpu_torch.lam import LamInvFlags
+    from ectrans_tpu_torch.parallel import make_mesh
+
+    t_row = time.perf_counter()
+    _zero(counters)
+    _reset_peak(dev)
+    flags = LamInvFlags(vorgp=True, divgp=True, scders=True, uvders=True)
+    mesh = make_mesh(2, 2, device=dev)
+    lt = ett.LamTransform(**cfg["lam"], mesh=mesh)
+    x = lam_inputs(lt.res, LAM_NUV, LAM_NSC)
+    loc = [lt.dist_spec(a) for a in x]
+    grid, t_inv = _timed(dev, lambda: lt.inv_trans(*loc, flags=flags))
+    R = -(-lt.grid.ny // 4)
+    lo = min(mesh.rank * R, lt.grid.ny)
+    hi = min(lo + R, lt.grid.ny)
+    check(tuple(grid.shape[1:]) == (hi - lo, lt.grid.nx),
+          f"rank {rank}: LAM block {tuple(grid.shape)}")
+    ref = np.load(os.path.join(tmp, "f_grid.npy"), mmap_mode="r")
+    sizes = FieldLayout.inv(LAM_NUV, LAM_NSC, flags).sizes_padded
+    inv = family_stats(grid, ref[:, lo:hi], sizes)
+    n = LAM_NUV
+    blk = [torch.from_numpy(np.array(ref[a: a + k, lo:hi])) for a, k in
+           ((2 * n, n), (3 * n, n), (4 * n, LAM_NSC))]
+    del ref, grid
+    out, t_dir = _timed(dev, lambda: lt.dir_trans(*blk))
+    want = np.load(os.path.join(tmp, "f_spec.npz"))
+    keys = ("vor", "div", "sc", "meanu", "meanv")
+    spec = [family_stats(o, lt.dist_spec(want[k]).cpu(), [o.shape[0]])[0]
+            for o, k in zip(out, keys)]
+    rep = dict(first_inv=t_inv, first_dir=t_dir, peak=_peak(dev),
+               launches={k: c.launches for k, c in counters.items()
+                         if c.launches},
+               grid=inv, spec=spec, seconds=time.perf_counter() - t_row)
+    del lt, out, blk
+    return rep
+
+
+def mesh_rank(rank: int, world: int, store: str, tmp: str,
+              cfg: dict) -> None:
+    """One rank of phase 11 (a spawned process, on cuda:0 like every other
+    rank): rows (a), (e), (b)-(d), (f) as ``cfg`` sizes them; writes its
+    report to ``tmp``/rank{rank}.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dev = torch.device(cfg["device"], 0) if cfg["device"] == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.cufft_plan_cache[0].max_size = CUFFT_PLANS
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_LIMIT))
+    try:
+        # every rank makes every subgroup, in the same order
+        groups = {n: dist.new_group(list(range(n))) for n in (1, 2)}
+        groups[world] = None
+        counters = launch_counters()
+        rep = {}
+        rep["a"], rep["e"] = mesh_bench(dev, counters, tmp, rank, cfg)
+        rep.update(mesh_small(dev, counters, groups, rank, cfg))
+        rep["f"] = mesh_lam(dev, counters, tmp, rank, cfg)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(fn, tmp: str, cfg: dict, world: int = MESH_WORLD,
+              limit: float = MESH_LIMIT) -> list:
+    """Spawn ``world`` ranks of fn(rank, world, store, tmp, cfg) and join them
+    within ``limit`` seconds; a rank that raises or exits non-zero fails
+    the run, and so does a world that outlasts its limit (its ranks are
+    killed).  Returns the ranks' reports."""
+    import torch.multiprocessing as mp
+
+    store = os.path.join(tmp, "store")
+    ctx = mp.start_processes(fn, args=(world, store, tmp, cfg), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + limit
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the {world}-rank world outlasted its "
+                                   f"{limit:.0f} s limit")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    reports = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def phase_mesh(dev: torch.device, refs: dict,
+               cfg: dict = MESH_CONFIG) -> dict:
+    """Phase 11: the distributed transforms on a (w, v) mesh of four ranks
+    sharing the card (gloo: NCCL refuses two ranks on one device; gloo
+    stages its collectives through the host, so the times are a check's,
+    not distributed performance).  ``refs``: phase 4's grid and spectra,
+    phase 9's lat-lon grid and phase 10's grid and direct outputs (host
+    tensors).  Returns the launches of rows (a) and (e) summed over the
+    ranks, for the kernels line."""
+    import shutil
+    import tempfile
+
+    import ectrans_tpu_torch as ett
+
+    t_phase = time.perf_counter()
+    ett.trans_end()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.backends.cuda.cufft_plan_cache[dev.index].clear()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        np.save(os.path.join(tmp, "a_grid.npy"), refs["a_grid"].numpy())
+        np.savez(os.path.join(tmp, "a_spec.npz"),
+                 **{k: x.numpy() for k, x in zip(("vor", "div", "sc"),
+                                                 refs["a_spec"])})
+        np.save(os.path.join(tmp, "e_grid.npy"), refs["e_grid"].numpy())
+        np.save(os.path.join(tmp, "f_grid.npy"), refs["f_grid"].numpy())
+        np.savez(os.path.join(tmp, "f_spec.npz"),
+                 **{k: x.numpy() for k, x in zip(
+                     ("vor", "div", "sc", "meanu", "meanv"), refs["f_spec"])})
+        t0 = time.perf_counter()
+        reps = run_world(mesh_rank, tmp, cfg)
+        t_world = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = "the CPU"
+    if dev.type == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    return mesh_report(reps, t_world, time.perf_counter() - t_phase, card,
+                       cfg)
+
+
+def mesh_report(reps: list, t_world: float, t_phase: float, card: str,
+                cfg: dict = MESH_CONFIG) -> dict:
+    """Check and print phase 11's rows from the ranks' reports; returns the
+    launches of rows (a) and (e) summed over the ranks."""
+    # (a)
+    a = [r["a"] for r in reps]
+    for r, x in enumerate(a):
+        want = {"K1": x["groups"], "K2": x["groups"], "K3": 1, "K4": 1}
+        check(x["launches"] == want, f"phase 11 (a) rank {r} launched "
+                                     f"{x['launches']}; expected {want}")
+    gate = [(max(x["gate"][k][0] for x in a), max(x["gate"][k][1] for x in a))
+            for k in range(3)]
+    share = max(e / (MESH_GATE * m) for e, m in gate)
+    grid = merge_families([x["grid"] for x in a])
+    spec = merge_families([x["spec"] for x in a])
+    g_share, s_share = worst_share(grid, MESH_GATE), worst_share(spec,
+                                                                 MESH_GATE)
+    check(share <= DENSE_GATE_SHARE,
+          f"phase 11 (a) round trip {share:.3f} of the 100 eps gate, over "
+          f"{DENSE_GATE_SHARE}")
+    check(g_share <= 1.0 and s_share <= 1.0,
+          f"phase 11 (a) against phase 4: grid {g_share:.3f}, spectra "
+          f"{s_share:.3f} of 100 eps")
+    traffic = {k: max(x["traffic"].get(k, 0) for x in a) / 2**20
+               for k in sorted(a[0]["traffic"])}
+    print(f"phase 11 (a) {cfg['bench']} round trip on a 2 x 2 mesh of 4 ranks on "
+          f"one card ({card}; gloo, host-staged: times of a check, not "
+          f"distributed performance): gate {share:.3f} of 100 eps (at most "
+          f"{DENSE_GATE_SHARE}); against phase 4, grid "
+          f"{max(d for d, _, _ in grid):.3e} ({g_share:.3f} of 100 eps of "
+          f"the family max, bit-identical {all(b for _, _, b in grid)}), "
+          f"spectra {max(d for d, _, _ in spec):.3e} ({s_share:.3f}, "
+          f"bit-identical {all(b for _, _, b in spec)}); setup "
+          f"{max(x['setup'] for x in a):.2f} s; first call "
+          f"{max(x['first'] for x in a):.2f} s; median of 3 "
+          f"{max(x['median'] for x in a):.1f} ms (slowest rank); peak per "
+          f"rank {[round(x['peak'], 2) for x in a]} GiB; launches per rank "
+          f"{a[0]['launches']}; MiB sent per rank a round trip "
+          f"{ {k: round(v, 1) for k, v in traffic.items()} }; "
+          f"{max(x['seconds'] for x in a):.1f} s")
+    # (e)
+    e = [r["e"] for r in reps]
+    for r, x in enumerate(e):
+        ran = {k: n for k, n in x["launches"].items() if n}
+        check(ran == {"K4": 1}, f"phase 11 (e) rank {r} launched {ran}; "
+                                "expected K4 once (its lat-lon tables)")
+    fields = merge_families([x["fields"] for x in e])
+    e_share = worst_share(fields, MESH_GATE)
+    check(e_share <= 1.0, f"phase 11 (e) lat-lon against phase 9: "
+                          f"{e_share:.3f} of 100 eps")
+    print(f"phase 11 (e) {cfg['bench']} -> lat-lon {cfg['latlon'][0]} x "
+          f"{cfg['latlon'][1]} on "
+          f"2 x 2: against phase 9 {e_share:.3f} of 100 eps of each "
+          f"field's max (bit-identical {all(b for _, _, b in fields)}); "
+          f"first call {max(x['first'] for x in e):.2f} s; peak per rank "
+          f"{[round(x['peak'], 2) for x in e]} GiB; K4 once a rank; "
+          f"{max(x['seconds'] for x in e):.1f} s")
+    # (b)
+    b = [r["b"] for r in reps]
+    worst_b = max(max(x[k]["inv"], x[k]["dir"]) for x in b for k in x
+                  if "x" in k)
+    pairs = b[0]["pairs"]
+    check(worst_b <= MESH_FP64_TOL and pairs <= MESH_PAIR_TOL,
+          f"phase 11 (b) fp64: worst mesh {worst_b:.3e} (at most "
+          f"{MESH_FP64_TOL:g}), worst pair {pairs:.3e} (at most "
+          f"{MESH_PAIR_TOL:g})")
+    print(f"phase 11 (b) T{cfg['small'][1]} fp64 decomposition invariance on "
+          f"{[f'{w}x{v}' for w, v in MESH_SHAPES]}: worst against the single "
+          f"device {worst_b:.3e} relative (at most {MESH_FP64_TOL:g}), worst "
+          f"pair of meshes {pairs:.3e} (at most {MESH_PAIR_TOL:g}); "
+          f"{max(x['seconds'] for x in b):.1f} s")
+    # (c)
+    c = [r["c"] for r in reps]
+    msg = []
+    for key in [k for k in c[0] if "x" in k]:
+        ents = [x[key] for x in c if key in x]
+        for r, ent in enumerate(ents):
+            lc = ent["launches"]
+            check(lc["K1"] > 0 and lc["K2"] > 0 and lc["K3"] > 0,
+                  f"phase 11 (c) {key} rank {r} launched {lc}")
+        sh = max(worst_share(merge_families([x["grid"] for x in ents]),
+                             MESH_GATE),
+                 worst_share(merge_families([x["spec"] for x in ents]),
+                             MESH_GATE))
+        check(sh <= 1.0, f"phase 11 (c) {key}: {sh:.3f} of 100 eps")
+        msg.append(f"{key} {sh:.3f}")
+    print(f"phase 11 (c) T{cfg['small'][1]} fp32 dense (and bf16 on 2 x 2) against the "
+          f"single device, share of 100 eps of each family's max: "
+          f"{'; '.join(msg)}; K1, K2, K3 on every rank; "
+          f"{max(x['seconds'] for x in c):.1f} s")
+    # (d)
+    d = reps[0]["d"]["1x2"]
+    worst_d = max(max(r["d"]["1x2"]["inv"], r["d"]["1x2"]["dir"])
+                  for r in reps[:2])
+    check(worst_d <= MESH_FP64_TOL,
+          f"phase 11 (d) kvset/packets vs the plain call {worst_d:.3e}")
+    print(f"phase 11 (d) T{cfg['small'][1]} fp64 on 1 x 2, kvsetuv {MESH_KVSET[0]} kvsetsc "
+          f"{MESH_KVSET[1]} and npromatr={MESH_NPROMATR} against the plain "
+          f"mesh call: {worst_d:.3e} relative (at most {MESH_FP64_TOL:g}; "
+          f"{d['nout']} fields); {max(r['d']['seconds'] for r in reps):.1f} s")
+    # (f)
+    f = [r["f"] for r in reps]
+    for r, x in enumerate(f):
+        check(not x["launches"], f"phase 11 (f) rank {r} launched "
+                                 f"{x['launches']}")
+    fgrid = merge_families([x["grid"] for x in f])
+    fspec = merge_families([x["spec"] for x in f])
+    # the mean wind against its wind field's largest |value| (phase 10):
+    # meanu against u's (family 2), meanv against v's (family 3)
+    fspec = fspec[:3] + [[dd, fgrid[k][1], bb]
+                         for (dd, _, bb), k in zip(fspec[3:], (2, 3))]
+    f_share = max(worst_share(fgrid, MESH_GATE), worst_share(fspec,
+                                                             MESH_GATE))
+    check(f_share <= 1.0, f"phase 11 (f) LAM against phase 10: "
+                          f"{f_share:.3f} of 100 eps")
+    print(f"phase 11 (f) LAM {cfg['lam']['nx']} x {cfg['lam']['ny']} on "
+          f"2 x 2 ({LAM_NUV} vor/div pairs, {LAM_NSC} scalars, every flag): "
+          f"against phase 10 {f_share:.3f} of 100 eps (grid bit-identical "
+          f"{all(b for _, _, b in fgrid)}, spectra "
+          f"{all(b for _, _, b in fspec)}); first calls inverse "
+          f"{max(x['first_inv'] for x in f):.2f} s, direct "
+          f"{max(x['first_dir'] for x in f):.2f} s; peak per rank "
+          f"{[round(x['peak'], 2) for x in f]} GiB; no kernel; "
+          f"{max(x['seconds'] for x in f):.1f} s")
+    launches = {}
+    merge_launches(launches, [x["launches"] for x in a])
+    merge_launches(launches, [{"K4": x["launches"]["K4"]} for x in e])
+    print(f"phase 11 done in {t_phase:.1f} s (the world {t_world:.1f} s); "
+          f"launches of (a) and (e) over the ranks {launches}")
+    return launches
 
 
 def main() -> int:
@@ -2097,15 +2721,19 @@ def main() -> int:
     counters = launch_counters()
     res, sp, launches, dense = phase_bench(dev, counters)
     packed = phase_engines(dev, res, sp, counters, launches)
-    for k, n in phase_handle(dev, res, sp, dense.pop("outputs"),
-                             counters).items():
+    bench_out = dense.pop("outputs")
+    for k, n in phase_handle(dev, res, sp, bench_out, counters).items():
         launches[k] += n
     del res, sp
     ab_report(kern, dense, packed)
     launches.update(phase_roofline(dev, counters))
     phase_tco639(dev, counters)
-    launches["K4"] += phase_latlon(dev, counters)["K4"]
-    phase_lam(dev, counters)
+    ll = phase_latlon(dev, counters)
+    launches["K4"] += ll["K4"]
+    lam_out = phase_lam(dev, counters)
+    merge_launches(launches, [phase_mesh(dev, dict(
+        a_grid=bench_out[0], a_spec=bench_out[1], e_grid=ll["grid"],
+        f_grid=lam_out["grid"], f_spec=lam_out["spec"]))])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f}"
           " s")
     print(json.dumps({"kernels": [

@@ -23,6 +23,10 @@ and so does the limited-area handle (``ectrans_tpu_torch.lam``):
     lam = ett.LamTransform(1536, 1280, nxux=1440, nyux=1200)
     grid = lam.inv_trans(spscalar=lam_sc)
 
+Both take ``mesh=`` (``ectrans_tpu_torch.parallel.make_mesh``, over the
+caller's ``torch.distributed`` process group) for the distributed
+transforms, each rank holding its shards.
+
 This package imports neither ``jax`` nor ``ectrans_tpu``.
 """
 

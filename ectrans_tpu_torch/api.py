@@ -16,8 +16,16 @@ package, covering the reference's public API surface (SURVEY.md §2.1):
 
 A handle runs on one device, a CUDA card unless it is given
 ``device="cpu"``; it moves its array arguments there.  Without a card a
-CUDA handle refuses to start: it never falls back to the CPU.  Not ported
-yet: the distributed transforms (``mesh=``, ROADMAP.md queue A item 8).
+CUDA handle refuses to start: it never falls back to the CPU.
+
+With ``mesh=`` (``parallel.make_mesh``) the handle is one rank's view of a
+distributed transform (``parallel.ShardedTransform``) and runs on the
+mesh's device: ``inv_trans`` takes this rank's spectral fields and returns
+its block of grid rows, ``dir_trans`` the reverse, ``dist_*``/``gath_*``
+cut a global array into this rank's shard and gather shards back (the
+gathers are collectives), and ``inquire()`` adds the distributed layout's
+keys.  The adjoints, norms and lat-lon direct transform stay single-device,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,17 +74,22 @@ class SpectralTransform:
         arithmetic, inside the reference's 100*eps benchmark gate) or
         "bf16" (bf16 tables; the reference FLT gate precedent 1e6*eps).
         device: where the tables live and the transforms run ("cuda", the
-        default, or "cpu")."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the distributed transforms are not ported yet "
-                "(ROADMAP.md, queue A item 8)")
+        default, or "cpu"); with a mesh, the mesh's device."""
         transform._check_precision(precision)
-        self.device = _handle_device(device)
         self.res: Resolution = setup(grid, nsmax, radius, stretch)
         self.dtype = check_dtype(dtype)
         self.precision = precision
-        self.mesh = None
+        self.mesh = mesh
+        self._sharded = None
+        if mesh is not None:
+            from .parallel import ShardedTransform
+            from .parallel.mesh import check_mesh
+
+            self.device = _handle_device(check_mesh(mesh).device)
+            self._sharded = ShardedTransform(self.res, mesh, self.dtype,
+                                             precision)
+        else:
+            self.device = _handle_device(device)
 
     def _put(self, x):
         """x (a tensor, an array or None) on the handle's device."""
@@ -89,6 +102,10 @@ class SpectralTransform:
                   flags: InvFlags = InvFlags(), npromatr=None,
                   kvsetuv=None, kvsetsc=None, fspgl_proc=None, **kw):
         flags = InvFlags(**kw) if kw else flags
+        if self._sharded is not None:
+            return self._sharded.inv_trans(
+                spvor, spdiv, spscalar, flags=flags, npromatr=npromatr,
+                kvsetuv=kvsetuv, kvsetsc=kvsetsc, fspgl_proc=fspgl_proc)
         if kvsetuv is not None or kvsetsc is not None:
             raise ValueError("kvsetuv/kvsetsc require a mesh-attached "
                              "SpectralTransform (distributed field ownership)")
@@ -100,6 +117,9 @@ class SpectralTransform:
 
     def dir_trans(self, u=None, v=None, scalars=None, npromatr=None,
                   kvsetuv=None, kvsetsc=None):
+        if self._sharded is not None:
+            return self._sharded.dir_trans(u, v, scalars, kvsetuv=kvsetuv,
+                                           kvsetsc=kvsetsc, npromatr=npromatr)
         if kvsetuv is not None or kvsetsc is not None:
             raise ValueError("kvsetuv/kvsetsc require a mesh-attached "
                              "SpectralTransform (distributed field ownership)")
@@ -219,7 +239,11 @@ class SpectralTransform:
     def inv_trans_latlon(self, ll, spvor=None, spdiv=None, spscalar=None,
                          flags: InvFlags = InvFlags()):
         """Inverse transform onto a regular lat-lon grid (LDLL mode, exact
-        spectral evaluation; ``latlon.inv_trans_latlon``)."""
+        spectral evaluation; ``latlon.inv_trans_latlon``); on a mesh this
+        rank's block of lat-lon rows."""
+        if self._sharded is not None:
+            return self._sharded.inv_trans_latlon(ll, spvor, spdiv, spscalar,
+                                                  flags=flags)
         return latlon.inv_trans_latlon(
             self.res, ll, self._put(spvor), self._put(spdiv),
             self._put(spscalar), flags=flags, dtype=self.dtype)
@@ -258,24 +282,37 @@ class SpectralTransform:
 
     # -- distribution helpers (DIST_GRID/GATH_GRID/DIST_SPEC/GATH_SPEC) --
     # Without a mesh the global array is the owner view: dist_* place it on
-    # the handle's device, gath_* bring it back to a host numpy array.
+    # the handle's device, gath_* bring it back to a host numpy array.  On
+    # a mesh dist_* take this rank's shard of a global array that every
+    # rank holds, and gath_* (collectives) assemble the global array on
+    # every rank.
     def dist_grid(self, grid_global):
+        if self._sharded is not None:
+            return self._sharded.dist_grid(grid_global)
         return self._put(grid_global)
 
     def gath_grid(self, grid):
+        if self._sharded is not None:
+            return self._sharded.gath_grid(grid)
         return torch.as_tensor(grid).detach().cpu().numpy()
 
-    def dist_spec(self, spec_global):
+    def dist_spec(self, spec_global, kvset=None):
+        """This rank's fields of a global (nfld, nspec2) array: those
+        ``kvset`` gives its v-rank, by default its block."""
+        if self._sharded is not None:
+            return self._sharded.dist_spec(spec_global, kvset)
         return self._put(spec_global)
 
-    def gath_spec(self, spec):
+    def gath_spec(self, spec, kvset=None):
+        if self._sharded is not None:
+            return self._sharded.gath_spec(spec, kvset)
         return torch.as_tensor(spec).detach().cpu().numpy()
 
     # -- inquiry ----------------------------------------------------------
     def inquire(self) -> dict:
         """TRANS_INQ equivalent: every size/address/geometry array a caller
-        needs (reference ``trans_inq.F90:11-529``), without the keys of a
-        distributed layout."""
+        needs (reference ``trans_inq.F90:11-529``), with the distributed
+        layout's keys on a mesh."""
         res = self.res
         g = res.grid
         _, w = g.gauss()
@@ -298,20 +335,67 @@ class SpectralTransform:
             "latitudes_deg": g.latitudes_deg(),
             "nump": res.M,
             "myms": np.arange(res.M),
+            **self._inquire_distributed(),
         }
 
     def _inquire_distributed(self) -> dict:
-        raise NotImplementedError(
-            "the distributed-layout keys of TRANS_INQ need a mesh: the "
-            "distributed transforms are not ported yet (ROADMAP.md, queue A "
-            "item 8)")
+        """Distributed-layout keys of TRANS_INQ (``trans_inq.F90``: NPRTRW/
+        NPRTRV echo, per-w-set NUMPP/MYMS/NSPEC2, NGPTOTMX and the latitude
+        ownership) on a mesh; empty otherwise (``ectrans_tpu``
+        ``SpectralTransform._inquire_distributed``)."""
+        if self._sharded is None:
+            return {}
+        d = self._sharded.dist
+        res = self.res
+        ML = d.ML
+        myms, numpp, nspec2_w = [], [], []
+        for s in range(d.w):
+            ms = sorted(int(m) for m in d.perm[s * ML: (s + 1) * ML]
+                        if m < res.M)
+            myms.append(np.asarray(ms))
+            numpp.append(len(ms))
+            nspec2_w.append(int(sum(2 * (res.nsmax - m + 1) for m in ms)))
+        # grid space: w*v blocks of LLg latitude rows each
+        LLg = d.LLg
+        nfrstlat, nlstlat, ngptotl = [], [], []
+        for i0 in range(0, d.ndgl_pad, LLg):
+            i1 = min(i0 + LLg, res.ndgl)
+            nfrstlat.append(min(i0, res.ndgl))
+            nlstlat.append(max(i1 - 1, min(i0, res.ndgl)))
+            ngptotl.append(sum(res.grid.nloen[lat]
+                               for lat in range(min(i0, res.ndgl), i1)))
+        LL = d.LL
+        return {
+            "nprtrw": d.w,
+            "nprtrv": d.v,
+            "numpp": np.asarray(numpp),
+            "myms_w": tuple(myms),
+            "nspec2_w": np.asarray(nspec2_w),
+            "ngptotmx": max(ngptotl),
+            # Fourier-space latitude ownership (NULTPP/NPTRLS/NPROCL)
+            "nultpp": np.asarray([LL] * d.w),
+            "nptrls": np.arange(0, d.ndgl_pad, LL),
+            "nprocl": np.minimum(np.arange(res.ndgl) // LL, d.w - 1),
+            # grid-space latitude ownership over the w*v ranks (0-based)
+            "nfrstlat": np.asarray(nfrstlat),
+            "nlstlat": np.asarray(nlstlat),
+            "ngptotl": np.asarray(ngptotl),
+            "nprocl_grid": np.minimum(np.arange(res.ndgl) // LLg,
+                                      d.w * d.v - 1),
+        }
 
     def release(self):
         """Free the tables, plans and index maps that this handle's
         Resolution caches on every device (TRANS_RELEASE equivalent); they
         are made again on next use.  The Resolution stays in the setup
-        cache, so every handle of the same configuration shares it."""
+        cache, so every handle of the same configuration shares it.  On a
+        mesh the rank's distributed tables are made anew."""
         self.res.drop_cached()
+        if self._sharded is not None:
+            from .parallel import ShardedTransform
+
+            self._sharded = ShardedTransform(self.res, self.mesh, self.dtype,
+                                             self.precision)
 
 
 def _pnm_value(tables, m: int, n: int) -> np.ndarray:

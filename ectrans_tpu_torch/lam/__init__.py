@@ -5,8 +5,8 @@ SURVEY.md §2.8): on a biperiodic plane both transform directions are
 Fourier transforms, so the spherical-harmonic Legendre stage is replaced by
 a meridional DFT (reference ELEINV/ELEDIR, ``eledir_mod.F90:72-101``) and
 the elliptic-truncation spectral space of ELLIPS (``ellips.F90``).  The
-distributed LAM transforms (``lam/sharded.py``) are not ported yet
-(ROADMAP.md, queue A item 8).
+distributed LAM transforms over a (w, v) mesh are ``lam.sharded``
+(``LamTransform(..., mesh=)``).
 """
 
 from .adjoint import dir_trans_lam_adj, inv_trans_lam_adj
@@ -15,6 +15,7 @@ from .biper import biperiodicize
 from .geometry import LamGrid, ellips, make_lam_grid
 from .norms import egpnorm, especnorm
 from .resolution import LamResolution, setup_lam
+from .sharded import ShardedLamTransform
 from .transform import LamInvFlags, dir_trans_lam, inv_trans_lam
 
 __all__ = [
@@ -22,6 +23,7 @@ __all__ = [
     "LamInvFlags",
     "LamTransform",
     "LamResolution",
+    "ShardedLamTransform",
     "biperiodicize",
     "dir_trans_lam",
     "dir_trans_lam_adj",

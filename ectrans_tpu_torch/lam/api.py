@@ -4,9 +4,11 @@ package (counterpart of ``ectrans_tpu/lam/api.py``; reference
 
 A handle runs on one device, a CUDA card unless it is given
 ``device="cpu"``, and moves its array arguments there; without a card a
-CUDA handle refuses to start (no fallback to the CPU).  Not ported yet:
-the distributed LAM transforms (``mesh=``, ``lam/sharded.py``, ROADMAP.md
-queue A item 8).
+CUDA handle refuses to start (no fallback to the CPU).  With ``mesh=``
+(``parallel.make_mesh``) it is one rank's view of the distributed LAM
+transforms (``lam.sharded.ShardedLamTransform``) on the mesh's device:
+this rank's v-block of spectral fields in, its block of grid rows out, and
+the reverse; the adjoints and norms stay single-device.
 """
 
 from __future__ import annotations
@@ -32,17 +34,21 @@ class LamTransform:
     def __init__(self, nx: int | None = None, ny: int | None = None, *,
                  grid: LamGrid | None = None, mesh=None,
                  dtype=torch.float32, device="cuda", **kw):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the distributed LAM transforms are not ported yet "
-                "(ROADMAP.md, queue A item 8)")
-        self.device = _handle_device(device)
         if grid is None:
             grid = make_lam_grid(nx, ny, **kw)
         self.grid = grid
         self.res: LamResolution = setup_lam(grid)
         self.dtype = check_dtype(dtype)
-        self.mesh = None
+        self.mesh = mesh
+        self._sharded = None
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh
+            from .sharded import ShardedLamTransform
+
+            self.device = _handle_device(check_mesh(mesh).device)
+            self._sharded = ShardedLamTransform(self.res, mesh, self.dtype)
+        else:
+            self.device = _handle_device(device)
 
     def _put(self, x):
         """x (a tensor, an array or None) on the handle's device."""
@@ -55,12 +61,17 @@ class LamTransform:
                   meanu=None, meanv=None, flags: LamInvFlags = LamInvFlags(),
                   **kw):
         flags = LamInvFlags(**kw) if kw else flags
+        if self._sharded is not None:
+            return self._sharded.inv_trans(spvor, spdiv, spscalar, meanu,
+                                           meanv, flags=flags)
         return transform.inv_trans_lam(
             self.res, self._put(spvor), self._put(spdiv),
             self._put(spscalar), self._put(meanu), self._put(meanv),
             flags=flags, dtype=self.dtype)
 
     def dir_trans(self, u=None, v=None, scalars=None):
+        if self._sharded is not None:
+            return self._sharded.dir_trans(u, v, scalars)
         return transform.dir_trans_lam(self.res, self._put(u), self._put(v),
                                        self._put(scalars), dtype=self.dtype)
 
@@ -96,12 +107,31 @@ class LamTransform:
     def dist_grid(self, grid_global):
         """Place a global (nfld, ny, nx) grid on the handle's device
         (EDIST_GRID equivalent; without a mesh the global array is the
-        owner view)."""
+        owner view, on a mesh this rank's block of rows)."""
+        if self._sharded is not None:
+            return self._sharded.dist_grid(grid_global)
         return self._put(grid_global)
 
     def gath_grid(self, grid):
-        """A host numpy copy of a grid (EGATH_GRID)."""
+        """A host numpy copy of a grid (EGATH_GRID; on a mesh the global
+        grid, gathered from every rank's block: a collective)."""
+        if self._sharded is not None:
+            return self._sharded.gath_grid(grid)
         return torch.as_tensor(grid).detach().cpu().numpy()
+
+    def dist_spec(self, spec_global):
+        """This rank's v-block of a global (nfld, nspec2) array or (nfld,)
+        mean wind; without a mesh the array on the handle's device."""
+        if self._sharded is not None:
+            return self._sharded.dist_spec(spec_global)
+        return self._put(spec_global)
+
+    def gath_spec(self, spec):
+        """The global fields as a host numpy array (on a mesh gathered
+        from every v-rank's block: a collective)."""
+        if self._sharded is not None:
+            return self._sharded.gath_spec(spec)
+        return torch.as_tensor(spec).detach().cpu().numpy()
 
     def inquire(self) -> dict:
         """ETRANS_INQ equivalent."""

@@ -97,6 +97,31 @@ def uv_to_vordiv_lam(du, dv, t):
     return vor * t["valid"], div * t["valid"], du[:, 0, 0, 0], dv[:, 0, 0, 0]
 
 
+def inv_groups(dvor, ddiv, dsc, t: dict, flags: LamInvFlags, meanu=None,
+               meanv=None) -> list:
+    """EVDTUV, ESPNSDE and the EFSC E-W derivatives: dense vor/div (None
+    without winds; the mean wind put at (m=0, n=0) when given) and scalars
+    (None without) -> the groups [vor?, div?, u and v, scalars, N-S
+    derivs?, E-W u/v derivs?, E-W scalar derivs?]."""
+    groups = []
+    uvd = None
+    if dvor is not None:
+        du, dv = vordiv_to_uv_lam(dvor, ddiv, t, meanu, meanv)
+        groups += [x for x, on in ((dvor, flags.vorgp), (ddiv, flags.divgp))
+                   if on]
+        uvd = torch.cat([du, dv])
+        groups.append(uvd)
+    if dsc is not None:
+        groups.append(dsc)
+        if flags.scders:
+            groups.append(t["ky"] * _imer(dsc))
+    if uvd is not None and flags.uvders:
+        groups.append(t["kx"] * _izon(uvd))
+    if dsc is not None and flags.scders:
+        groups.append(t["kx"] * _izon(dsc))
+    return groups
+
+
 def synth2d(dense, ny: int, nx: int):
     """dense (nfld, 4, M, N) -> grid (nfld, ny, nx); both passes in fp64,
     rounded once to dense's dtype."""
@@ -149,8 +174,7 @@ def inv_trans_lam(res: LamResolution, spvor=None, spdiv=None, spscalar=None,
     t = res.device_tables(dtype, device)
     g = res.grid
     nuv = 0 if spvor is None else spvor.shape[0]
-    groups = []
-    uvd = scd = None
+    dvor = ddiv = dsc = None
     if nuv:
         meanu, meanv = (torch.zeros(nuv, dtype=dtype, device=device)
                         if x is None else
@@ -158,22 +182,9 @@ def inv_trans_lam(res: LamResolution, spvor=None, spdiv=None, spscalar=None,
                         for x in (meanu, meanv))
         dvor = packed_to_dense(spvor.to(dtype), t)
         ddiv = packed_to_dense(spdiv.to(dtype), t)
-        du, dv = vordiv_to_uv_lam(dvor, ddiv, t, meanu, meanv)
-        if flags.vorgp:
-            groups.append(dvor)
-        if flags.divgp:
-            groups.append(ddiv)
-        uvd = torch.cat([du, dv])
-        groups.append(uvd)
     if spscalar is not None:
-        scd = packed_to_dense(spscalar.to(dtype), t)
-        groups.append(scd)
-        if flags.scders:
-            groups.append(t["ky"] * _imer(scd))     # ESPNSDE
-    if nuv and flags.uvders:
-        groups.append(t["kx"] * _izon(uvd))         # EFSC E-W derivative
-    if spscalar is not None and flags.scders:
-        groups.append(t["kx"] * _izon(scd))
+        dsc = packed_to_dense(spscalar.to(dtype), t)
+    groups = inv_groups(dvor, ddiv, dsc, t, flags, meanu, meanv)
     return synth2d(torch.cat(groups), g.ny, g.nx)
 
 

@@ -35,7 +35,8 @@ from .legendre import build_parity_tables
 from .ops import fourier, layout, legendre_matmul, spectral
 from .resolution import (GroupedLegendre, LegendreGroup, Resolution,
                          canonical_device, check_dtype)
-from .transform import InvFlags, _check_spec, _device_of, _ew_derivative
+from .transform import (InvFlags, _check_spec, _device_of, fsc,
+                        legendre_inputs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,21 +148,12 @@ def inv_trans_latlon(res: Resolution, ll: LatLonGrid, spvor=None, spdiv=None,
     nuv = 0 if spvor is None else spvor.shape[0]
     nsc = 0 if spscalar is None else spscalar.shape[0]
 
-    lt_inputs = []
-    if nuv:
-        dvor = layout.packed_to_dense(spvor.to(dtype), tables)
-        ddiv = layout.packed_to_dense(spdiv.to(dtype), tables)
-        du, dv = spectral.vordiv_to_uv(dvor, ddiv, tables.vd)
-        if flags.vorgp:
-            lt_inputs.append(dvor)
-        if flags.divgp:
-            lt_inputs.append(ddiv)
-        lt_inputs += [du, dv]
-    if nsc:
-        dsc = layout.packed_to_dense(spscalar.to(dtype), tables)
-        lt_inputs.append(dsc)
-        if flags.scders:
-            lt_inputs.append(spectral.ns_derivative(dsc, tables.nsd))
+    def dense(x):
+        return (None if x is None
+                else layout.packed_to_dense(x.to(dtype), tables))
+
+    lt_inputs = legendre_inputs(dense(spvor), dense(spdiv), dense(spscalar),
+                                flags, tables.vd, tables.nsd)
     sym, asym = layout.dense_to_parity(torch.cat(lt_inputs), res.kmax)
     four_all = legendre_matmul.legendre_inv_grouped(sym, asym, gl)
     if ll.nlat % 2:
@@ -170,25 +162,7 @@ def inv_trans_latlon(res: Resolution, ll: LatLonGrid, spvor=None, spdiv=None,
         four_all = torch.cat([four_all[..., :nh], four_all[..., nh + 1:]], -1)
 
     # the output groups in the order of ectrans_tpu's _inv_ll_impl
-    parts = list(torch.split(four_all, [x.shape[0] for x in lt_inputs]))
-    groups = []
-    uv_four = sc_four = None
-    if nuv:
-        groups += parts[: int(flags.vorgp) + int(flags.divgp)]
-        k = len(groups)
-        uv_four = torch.cat(parts[k: k + 2]) * racthe
-        groups.append(uv_four)
-    if nsc:
-        k = len(parts) - (2 if flags.scders else 1)
-        sc_four = parts[k]
-        groups.append(sc_four)
-        if flags.scders:
-            groups.append(parts[k + 1] * racthe)
-    if nuv and flags.uvders:
-        groups.append(_ew_derivative(uv_four, racthe))
-    if nsc and flags.scders:
-        groups.append(_ew_derivative(sc_four, racthe))
-    four = torch.cat(groups).transpose(2, 3)          # (nfld, 2, nlat, M)
+    four = fsc(four_all, nuv, nsc, flags, racthe).transpose(2, 3)
     return fourier.synthesis_uniform(four[:, 0], four[:, 1], ll.nlon)
 
 

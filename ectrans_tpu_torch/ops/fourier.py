@@ -27,6 +27,11 @@ with 2 nmen < NLOEN (every Gaussian grid the package builds) take the
 unfolded batches; rows with 2 nmen >= NLOEN (lat-lon output grids, ROADMAP
 C1) the folded ones.
 
+The distributed transforms run the same two directions on one rank's rows
+(``rows``: the length-sorted slots of ``parallel.distribution.lat_perm``,
+pad slots giving zeros), with the plan keyed on the row tuple; the JAX
+package's sharded path runs its bucketed chirp-z transforms there instead.
+
 ``synthesis_uniform``/``analysis_uniform`` are the same transforms on rows
 of one length with a free top mode kmax (the lat-lon output rows and the
 two directions of the LAM bi-Fourier transform).
@@ -133,13 +138,20 @@ def analysis_uniform(x: torch.Tensor, kmax: int):
     return unfold(torch.fft.rfft(x, dim=-1, norm="forward"), L, kmax + 1)
 
 
-def _plan(res, device: torch.device) -> dict:
+def _plan(res, device: torch.device, rows: tuple | None = None) -> dict:
     """Row batches by NLOEN, the rows with 2*nmen >= NLOEN apart
-    (``folded``), and the (ndgl, M) mask m <= nmen(row)."""
+    (``folded``), and the (nrows, M) mask m <= nmen(row), over all of the
+    Resolution's rows or over ``rows`` (row indices; one >= ndgl is a pad
+    row of no points, in no batch and masked out), keyed on that tuple."""
     def build():
-        nloen = np.asarray(res.grid.nloen, np.int64)
-        nmen = np.minimum(np.asarray(res.nmen, np.int64), res.nsmax)
-        wide = 2 * nmen >= nloen
+        idx = (np.arange(res.ndgl) if rows is None
+               else np.asarray(rows, np.int64))
+        real = idx < res.ndgl
+        r = np.minimum(idx, res.ndgl - 1)
+        nloen = np.where(real, np.asarray(res.grid.nloen, np.int64)[r], 0)
+        nmen = np.where(real, np.minimum(np.asarray(res.nmen, np.int64)[r],
+                                         res.nsmax), -1)
+        wide = real & (2 * nmen >= nloen)
 
         def by_length(sel):
             return [(int(L), torch.as_tensor(
@@ -148,25 +160,27 @@ def _plan(res, device: torch.device) -> dict:
 
         mask = torch.as_tensor(np.arange(res.M)[None, :] <= nmen[:, None],
                                device=device)
-        return dict(batches=by_length(~wide), folded=by_length(wide),
-                    mask=mask)
+        return dict(batches=by_length(real & ~wide), folded=by_length(wide),
+                    mask=mask, nloen=nloen)
 
-    return res.cached(("fourier_plan", str(device)), build)
+    return res.cached(("fourier_plan", str(device), rows), build)
 
 
-def _adjoint_scale(res, device: torch.device, dtype: torch.dtype):
-    """(2, M, ndgl) c_m * NLOEN(row), c_0 = 1 and c_m = 2 above (0 on the
-    m = 0 imaginary part): synthesis^T = this * analysis on unfolded
-    rows."""
+def _adjoint_scale(res, device: torch.device, dtype: torch.dtype,
+                   rows: tuple | None = None):
+    """(2, M, nrows) c_m * NLOEN(row), c_0 = 1 and c_m = 2 above (0 on the
+    m = 0 imaginary part and on pad rows): synthesis^T = this * analysis
+    on unfolded rows."""
     def build():
-        nloen = np.asarray(res.grid.nloen, np.float64)
+        nloen = _plan(res, device, rows)["nloen"].astype(np.float64)
         c = np.where(np.arange(res.M) == 0, 1.0, 2.0)
-        s = np.broadcast_to(c[:, None] * nloen[None, :], (2, res.M, res.ndgl))
-        s = s.copy()
+        s = np.broadcast_to(c[:, None] * nloen[None, :],
+                            (2, res.M, nloen.size)).copy()
         s[1, 0] = 0.0
         return torch.tensor(s, dtype=dtype, device=device)
 
-    return res.cached(("fourier_adjoint_scale", dtype, str(device)), build)
+    return res.cached(("fourier_adjoint_scale", dtype, str(device), rows),
+                      build)
 
 
 class _Synthesis(torch.autograd.Function):
@@ -174,15 +188,16 @@ class _Synthesis(torch.autograd.Function):
     cotangent's analysis times c_m * NLOEN (``_adjoint_scale``)."""
 
     @staticmethod
-    def forward(ctx, fourier, res):
-        ctx.res = res
-        return _synthesis(fourier, res)
+    def forward(ctx, fourier, res, rows):
+        ctx.res, ctx.rows = res, rows
+        return _synthesis(fourier, res, rows)
 
     @staticmethod
     def backward(ctx, grad):
-        res = ctx.res
-        return (_analysis(grad, res)
-                * _adjoint_scale(res, grad.device, grad.dtype), None)
+        res, rows = ctx.res, ctx.rows
+        return (_analysis(grad, res, rows)
+                * _adjoint_scale(res, grad.device, grad.dtype, rows),
+                None, None)
 
 
 class _Analysis(torch.autograd.Function):
@@ -192,75 +207,82 @@ class _Analysis(torch.autograd.Function):
     synthesis)."""
 
     @staticmethod
-    def forward(ctx, grid, res):
-        ctx.res = res
-        return _analysis(grid, res)
+    def forward(ctx, grid, res, rows):
+        ctx.res, ctx.rows = res, rows
+        return _analysis(grid, res, rows)
 
     @staticmethod
     def backward(ctx, grad):
-        res = ctx.res
-        scale = _adjoint_scale(res, grad.device, grad.dtype)
-        return _synthesis(grad / scale[0], res), None
+        res, rows = ctx.res, ctx.rows
+        scale = _adjoint_scale(res, grad.device, grad.dtype, rows)
+        return _synthesis(grad / scale[0], res, rows), None, None
 
 
-def synthesis(fourier: torch.Tensor, res) -> torch.Tensor:
-    """(nfld, 2, M, ndgl) Fourier coefficients -> (nfld, ndgl, ndlon) grid."""
-    out = _Synthesis.apply(fourier, res)
-    plan = _plan(res, fourier.device)
-    for L, rows in plan["folded"]:
+def synthesis(fourier: torch.Tensor, res, rows: tuple | None = None):
+    """(nfld, 2, M, nrows) Fourier coefficients -> (nfld, nrows, ndlon)
+    grid, over all of the Resolution's rows north -> south, or over
+    ``rows`` (``_plan``; a pad row's output is 0)."""
+    out = _Synthesis.apply(fourier, res, rows)
+    plan = _plan(res, fourier.device, rows)
+    for L, idx in plan["folded"]:
         # (nfld, 2, M, rows) -> (nfld, rows, M), modes above nmen zeroed
-        four = fourier.index_select(3, rows).transpose(2, 3)
-        four = four * plan["mask"].index_select(0, rows)
+        four = fourier.index_select(3, idx).transpose(2, 3)
+        four = four * plan["mask"].index_select(0, idx)
         g = synthesis_uniform(four[:, 0], four[:, 1], L)
-        out = out.index_copy(1, rows, _pad_to(g, res.grid.ndlon))
+        out = out.index_copy(1, idx, _pad_to(g, res.grid.ndlon))
     return out
 
 
-def analysis(grid: torch.Tensor, res) -> torch.Tensor:
-    """(nfld, ndgl, ndlon) grid -> (nfld, 2, M, ndgl) Fourier coefficients."""
-    spec = _Analysis.apply(grid, res)
-    plan = _plan(res, grid.device)
-    for L, rows in plan["folded"]:
-        re, im = analysis_uniform(grid.index_select(1, rows)[..., :L],
+def analysis(grid: torch.Tensor, res, rows: tuple | None = None):
+    """(nfld, nrows, ndlon) grid -> (nfld, 2, M, nrows) Fourier
+    coefficients, over all rows or over ``rows`` as ``synthesis``."""
+    spec = _Analysis.apply(grid, res, rows)
+    plan = _plan(res, grid.device, rows)
+    for L, idx in plan["folded"]:
+        re, im = analysis_uniform(grid.index_select(1, idx)[..., :L],
                                   res.M - 1)
-        mask = plan["mask"].index_select(0, rows)
+        mask = plan["mask"].index_select(0, idx)
         four = torch.stack([re, im], 1) * mask        # (nfld, 2, rows, M)
-        spec = spec.index_copy(3, rows, four.transpose(2, 3))
+        spec = spec.index_copy(3, idx, four.transpose(2, 3))
     return spec
 
 
-def _synthesis(fourier: torch.Tensor, res) -> torch.Tensor:
-    nfld, _, M, ndgl = fourier.shape
-    if M != res.M or ndgl != res.ndgl:
-        raise ValueError(f"synthesis expects (nfld, 2, {res.M}, {res.ndgl}), "
-                         f"got {tuple(fourier.shape)}")
-    plan = _plan(res, fourier.device)
-    # (ndgl, nfld, M) complex, rows leading so each batch is one gather
+def _nrows(res, rows) -> int:
+    return res.ndgl if rows is None else len(rows)
+
+
+def _synthesis(fourier: torch.Tensor, res, rows=None) -> torch.Tensor:
+    nfld, _, M, nrow = fourier.shape
+    if M != res.M or nrow != _nrows(res, rows):
+        raise ValueError(f"synthesis expects (nfld, 2, {res.M}, "
+                         f"{_nrows(res, rows)}), got {tuple(fourier.shape)}")
+    plan = _plan(res, fourier.device, rows)
+    # (nrows, nfld, M) complex, rows leading so each batch is one gather
     spec = torch.view_as_complex(fourier.permute(3, 0, 2, 1).contiguous())
     spec = spec * plan["mask"][:, None, :]
     spec[..., 0] = spec[..., 0].real.to(spec.dtype)
-    out = fourier.new_zeros((ndgl, nfld, res.grid.ndlon))
-    for L, rows in plan["batches"]:
+    out = fourier.new_zeros((nrow, nfld, res.grid.ndlon))
+    for L, idx in plan["batches"]:
         nk = min(M, L // 2 + 1)
-        x = spec.index_select(0, rows)[..., :nk]
-        out[rows, :, :L] = torch.fft.irfft(x, n=L, dim=-1, norm="forward")
+        x = spec.index_select(0, idx)[..., :nk]
+        out[idx, :, :L] = torch.fft.irfft(x, n=L, dim=-1, norm="forward")
     return out.transpose(0, 1).contiguous()
 
 
-def _analysis(grid: torch.Tensor, res) -> torch.Tensor:
-    nfld, ndgl, ndlon = grid.shape
-    if ndgl != res.ndgl or ndlon != res.grid.ndlon:
-        raise ValueError(f"analysis expects (nfld, {res.ndgl}, "
+def _analysis(grid: torch.Tensor, res, rows=None) -> torch.Tensor:
+    nfld, nrow, ndlon = grid.shape
+    if nrow != _nrows(res, rows) or ndlon != res.grid.ndlon:
+        raise ValueError(f"analysis expects (nfld, {_nrows(res, rows)}, "
                          f"{res.grid.ndlon}), got {tuple(grid.shape)}")
     M = res.M
-    plan = _plan(res, grid.device)
-    rows_first = grid.transpose(0, 1)              # (ndgl, nfld, ndlon)
+    plan = _plan(res, grid.device, rows)
+    rows_first = grid.transpose(0, 1)              # (nrows, nfld, ndlon)
     cdt = torch.complex128 if grid.dtype == torch.float64 else torch.complex64
-    spec = torch.zeros((ndgl, nfld, M), dtype=cdt, device=grid.device)
-    for L, rows in plan["batches"]:
+    spec = torch.zeros((nrow, nfld, M), dtype=cdt, device=grid.device)
+    for L, idx in plan["batches"]:
         nk = min(M, L // 2 + 1)
-        x = rows_first.index_select(0, rows)[..., :L]
-        spec[rows, :, :nk] = torch.fft.rfft(x, dim=-1, norm="forward")[..., :nk]
+        x = rows_first.index_select(0, idx)[..., :L]
+        spec[idx, :, :nk] = torch.fft.rfft(x, dim=-1, norm="forward")[..., :nk]
     spec = spec * plan["mask"][:, None, :]
-    # (ndgl, nfld, M, 2) -> (nfld, 2, M, ndgl)
+    # (nrows, nfld, M, 2) -> (nfld, 2, M, nrows)
     return torch.view_as_real(spec).permute(1, 3, 2, 0).contiguous()

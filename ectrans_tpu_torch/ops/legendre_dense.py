@@ -260,8 +260,15 @@ def legendre_inv_dense(dense: torch.Tensor, fl,
     """Inverse LT: (nfld, 2, M, NP) dense spectral -> (nfld, 2, M, ndgl)
     Fourier coefficients, latitudes north -> south (fl: FullLegendre);
     K7 on stacked hemispheres with ``pack2``, else K1."""
-    nfld = dense.shape[0]
-    d2 = diag_realign(dense)
+    return legendre_inv_rows(diag_realign(dense), fl, pack2)
+
+
+def legendre_inv_rows(d2: torch.Tensor, fl,
+                      pack2: bool = False) -> torch.Tensor:
+    """``legendre_inv_dense`` on realigned rows d2 (nfld, 2, M', W) with
+    W >= every group's J, each group at rows [g.m0, g.m1) (the distributed
+    transforms' local m-blocks, in which row index is not m)."""
+    nfld = d2.shape[0]
     parts = []
     for g in fl.groups:
         dg = group_rows(d2[..., :g.J], g)

@@ -8,7 +8,8 @@ reference's per-m loops:
 * ``uv_to_vordiv`` — UVTVD (``uvtvd_mod.F90:103-139``) on the dense layout
   (the "xla" and "pallas" engines' direct transform);
 * ``uv_to_vordiv_rows`` — UVTVD on one m-group of the direct Legendre
-  kernel's m-major realigned rows (the "dense" and "planes" engines).
+  kernel's m-major realigned rows (the "dense" and "planes" engines), and
+  ``vordiv_rows`` on every group's, reordered for the packing.
 
 Coefficient tables are functions of (m, n) only, built in float64 numpy by
 the ``*_coeff_tables`` functions; ``Resolution.device_tables`` casts them.
@@ -159,3 +160,17 @@ def uv_to_vordiv_rows(rows: torch.Tensor, m0: int, nuv: int, nfld: int,
     div_re = (-mvec * u_im + p * _shift_up(v_re) - q * _shift_down(v_re)) * valid
     div_im = (mvec * u_re + p * _shift_up(v_im) - q * _shift_down(v_im)) * valid
     return torch.cat([vor_re, div_re, vor_im, div_im], dim=1)
+
+
+def vordiv_rows(rows_list: list, groups, nuv: int, nfld: int,
+                t: dict) -> list:
+    """UVTVD on every group's c-major realigned rows (``uv_to_vordiv_rows``,
+    the group's first row at ``g.m0`` of the tables ``t``), the channels
+    reordered to [vor, div, scalars] c-major, nfld rows a component."""
+    out = []
+    for rows, g in zip(rows_list, groups):
+        vd = uv_to_vordiv_rows(rows, g.m0, nuv, nfld, t)
+        out.append(torch.cat([vd[:, : 2 * nuv], rows[:, 2 * nuv: nfld],
+                              vd[:, 2 * nuv:], rows[:, nfld + 2 * nuv:]],
+                             dim=1))
+    return out

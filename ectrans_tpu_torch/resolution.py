@@ -469,6 +469,8 @@ def _setup_banner(res: Resolution) -> None:
 _CURRENT: list = []  # most recently set up Resolutions (GET_CURRENT parity)
 # every Resolution the setup cache made, to drop their state in trans_end
 _MADE: weakref.WeakSet = weakref.WeakSet()
+# callables that free state a higher layer caches outside the Resolutions
+ON_TRANS_END: list = []
 
 
 def get_current() -> Resolution | None:
@@ -479,11 +481,14 @@ def get_current() -> Resolution | None:
 
 def trans_end() -> None:
     """Release every cached resolution and the tables, plans and index maps
-    it caches on any device (reference TRANS_END, ``trans_end.F90``).
-    Resolutions held by a caller keep working: their state is made again
-    on first use."""
+    it caches on any device, and what the modules that registered in
+    ``ON_TRANS_END`` keep beside them (reference TRANS_END,
+    ``trans_end.F90``).  Resolutions held by a caller keep working: their
+    state is made again on first use."""
     _CURRENT.clear()
     _setup_cached.cache_clear()
+    for release in ON_TRANS_END:
+        release()
     for res in list(_MADE):
         res.drop_cached()
     _MADE.clear()

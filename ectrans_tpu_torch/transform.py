@@ -149,12 +149,55 @@ def _check_grid_arg(name, arr, res):
             f"ndlon={res.grid.ndlon}), got {tuple(arr.shape)}")
 
 
-def _ew_derivative(four: torch.Tensor, racthe: torch.Tensor) -> torch.Tensor:
-    """i*m*F scaled by 1/(a cos): Fourier-space E-W derivative (FSC)."""
-    M = four.shape[2]
-    mvec = torch.arange(M, dtype=four.dtype, device=four.device)[None, :, None]
-    re, im = four[:, 0], four[:, 1]
-    return torch.stack([-im * mvec, re * mvec], dim=1) * racthe
+def legendre_inputs(dvor, ddiv, dsc, flags: InvFlags, vd: dict,
+                    nsd: dict) -> list:
+    """The inverse LT's input groups from dense vor/div (None without
+    winds) and scalars (None without), in the engine's row layout:
+    [vor?, div?, u, v, scalars, N-S derivatives?] (VDTUV, SPNSDE)."""
+    out = []
+    if dvor is not None:
+        du, dv = spectral.vordiv_to_uv(dvor, ddiv, vd)
+        out += [x for x, on in ((dvor, flags.vorgp), (ddiv, flags.divgp))
+                if on] + [du, dv]
+    if dsc is not None:
+        out.append(dsc)
+        if flags.scders:
+            out.append(spectral.ns_derivative(dsc, nsd))
+    return out
+
+
+def fsc(four: torch.Tensor, nuv: int, nsc: int, flags: InvFlags,
+        racthe: torch.Tensor) -> torch.Tensor:
+    """FSC on Fourier rows (F1, 2, M, rows), m in natural order: the
+    inverse LT's groups (``legendre_inputs``) -> the PGP groups, u, v and
+    the N-S derivatives times 1/(a cos) of each row (``racthe``), the E-W
+    derivatives i*m*F/(a cos) appended."""
+    mval = torch.arange(four.shape[2], dtype=four.dtype,
+                        device=four.device)[None, :, None]
+
+    def ew(x):
+        return torch.stack([-x[:, 1] * mval, x[:, 0] * mval], 1) * racthe
+
+    i, out = 0, []
+    for on in (nuv and flags.vorgp, nuv and flags.divgp):
+        if on:
+            out.append(four[i: i + nuv])
+            i += nuv
+    uvf = scf = None
+    if nuv:
+        uvf = four[i: i + 2 * nuv] * racthe
+        out.append(uvf)
+        i += 2 * nuv
+    if nsc:
+        scf = four[i: i + nsc]
+        out.append(scf)
+        if flags.scders:
+            out.append(four[i + nsc: i + 2 * nsc] * racthe)
+    if nuv and flags.uvders:
+        out.append(ew(uvf))
+    if nsc and flags.scders:
+        out.append(ew(scf))
+    return torch.cat(out)
 
 
 def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
@@ -191,25 +234,15 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
     device = _device_of(spvor, spdiv, spscalar)
     tables = res.device_tables(dtype, device)
     gl = _leg_tables(res, eng, dtype, precision, device)
-    racthe = tables.racthe
+
+    def dense(x):
+        return (None if x is None
+                else layout.packed_to_dense(x.to(dtype), tables))
 
     # all fields go through ONE Legendre call: the tables are streamed once
-    lt_inputs = []
-    if nfld_uv:
-        dvor = layout.packed_to_dense(spvor.to(dtype), tables)
-        ddiv = layout.packed_to_dense(spdiv.to(dtype), tables)
-        du, dv = spectral.vordiv_to_uv(dvor, ddiv, tables.vd)
-        if flags.vorgp:
-            lt_inputs.append(dvor)
-        if flags.divgp:
-            lt_inputs.append(ddiv)
-        lt_inputs += [du, dv]
-    if nfld_sc:
-        dsc = layout.packed_to_dense(spscalar.to(dtype), tables)
-        lt_inputs.append(dsc)
-        if flags.scders:
-            lt_inputs.append(spectral.ns_derivative(dsc, tables.nsd))
-    dense_all = torch.cat(lt_inputs)
+    dense_all = torch.cat(legendre_inputs(
+        dense(spvor), dense(spdiv), dense(spscalar), flags, tables.vd,
+        tables.nsd))
     if eng == "dense":
         four_all = legendre_dense.legendre_inv_dense(dense_all, gl, pack2)
     elif eng == "planes":
@@ -218,25 +251,7 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
         sym, asym = layout.dense_to_parity(dense_all, res.kmax)
         four_all = legendre_matmul.inv_grouped(sym, asym, gl, eng)
 
-    parts = list(torch.split(four_all, [x.shape[0] for x in lt_inputs]))
-    out_groups = []
-    uv_four = sc_four = None
-    if nfld_uv:
-        out_groups += parts[: int(flags.vorgp) + int(flags.divgp)]
-        uv_four = torch.cat(parts[len(out_groups): len(out_groups) + 2]) * racthe
-        out_groups.append(uv_four)
-    if nfld_sc:
-        k = len(parts) - (2 if flags.scders else 1)
-        sc_four = parts[k]
-        out_groups.append(sc_four)
-        if flags.scders:
-            out_groups.append(parts[k + 1] * racthe)
-    if nfld_uv and flags.uvders:
-        out_groups.append(_ew_derivative(uv_four, racthe))
-    if nfld_sc and flags.scders:
-        out_groups.append(_ew_derivative(sc_four, racthe))
-
-    four = torch.cat(out_groups)
+    four = fsc(four_all, nfld_uv, nfld_sc, flags, tables.racthe)
     if fspgl_proc is not None:
         four = fspgl_proc(four)
     return fourier.synthesis(four, res)
@@ -358,18 +373,11 @@ def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
         rows_list = legendre_dense.legendre_dir_rows(four, gl, w, pack2)
     else:
         rows_list = legendre_matmul.dir_rows_planes(four, gl, w, precision)
-    nfld = four.shape[0]
     if nfld_uv:
-        # UVTVD per group on the kernel's rows; reorder the channels to
-        # c-major [vor, div, scalars]
-        out_rows = []
-        for rows, g in zip(rows_list, gl.groups):
-            vd = spectral.uv_to_vordiv_rows(rows, g.m0, nfld_uv, nfld,
-                                            tables.uvtvd_mm)
-            out_rows.append(torch.cat([
-                vd[:, : 2 * nfld_uv], rows[:, 2 * nfld_uv: nfld],
-                vd[:, 2 * nfld_uv:], rows[:, nfld + 2 * nfld_uv:]], dim=1))
-        rows_list = out_rows
+        # UVTVD per group on the kernel's rows, channels to c-major
+        # [vor, div, scalars]
+        rows_list = spectral.vordiv_rows(rows_list, gl.groups, nfld_uv,
+                                         four.shape[0], tables.uvtvd_mm)
     return pack.packed_from_group_rows(rows_list, res)
 
 

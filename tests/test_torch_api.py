@@ -21,7 +21,9 @@ import ectrans_tpu_torch as ett
 from ectrans_tpu_torch import convert, norms
 from ectrans_tpu_torch.resolution import get_current, printlev, trans_end
 
+from ectrans_tpu_torch.parallel import make_mesh
 from test_torch_setup import numpy_state
+from torch_world import one_rank_world
 from test_torch_transform import JDT, assert_close, packed
 
 BENCH = dict(scders=True, uvders=True)
@@ -312,12 +314,25 @@ def test_setup_banner(capsys, monkeypatch):
     assert printlev() == 0
 
 
-def test_not_ported_options_raise(handles):
+def test_not_ported_options_raise(handles, tmp_path):
     _, st = handles
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # mesh= takes a Mesh of parallel.make_mesh and refuses anything else;
+    # without a mesh the distributed keys of inquire() are absent
+    with pytest.raises(TypeError, match="Mesh from make_mesh"):
         ett.SpectralTransform("O48", 47, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        st._inquire_distributed()
+    assert st._inquire_distributed() == {}
+    # and a mesh works: a world of one rank, whose (1, 1) mesh gives the
+    # handle's results (fp64, 1e-12 of the largest value)
+    sp = [packed(st.res, n, seed) for n, seed in ((1, 11), (1, 12), (2, 13))]
+    want = st.inv_trans(*sp, flags=ett.InvFlags(**BENCH))
+    with one_rank_world(tmp_path):
+        sm = ett.SpectralTransform("O48", 47, mesh=make_mesh(device="cpu"),
+                                   dtype=torch.float64)
+        got = sm.inv_trans(*[sm.dist_spec(x) for x in sp],
+                           flags=ett.InvFlags(**BENCH))
+        assert sm.inquire()["nprtrw"] == 1 and sm.device.type == "cpu"
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-12 * want.abs().max().item())
     # the lat-lon methods are ported: the handle's outputs are the
     # function API's
     ll = ett.LatLonGrid(19, 36)

@@ -823,3 +823,94 @@ def test_phase10_helpers(smoke):
     assert ext.dtype == back.dtype == torch.float32
     assert torch.equal(ext64[:, :37, :53], field)
     assert max(smoke.field_shares(back, back64, smoke.LATLON_GATE)) < 1.0
+
+
+# -- phase 11: the distributed transforms on four ranks sharing the card ----
+
+def test_mesh_rows_cover_the_phase(smoke):
+    """The rows (a)-(f), in the order the ranks run them ((e) shares (a)'s
+    TCO1279 handle); (b) and (c) on all six meshes, each within the four
+    ranks; the full-width configuration."""
+    rows = smoke.mesh_rows()
+    assert [k for k, _, _ in rows] == ["a", "e", "b", "c", "d", "f"]
+    assert smoke.MESH_SHAPES == ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1),
+                                 (1, 4))
+    for key, _, meshes in rows:
+        assert all(w * v <= smoke.MESH_WORLD for w, v in meshes), key
+        if key in "bc":
+            assert meshes == smoke.MESH_SHAPES
+    cfg = smoke.MESH_CONFIG
+    assert (cfg["bench"], cfg["latlon"], cfg["small"]) == (
+        "TCO1279", (721, 1440), ("O160", 159))
+    assert cfg["lam"] == smoke.LAM_DOMAIN and cfg["device"] == "cuda"
+    assert smoke.MESH_LIMIT < 1200 / 2
+    assert (smoke.MESH_FP64_TOL, smoke.MESH_PAIR_TOL) == (1e-12, 1e-13)
+
+
+def test_mesh_tolerance_checks(smoke):
+    """family_stats per family of a shard, merged over the ranks (largest
+    difference, largest value, bit identity), as a share of the gate; an
+    empty shard counts nothing."""
+    want = torch.arange(12.0).reshape(6, 2)
+    got = want.clone()
+    got[1, 0] += 0.5        # family 0 (fields 0-1)
+    got[5, 1] -= 2.0        # family 2 (fields 3-5)
+    stats = smoke.family_stats(got, want.numpy(), [2, 1, 3])
+    assert stats == [[0.5, 3.0, False], [0.0, 5.0, True], [2.0, 11.0, False]]
+    empty = smoke.family_stats(got[:0], want[:0].numpy(), [0])
+    assert empty == [[0.0, 0.0, True]]
+    other = [[0.25, 7.0, True], [1.0, 1.0, False], [0.0, 20.0, True]]
+    merged = smoke.merge_families([stats, other])
+    assert merged == [[0.5, 7.0, False], [1.0, 5.0, False],
+                      [2.0, 20.0, False]]
+    assert smoke.worst_share(merged, 0.01) == pytest.approx(
+        max(0.5 / 0.07, 1.0 / 0.05, 2.0 / 0.2))
+
+
+def _mesh_reps(smoke, k3=1):
+    """Four ranks' phase 11 reports, as mesh_rank writes them, of a run
+    that passes (bit-identical shards)."""
+    ok = [0.0, 1.0, True]
+    reps = []
+    for r in range(4):
+        a = dict(setup=1.0, first=2.0, median=3.0, peak=4.0, groups=16,
+                 launches={"K1": 16, "K2": 16, "K3": k3 if r == 2 else 1,
+                           "K4": 1},
+                 traffic={"TRMTOL": 2**20, "grid": 2**21},
+                 grid=[ok] * 7, spec=[ok] * 3,
+                 gate=[[1e-6, 2.0], [1e-6, 2.0], [1e-6, 3.0]], seconds=5.0)
+        e = dict(first=1.0, peak=2.0, seconds=1.0, fields=[ok] * 26,
+                 launches={"K1": 0, "K2": 0, "K3": 0, "K4": 1})
+        b = {f"{w}x{v}": dict(inv=1e-15, dir=2e-15, launches={})
+             for w, v in smoke.MESH_SHAPES if r < w * v}
+        b["seconds"] = 1.0
+        if r == 0:
+            b["pairs"] = 1e-15
+        c = {key: dict(launches={"K1": 16, "K2": 16, "K3": 1, "K4": 1},
+                       grid=[ok] * 9, spec=[ok] * 3)
+             for key in [f"{w}x{v}" for w, v in smoke.MESH_SHAPES
+                         if r < w * v] + ["2x2 bf16"]}
+        c["seconds"] = 1.0
+        d = {"seconds": 1.0}
+        if r < 2:
+            d["1x2"] = dict(inv=0.0, dir=0.0, nout=30)
+        f = dict(first_inv=1.0, first_dir=1.0, peak=1.0, launches={},
+                 grid=[ok] * 9, spec=[ok] * 5, seconds=1.0)
+        reps.append(dict(a=a, e=e, b=b, c=c, d=d, f=f))
+    return reps
+
+
+def test_mesh_report_merges_launches_into_the_kernels_line(smoke, capsys):
+    """mesh_report checks every row and returns (a)'s K1-K4 and (e)'s K4
+    summed over the ranks, which main adds to the kernels line's launches
+    (merge_launches); a rank without its K3 launch fails the phase."""
+    added = smoke.mesh_report(_mesh_reps(smoke), 1.0, 2.0, "card")
+    assert added == {"K1": 64, "K2": 64, "K3": 4, "K4": 8}
+    out = capsys.readouterr().out
+    for row in "abcdef":
+        assert f"phase 11 ({row})" in out
+    launches = {"K1": 144, "K3": 10, "K5": 16}
+    assert smoke.merge_launches(launches, [added]) == added
+    assert launches == {"K1": 208, "K2": 64, "K3": 14, "K4": 8, "K5": 16}
+    with pytest.raises(RuntimeError, match="rank 2 launched"):
+        smoke.mesh_report(_mesh_reps(smoke, k3=0), 1.0, 2.0, "card")

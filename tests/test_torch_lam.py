@@ -16,6 +16,8 @@ from ectrans_tpu import latlon as jlatlon
 import ectrans_tpu_torch as ett
 from ectrans_tpu_torch import convert, lam
 from ectrans_tpu_torch.lam import LamInvFlags
+from ectrans_tpu_torch.parallel import make_mesh
+from torch_world import one_rank_world
 
 SIZES = {"48x40": dict(nx=48, ny=40),
          "64x48": dict(nx=64, ny=48, nxux=53, nyux=37, dx=2.0, dy=3.0)}
@@ -294,17 +296,27 @@ def test_handle_on_the_cpu():
         torch.float32)
 
 
-def test_handle_refusals():
-    """mesh= names the distributed transforms' queue item; without a card
-    the default handle refuses to start (no fallback to the CPU)."""
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_handle_refusals(tmp_path):
+    """mesh= takes a Mesh of parallel.make_mesh and refuses anything else
+    (a one-rank mesh gives the handle's results); without a card the
+    default handle refuses to start (no fallback to the CPU)."""
+    with pytest.raises(TypeError, match="Mesh from make_mesh"):
         ett.LamTransform(48, 40, mesh=object(), device="cpu")
+    lt = ett.LamTransform(48, 40, dtype=torch.float64, device="cpu")
+    spec = random_packed(lt.res, 2, 36)
+    want = lt.inv_trans(spscalar=spec)
+    with one_rank_world(tmp_path):
+        lm = ett.LamTransform(48, 40, mesh=make_mesh(device="cpu"),
+                              dtype=torch.float64)
+        got = lm.inv_trans(spscalar=lm.dist_spec(spec))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-12 * want.abs().max().item())
     if torch.cuda.is_available():
         assert ett.LamTransform(48, 40).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ett.LamTransform(48, 40)
-    assert not hasattr(lam, "ShardedLamTransform")
+    assert lam.ShardedLamTransform is lam.sharded.ShardedLamTransform
     res = lam.setup_lam(lam.make_lam_grid(48, 40))
     with pytest.raises(ValueError, match="together"):
         lam.inv_trans_lam(res, spvor=torch.zeros(1, res.nspec2))
