@@ -126,7 +126,14 @@ After phase 7, three phases at full width:
    evaluation by direct sums at 10 sample rows (both poles and their
    neighbours, the equator and its neighbours, rows between):
    ``compute_legendre_table`` and explicit cos/sin sums over every
-   longitude, no FFT and no folding code; (c) ``dir_trans_latlon`` fp32
+   longitude, no FFT and no folding code, and the fp64 output there
+   within 1e-10 of each field's largest |value|, with the host sums, the
+   fp64 lat-lon tables built anew and a second fp64 call bit-identical
+   (the last two in memory filled with NaN first, so that a read of an
+   unwritten element shows) and the card's fp64 tables at the rows' nodes
+   within 1e-11 of the host's recurrence (``c1_probe``, not run here,
+   also holds the card's fp64 output against the same code on the CPU);
+   (c) ``dir_trans_latlon`` fp32
    against fp64 (the Gaussian tables by K4, a launch a group), and the
    interpolation-limited round trip of the scalars truncated at n <= 319
    (printed: the error on n <= 319 and the aliases above it); (d) the
@@ -166,10 +173,23 @@ After phase 7, three phases at full width:
    the plain mesh call; (f) the LAM of phase 10 on (2, 2), both
    directions against phase 10's outputs at 100 eps, no kernel.
 
+12. the programs (``ectrans_tpu_torch.programs``), each run's lines printed
+   behind its row: (a) ``info`` names the card; (b) the global driver at
+   TCO1279 on bench.py's field set (``-f 3 -l 2 --vordiv --scders
+   --uvders``, 26 grid fields) in fp32, ``-n 5 --check 100 --meminfo``, in
+   this process through ``main(argv)``: its check OK, K1 and K2 16 times a
+   transform, K3 once a direct transform, K4 once (first call, medians,
+   throughput, peak); (c) the same in fp64 at ``-n 2`` (K1 and K2 in their
+   fp64 variant); (d) (b)'s flags with ``--mesh 2x2`` as a command (4
+   ranks on the card over gloo, started by ``programs/world.py``): its
+   check OK and each field's norm in its checksum file within 100 eps(fp32)
+   niter of (b)'s; (e) the LAM driver at phase 10's domain and field
+   count: its check OK, no kernel.
+
 Each prints its times, peak memory and seconds.  Then one JSON line with the
 kernels (K1-K4's launches: phase 4's and phase 8's (a) and (b), K4's of
-phase 9, and phase 11's (a) and (e) summed over its ranks), and last the
-line
+phase 9, phase 11's (a) and (e) summed over its ranks, and phase 12's (b)
+and (c)), and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 2 before doing anything.  TF32 is off for every
 matmul and convolution (the plain Legendre versions use torch.bmm).
@@ -179,6 +199,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
 import statistics
@@ -1643,6 +1664,15 @@ EPS32 = float(np.finfo(np.float32).eps)
 LATLON_GATE = 100 * EPS32
 LATLON = (721, 1440)
 LATLON_TRUNC = 319           # (c)'s interpolation-limited round trip
+# (b)'s fp64 lat-lon output against the host's direct sums, of each field's
+# largest |value|: ~4.5e5 fp64 eps, room for two different fp64 Legendre
+# recurrences over 1,280 degrees (K4's and the host's) and sums of ~1,300
+# terms in two orders; a wrong or unwritten element shows far above it
+LATLON_FP64_TOL = 1e-10
+# and the card's fp64 lat-lon tables at those rows' nodes against the host's
+# recurrence, of the tables' largest |value|: both fp64 recurrences are
+# ~5e-12 from a long-double one next to the poles (tests/test_torch_legendre)
+LATLON_TABLE_TOL = 1e-11
 LAM_DOMAIN = dict(nx=1536, ny=1280, nxux=1440, nyux=1200, dx=1300.0,
                   dy=1300.0)
 LAM_NUV, LAM_NSC = 10, 10
@@ -1754,6 +1784,89 @@ def truncated_errors(back, spec, res, nmax: int) -> tuple:
         (back.abs() * ~low).max() / scale).item()
 
 
+def fill_free_memory(dev: torch.device, share: float = 0.5) -> None:
+    """Fill ``share`` of the card's free memory with all bits set (NaN in
+    fp32 and fp64) and hand it back to the caching allocator, whose next
+    blocks come from it: a kernel or a wrapper that reads an element it
+    never wrote then reads NaN."""
+    x = torch.empty(int(torch.cuda.mem_get_info(dev)[0] * share),
+                    dtype=torch.uint8, device=dev)
+    x.fill_(255)
+    del x
+
+
+def latlon_fp64_checks(res, ll, st64, sp, flags, grid64, want, rows,
+                       dev: torch.device) -> dict:
+    """Phase 9(b)'s fp64 reading held still (ROADMAP C1): the host's direct
+    sums ``want`` again, bit for bit; the fp64 lat-lon tables built anew by
+    K4 and a second fp64 call, both in memory filled with NaN first
+    (``fill_free_memory``), bit-identical to the first; and the card's
+    tables at the nodes of the sample ``rows`` against the host's fp64
+    recurrence (``build_parity_tables``, the CPU's tables), relative to
+    their largest |value|."""
+    from ectrans_tpu_torch import latlon
+    from ectrans_tpu_torch.legendre import build_parity_tables
+
+    same = {"host sums": torch.equal(want, latlon_direct(res, ll, sp, flags,
+                                                         rows))}
+    gl = latlon.latlon_tables(res, ll, torch.float64, dev)[0]
+    fill_free_memory(dev)
+    again = latlon._build_tables(res, ll, torch.float64, dev)[0]
+    same["tables"] = all(torch.equal(a.psym, b.psym) and
+                         torch.equal(a.pasym, b.pasym)
+                         for a, b in zip(gl.groups, again.groups))
+    del again
+    same["fp64 call"] = torch.equal(
+        grid64, st64.inv_trans_latlon(ll, *sp, flags=flags))
+    nodes = sorted({min(r, ll.nlat - 1 - r) for r in rows})
+    psym, pasym, _ = build_parity_tables(res.nsmax, ll.mu[nodes], 1)
+    err = scale = 0.0
+    for g in gl.groups:
+        for card, host in ((g.psym, psym), (g.pasym, pasym)):
+            ref = torch.from_numpy(host[g.m0:g.m1, :, :g.kg])
+            err = max(err, (card[:, nodes].cpu() - ref).abs().max().item())
+            scale = max(scale, ref.abs().max().item())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(same=same, nodes=err / scale)
+
+
+def c1_probe(dev: torch.device, name: str = "TCO1279",
+             shape=LATLON) -> dict:
+    """Phase 9(b)'s fp64 reading taken apart (not a phase: run it behind
+    ``phase_build``): the card's fp64 lat-lon output at the sample rows
+    against the same code on the CPU (``device="cpu"``: its tables from the
+    host's fp64 recurrence, its einsums and FFTs on the CPU) and against
+    the host's direct sums, each field relative to its largest |value|;
+    the worst field and row.  Prints and returns one JSON object."""
+    import ectrans_tpu_torch as ett
+
+    st64 = ett.SpectralTransform(name, dtype=torch.float64, device=dev)
+    res = st64.res
+    ll = ett.LatLonGrid(*shape)
+    flags = ett.InvFlags(scders=True, uvders=True)
+    rows = sample_rows(shape[0])
+    sp = [x.to(dev) for x in bench_inputs(res.nspec2, res.nsmax)]
+    card = st64.inv_trans_latlon(ll, *sp, flags=flags)[:, rows].cpu()
+    host = latlon_direct(res, ll, sp, flags, rows)
+    t0 = time.perf_counter()
+    cpu = ett.inv_trans_latlon(res, ll, *(x.cpu() for x in sp), flags=flags,
+                               dtype=torch.float64)[:, rows]
+    t_cpu = time.perf_counter() - t0
+    res.drop_cached("latlon_tables")
+    card_host = field_shares(card, host, 1.0)
+    f = int(np.argmax(card_host))
+    by_row = ((card[f] - host[f]).abs().amax(1)
+              / host[f].abs().max()).tolist()
+    out = dict(card_host=max(card_host), card_cpu=max(field_shares(
+        card, cpu, 1.0)), cpu_host=max(field_shares(cpu, host, 1.0)),
+        worst_field=f, rows=rows, by_row=by_row,
+        card_host_by_field=card_host, cpu_seconds=t_cpu)
+    print(json.dumps({"c1_probe": out}))
+    ett.trans_end()
+    return out
+
+
 def hold_k4_latlon(res, ll, dev: torch.device) -> tuple:
     """K4 at the lat-lon nodes (the north pole's row included; its sectoral
     seeds of m > 0 are 0) against its plain version: (max abs difference,
@@ -1831,9 +1944,19 @@ def phase_latlon(dev: torch.device, counters: dict,
     b64 = field_shares(grid64[:, rows].cpu(), want, 1.0)
     worst64 = int(np.argmax(b64))
     share_b64 = b64[worst64]
-    same64 = torch.equal(grid64, st64.inv_trans_latlon(ll, *sp, flags=flags))
     check(share_b <= 1.0, f"lat-lon fp32 vs the host's direct sums: "
                           f"{share_b:.3f} of 100 eps")
+    peak_b = torch.cuda.max_memory_allocated()
+    c1 = latlon_fp64_checks(res, ll, st64, sp, flags, grid64, want, rows,
+                            dev)
+    torch.cuda.reset_peak_memory_stats()
+    check(share_b64 <= LATLON_FP64_TOL and all(c1["same"].values())
+          and c1["nodes"] <= LATLON_TABLE_TOL,
+          f"lat-lon fp64 vs the host's direct sums: {share_b64:.3e} of the "
+          f"field's largest |value| (at most {LATLON_FP64_TOL:g}); "
+          f"bit-identical {c1['same']}; tables at the rows' nodes "
+          f"{c1['nodes']:.3e} from the host's (at most "
+          f"{LATLON_TABLE_TOL:g})")
     del want, grid64
     # (c) the direct transform from the lat-lon grid
     x_grid = bench_fields(grid)
@@ -1857,7 +1980,7 @@ def phase_latlon(dev: torch.device, counters: dict,
     ident, t_adj = first_call(lambda: latlon_identity(res, ll, sp, flags, y))
     check(ident <= ADJOINT_TOL, f"lat-lon adjoint identity {ident:.3e} over "
                                 f"2000 eps {ADJOINT_TOL:.3e}")
-    peak_all = torch.cuda.max_memory_allocated() / 2**30
+    peak_all = max(peak_b, torch.cuda.max_memory_allocated()) / 2**30
     k4 = counters["K4"].launches
     k4_err, k4_scale, k4_same = hold_k4_latlon(res, ll, dev)
     check(k4_err <= 1e-7 * k4_scale, f"K4 at the lat-lon nodes: "
@@ -1871,16 +1994,20 @@ def phase_latlon(dev: torch.device, counters: dict,
           f"median {med:.1f} ms (n 3); peak {peak:.2f} GiB; (a) vs the card's "
           f"fp64 {share_a:.3f} of 100 eps; (b) vs host direct sums at rows "
           f"{rows}: fp32 {share_b:.3f} of 100 eps, fp64 {share_b64:.2e} "
-          f"relative (field {worst64}; a second fp64 call bit-identical "
-          f"{same64}; host {t_host:.1f} s); (c) dir_trans_latlon fp32 vs "
+          f"of the field's largest |value| (field {worst64}; at most "
+          f"{LATLON_FP64_TOL:g}; bit-identical, in memory filled with NaN "
+          f"first: {c1['same']}; the card's fp64 tables at the rows' nodes "
+          f"{c1['nodes']:.2e} from the host's recurrence, at most "
+          f"{LATLON_TABLE_TOL:g}; host "
+          f"{t_host:.1f} s); (c) dir_trans_latlon fp32 vs "
           f"fp64 {share_c:.3f} of 100 eps (first call {t_dir:.3f} s), round "
           f"trip of fields truncated at n <= {LATLON_TRUNC}: {trunc_err:.3e} "
           f"of their max on n <= {LATLON_TRUNC}, {alias:.3e} above it (the "
           f"aliases of m >= {shape[1] // 2}; not gated); (d) adjoint identity {ident:.3e} "
           f"({ident / ADJOINT_TOL:.4f} of 2000 eps, {t_adj:.2f} s); peak of "
           f"the phase {peak_all:.2f} GiB; K4 launches {k4} (1 lat-lon table "
-          f"build a dtype, 16 for the Gaussian tables of each "
-          f"dir_trans_latlon dtype), at the lat-lon nodes {k4_err:.2e} from "
+          f"build a dtype and (b)'s fp64 rebuild, 16 for the Gaussian "
+          f"tables of each dir_trans_latlon dtype), at the lat-lon nodes {k4_err:.2e} from "
           f"its plain version (bit-identical {k4_same}); no Legendre or "
           f"packing kernel {launches}")
     del y, sp
@@ -2702,6 +2829,201 @@ def mesh_report(reps: list, t_world: float, t_phase: float, card: str,
     return launches
 
 
+# Phase 12: the programs of ``ectrans_tpu_torch.programs`` on the card.
+# The global driver on bench.py's field set (-f 3 -l 2 with vor/div: 2
+# vor/div pairs and 6 scalars, 26 grid fields), then the same in fp64, on a
+# 2 x 2 mesh through the command line, and the LAM driver at phase 10's
+# domain and field count.
+PROGRAM_BENCH = ("-g", "TCO1279", "-f", "3", "-l", "2", "--vordiv",
+                 "--scders", "--uvders", "-n", "5", "--check", "100",
+                 "--meminfo")
+PROGRAM_FP64 = ("--dtype", "float64", "-n", "2")   # (c): the last -n holds
+PROGRAM_MESH = "2x2"
+PROGRAM_MESH_LIMIT = 600     # s: (d)'s command, its ranks included
+PROGRAM_LAM = ("--nlon", "1536", "--nlat", "1280", "--nlon-ci", "1440",
+               "--nlat-ci", "1200", "--truncx", "767", "--truncy", "639",
+               "--dx", "1300", "--dy", "1300", "-f", "10", "--vordiv",
+               "--scders", "--uvders", "-n", "5", "--check", "100")
+PROGRAMS = dict(bench=PROGRAM_BENCH, fp64=PROGRAM_FP64, mesh=PROGRAM_MESH,
+                lam=PROGRAM_LAM, mesh_limit=PROGRAM_MESH_LIMIT)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_program(main, argv, tag: str) -> tuple:
+    """main(argv) of a program in this process, its lines printed behind
+    ``tag`` (also when it exits); returns (what main returned, its
+    output)."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rep = main(list(argv))
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"  {tag} | {line}")
+    return rep, buf.getvalue()
+
+
+def run_command(argv, tag: str, limit: float) -> str:
+    """A program as its own command (``python -m ...``, from the root of the
+    checkout), in a process group of its own that is killed whole if it
+    outlasts ``limit`` seconds; its lines printed behind ``tag``.  Fails
+    unless it exits 0.  Returns its output."""
+    import signal
+
+    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=limit)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        for line in out.splitlines():
+            print(f"  {tag} | {line}")
+        raise RuntimeError(f"{tag}: {' '.join(argv)} outlasted its "
+                           f"{limit:.0f} s limit")
+    for line in out.splitlines():
+        print(f"  {tag} | {line}")
+    check(proc.returncode == 0, f"{tag}: {' '.join(argv)} exited "
+                                f"{proc.returncode}")
+    return out
+
+
+def checksum_norms(path: str) -> list:
+    """The fp64 spectral norms of a --dump-checksums file, field by field."""
+    with open(path) as f:
+        return [float(line.split()[2]) for line in f]
+
+
+def medians_ms(out: str) -> dict:
+    """The median (ms) of each timed line of a driver's output."""
+    meds = {}
+    for line in out.splitlines():
+        if " med " in line:
+            name = line.split(" avg ")[0].strip()
+            meds[name] = float(line.split(" med ")[1].split()[0])
+    return meds
+
+
+def _fresh(counters: dict) -> None:
+    """Drop every cached Resolution and free the card's cache: the next run
+    builds its tables (one K4 launch) and its peak is its own."""
+    import ectrans_tpu_torch as ett
+
+    ett.trans_end()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+
+
+def program_line(key: str, what: str, rep: dict, out: str, peak: float,
+                 launches: dict, secs: float) -> str:
+    med = medians_ms(out)
+    return (f"phase 12 ({key}) {what}: check OK (drift {rep['drift']:.3e}); "
+            f"first call (the warm-up iteration) {rep['first']:.2f} s; "
+            f"medians (n {len(rep['t_rt'])}) "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in med.items())
+            + f"; throughput {rep['throughput']:.3e} gridpoints*fields/s; "
+            f"peak {peak:.2f} GiB; launches {launches}; {secs:.1f} s")
+
+
+def phase_programs(dev: torch.device, counters: dict,
+                   cfg: dict = PROGRAMS) -> dict:
+    """Phase 12: (a) ``info``; (b) the global driver at TCO1279 in fp32,
+    in this process through ``main(argv)``: its check OK, K1 and K2 16
+    times a transform (once an m-group), K3 once a direct transform, K4
+    once (the setup); (c) the same in fp64 (K1 and K2 in their fp64
+    variant); (d) ``--mesh 2x2`` as a command (4 ranks on the card over
+    gloo, ``programs/world.py``): its check OK and each field's norm within
+    100 eps(fp32) niter of (b)'s; (e) the LAM driver at the 1.3 km domain:
+    its check OK, no kernel.  Returns (b)'s and (c)'s launches."""
+    import shutil
+    import tempfile
+
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.programs import benchmark, info, lam_benchmark
+
+    t_phase = time.perf_counter()
+    device = ("--device", dev.type)
+    _fresh(counters)
+    _, out = run_program(lambda argv: info.main(), (), "12(a)")
+    name = (torch.cuda.get_device_name(0) if dev.type == "cuda"
+            else "no CUDA device")
+    check(f"device: {name}" in out, f"info names no {name!r}")
+    print(f"phase 12 (a) info: names the card ({name})")
+    args = benchmark.parse_args(list(cfg["bench"]))
+    groups = len(ett.setup(args.grid, args.truncation).legendre_groups())
+    total = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_programs_")
+    try:
+        norms = {}
+        for key, extra, what in (
+                ("b", (), f"benchmark {args.grid} fp32"),
+                ("c", cfg["fp64"], f"benchmark {args.grid} fp64 (K1, K2 "
+                                   "in their fp64 variant)")):
+            _fresh(counters)
+            path = os.path.join(tmp, f"{key}.sum")
+            t0 = time.perf_counter()
+            rep, out = run_program(benchmark.main, cfg["bench"] + extra
+                                   + device + ("--dump-checksums", path),
+                                   f"12({key})")
+            secs = time.perf_counter() - t0
+            calls = len(rep["t_rt"]) + 1
+            launches = {k: c.launches for k, c in counters.items()
+                        if c.launches}
+            want = {"K1": groups * calls, "K2": groups * calls, "K3": calls,
+                    "K4": 1}
+            check("-> OK" in out, f"phase 12 ({key}): the check failed")
+            check(launches == want, f"phase 12 ({key}) launched {launches}; "
+                                    f"expected {want}")
+            merge_launches(total, [launches])
+            norms[key] = checksum_norms(path)
+            peak = _peak(dev)
+            print(program_line(key, what, rep, out, peak, launches, secs))
+        _fresh(counters)
+        path = os.path.join(tmp, "d.sum")
+        t0 = time.perf_counter()
+        out = run_command(("ectrans_tpu_torch.programs.benchmark",
+                           *cfg["bench"], "--mesh", cfg["mesh"], *device,
+                           "--dump-checksums", path), "12(d)",
+                          cfg["mesh_limit"])
+        secs = time.perf_counter() - t0
+        check("-> OK" in out, "phase 12 (d): the mesh's check failed")
+        tol = 100 * EPS32 * args.niter
+        worst = max(abs(a - b) / b for a, b in zip(checksum_norms(path),
+                                                   norms["b"]))
+        check(len(checksum_norms(path)) == len(norms["b"]) and worst <= tol,
+              f"phase 12 (d): a field's norm {worst:.3e} from (b)'s "
+              f"(at most {tol:.3e})")
+        med = medians_ms(out)
+        print(f"phase 12 (d) benchmark --mesh {cfg['mesh']} as a command "
+              f"(4 ranks on one card, gloo, host-staged: a check's times): "
+              f"check OK; norms against (b) at most {worst:.3e} relative "
+              f"(at most 100 eps niter {tol:.3e}); medians "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in med.items())
+              + f" (slowest rank); {secs:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _fresh(counters)
+    t0 = time.perf_counter()
+    rep, out = run_program(lam_benchmark.main, cfg["lam"] + device, "12(e)")
+    secs = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    check("-> OK" in out and not launches,
+          f"phase 12 (e): check {'OK' if '-> OK' in out else 'FAILED'}, "
+          f"launched {launches}")
+    lam = lam_benchmark.parse_args(list(cfg["lam"]))
+    print(program_line("e", f"lam_benchmark {lam.nlon} x {lam.nlat} at dx "
+                            f"{lam.dx:g} m fp32", rep, out, _peak(dev),
+                       launches, secs))
+    _fresh(counters)
+    print(f"phase 12 done in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches of (b) and (c) {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2734,6 +3056,7 @@ def main() -> int:
     merge_launches(launches, [phase_mesh(dev, dict(
         a_grid=bench_out[0], a_spec=bench_out[1], e_grid=ll["grid"],
         f_grid=lam_out["grid"], f_spec=lam_out["spec"]))])
+    merge_launches(launches, [phase_programs(dev, counters)])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f}"
           " s")
     print(json.dumps({"kernels": [

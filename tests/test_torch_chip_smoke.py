@@ -914,3 +914,62 @@ def test_mesh_report_merges_launches_into_the_kernels_line(smoke, capsys):
     assert launches == {"K1": 208, "K2": 64, "K3": 14, "K4": 8, "K5": 16}
     with pytest.raises(RuntimeError, match="rank 2 launched"):
         smoke.mesh_report(_mesh_reps(smoke, k3=0), 1.0, 2.0, "card")
+
+
+def test_phase12_flags_are_the_drivers(smoke):
+    """Phase 12's flags parse with the port's drivers: bench.py's field set
+    (2 vor/div pairs, 6 scalars, 26 grid fields) at TCO1279, (c) in fp64 at
+    -n 2, and phase 10's LAM domain and field count."""
+    from ectrans_tpu_torch import InvFlags, num_inv_output_fields
+    from ectrans_tpu_torch.programs import benchmark, lam_benchmark
+
+    a = benchmark.parse_args(list(smoke.PROGRAM_BENCH))
+    nuv, nsc = a.nlev, a.nfld * a.nlev
+    assert (a.grid, a.niter, a.check, nuv, nsc) == ("TCO1279", 5, 100.0,
+                                                    2, 6)
+    assert num_inv_output_fields(nuv, nsc, InvFlags(
+        scders=a.scders, uvders=a.uvders)) == 26
+    c = benchmark.parse_args(list(smoke.PROGRAM_BENCH + smoke.PROGRAM_FP64))
+    assert (c.dtype, c.niter) == ("float64", 2)
+    lam = lam_benchmark.parse_args(list(smoke.PROGRAM_LAM))
+    d = smoke.LAM_DOMAIN
+    assert (lam.nlon, lam.nlat, lam.nlon_ci, lam.nlat_ci, lam.dx, lam.dy,
+            lam.nfld) == (d["nx"], d["ny"], d["nxux"], d["nyux"], d["dx"],
+                          d["dy"], smoke.LAM_NSC)
+
+
+def test_phase12_helpers(smoke, tmp_path, capsys):
+    out = ("grid F24\n"
+           "inverse transform            avg     2.542 ms  min     2.086  "
+           "max     2.998  med     2.540\n"
+           "e-direct transform     avg    0.392 ms  min    0.391  max    "
+           "0.392  med    0.392\n")
+    assert smoke.medians_ms(out) == {"inverse transform": 2.54,
+                                     "e-direct transform": 0.392}
+    path = tmp_path / "c.sum"
+    path.write_text("sc0 fe6c235f0283e1f9 6.77012465262143e+01\n"
+                    "sc1 797974293a395259 6.71592684795831e+01\n")
+    assert smoke.checksum_norms(str(path)) == [67.7012465262143,
+                                               67.1592684795831]
+
+    def failing(argv):
+        print("check: ... -> FAIL")
+        raise SystemExit(1)
+
+    with pytest.raises(SystemExit):
+        smoke.run_program(failing, ["-n", "1"], "12(x)")
+    assert "  12(x) | check: ... -> FAIL" in capsys.readouterr().out
+    rep, printed = smoke.run_program(lambda argv: (print(argv), 7)[1],
+                                     ("-n", "1"), "12(y)")
+    assert rep == 7 and printed == "['-n', '1']\n"
+
+
+def test_run_command_fails_on_exit_code_and_limit(smoke, capsys):
+    assert "3\n" in smoke.run_command(("timeit", "-n", "1", "-r", "1",
+                                       "print(3)"), "12(z)", 60)
+    with pytest.raises(RuntimeError, match="exited 2"):
+        smoke.run_command(("json.tool", "/nonexistent/file"), "12(z)", 60)
+    with pytest.raises(RuntimeError, match="outlasted its 2 s limit"):
+        smoke.run_command(("timeit", "-n", "1", "-r", "1",
+                           "import time; time.sleep(30)"), "12(z)", 2)
+    assert "12(z) |" in capsys.readouterr().out

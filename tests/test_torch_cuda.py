@@ -952,3 +952,65 @@ def test_lam_on_card_matches_cpu(dev, dtype):
     close(lam.biperiodicize(f.to(dev, dtype), res.grid),
           lam.biperiodicize(f, res.grid))
     assert not any(c.launches for c in counters)
+
+
+def test_latlon_fp64_tables_repeat_and_match_cpu_at_tco_nodes(dev):
+    """K4's fp64 lat-lon tables at TCO1279 onto the 0.25 degree grid with
+    poles: a second build, made in memory filled with NaN first (a read of
+    an unwritten element would show), bit-identical to the first; the
+    card's tables at nodes from pole to equator against the CPU's (the
+    host's fp64 recurrence) within 1e-11 of their largest |value|: 1e-14
+    away from the poles, ~3.5e-12 at 0.25 degrees from them, where both
+    fp64 recurrences are ~5e-12 from a long-double one
+    (test_torch_legendre.py)."""
+    from ectrans_tpu_torch import latlon
+    from ectrans_tpu_torch.legendre import build_parity_tables
+
+    res = ett.setup("TCO1279")
+    ll = ett.LatLonGrid(721, 1440)
+    gl = latlon._build_tables(res, ll, torch.float64, dev)[0]
+    x = torch.empty(int(torch.cuda.mem_get_info(dev)[0] * 0.5),
+                    dtype=torch.uint8, device=dev)
+    x.fill_(255)
+    del x
+    again = latlon._build_tables(res, ll, torch.float64, dev)[0]
+    for a, b in zip(gl.groups, again.groups):
+        assert torch.equal(a.psym, b.psym) and torch.equal(a.pasym, b.pasym)
+    del again
+    nodes = [0, 1, 2, 45, 90, 180, 270, 359, 360]
+    psym, pasym, _ = build_parity_tables(res.nsmax, ll.mu[nodes], 1)
+    for g in gl.groups:
+        for card, host in ((g.psym, psym), (g.pasym, pasym)):
+            ref = torch.from_numpy(host[g.m0:g.m1, :, :g.kg])
+            err = (card[:, nodes].cpu() - ref).abs().max().item()
+            assert err <= 1e-11 * ref.abs().max().item(), (g.m0, err)
+
+
+def test_benchmark_driver_on_card_matches_cpu(dev, tmp_path, capsys):
+    """The global driver (``programs.benchmark``) at T159 in fp64 on the
+    card against ``--device cpu``: every array it dumps within 1e-12 of
+    its largest |value|, both checks OK, K1-K4 launched on the card.  The
+    check's multiplier is 1000: at T159 the fp64 norms drift 1.6e-13 in two
+    round trips on either device, and in the JAX driver too (~360 eps an
+    iteration), above 200 eps."""
+    from ectrans_tpu_torch.programs import benchmark
+
+    argv = ["-g", "O160", "-t", "159", "-n", "2", "-f", "2", "-l", "2",
+            "--vordiv", "--scders", "--uvders", "--check", "1000", "--dtype",
+            "float64"]
+    counters = [ld.group_inv_dense, ld.group_dir_dense,
+                pack.packed_from_group_rows, tg.gen_groups]
+    out = {}
+    for where in ("cpu", "cuda"):
+        for c in counters:
+            c.launches = 0
+        path = tmp_path / f"{where}.npz"
+        benchmark.main(argv + ["--device", where, "--dump-values", str(path)])
+        assert "-> OK" in capsys.readouterr().out
+        with np.load(path) as z:
+            out[where] = {k: z[k] for k in z.files}
+        ett.trans_end()
+    assert all(c.launches for c in counters)
+    for k, want in out["cpu"].items():
+        err = np.abs(out["cuda"][k] - want).max()
+        assert err <= 1e-12 * np.abs(want).max(), (k, err)

@@ -144,3 +144,63 @@ def test_group_kernels_plain_parity_identity():
     rhs = (fn * north).sum() + (fs * south).sum()
     torch.testing.assert_close(lhs, rhs)
 
+
+
+def _long_double_table(nsmax: int, mu: np.ndarray) -> np.ndarray:
+    """P̄[m, n, lat] (n <= nsmax + 1) by the host's recurrence in long
+    double, whose exponent range needs no rescaling at TCO1279."""
+    L = np.longdouble
+    mul = mu.astype(L)
+    M = nsmax + 1
+    mm = np.arange(M, dtype=L)[:, None]
+
+    def eps(n):
+        num = L(n) * L(n) - mm * mm
+        return np.sqrt(np.where(num > 0, num / (L(4) * L(n) * L(n) - 1),
+                                L(0)))[:, 0]
+
+    seed = np.ones((M, mu.size), dtype=L)
+    c = np.sqrt(L(1) - mul * mul)
+    for m in range(1, M):
+        seed[m] = seed[m - 1] * c * np.sqrt(L(2 * m - 1) / L(2 * m))
+    seed *= np.sqrt(L(2) * np.arange(M, dtype=L) + 1)[:, None]
+    out = np.zeros((M, M + 1, mu.size), dtype=L)
+    cur = np.zeros((M, mu.size), dtype=L)
+    prev = np.zeros_like(cur)
+    for n in range(M + 1):
+        if n < M:
+            cur[n], prev[n] = seed[n], 0
+        if n > 0:
+            a = slice(0, min(n, M))
+            new = (mul * cur[a] - eps(n - 1)[a, None] * prev[a]) / eps(n)[
+                a, None]
+            prev[a], cur[a] = cur[a], new
+        k = min(n, M - 1) + 1
+        out[:k, n] = cur[:k]
+    return out.astype(np.float64)
+
+
+def test_fp64_recurrences_at_tco1279_lat_lon_nodes():
+    """K4's fp64 recurrence (its plain version, the kernel's bits) and the
+    host's (``compute_legendre_table``, the CPU's tables and phase 9(b)'s
+    direct sums) at TCO1279 on the 0.25 degree grid's nodes, the pole and
+    its neighbours included, both within 1e-11 of the table's largest
+    |value| of a long-double recurrence: next to the pole each is ~5e-12
+    from it, and they differ by ~3.5e-12, which phase 9(b)'s fp64 output
+    shows as ~8e-13 at the rows 0.25 degrees from the poles."""
+    from ectrans_tpu_torch.legendre import compute_legendre_table
+
+    nsmax = 1279
+    mu = ett.LatLonGrid(721, 1440).mu[[0, 1, 2, 90, 180, 360]]
+    ref = _long_double_table(nsmax, mu)
+    host = compute_legendre_table(nsmax, mu, 1)
+    inp = {k: torch.as_tensor(v) for k, v in tg.recurrence_inputs(
+        nsmax, mu, np.full(mu.size, nsmax)).items()}
+    k4 = tg.gen_group_plain(inp, 0, nsmax + 1, nsmax + 3, 0,
+                            torch.float64).numpy()
+    kn = np.zeros_like(host)
+    for m in range(nsmax + 1):
+        kn[m, m:] = k4[m, : nsmax + 2 - m]
+    scale = np.abs(ref).max()
+    for table in (host, kn):
+        assert np.abs(table - ref).max() <= 1e-11 * scale

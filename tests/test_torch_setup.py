@@ -47,7 +47,11 @@ def test_import_leaves_jax_out():
             "ectrans_tpu_torch._build", "ectrans_tpu_torch.api",
             "ectrans_tpu_torch.adjoint", "ectrans_tpu_torch.norms",
             "ectrans_tpu_torch.field_layout",
-            "ectrans_tpu_torch.utils.timing"} <= set(mods)
+            "ectrans_tpu_torch.utils.timing",
+            "ectrans_tpu_torch.programs.benchmark",
+            "ectrans_tpu_torch.programs.lam_benchmark",
+            "ectrans_tpu_torch.programs.info",
+            "ectrans_tpu_torch.programs.world"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
