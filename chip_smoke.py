@@ -109,8 +109,9 @@ and gpnorm of the inverse grid on the card against the CPU in fp64 (1e-6
 relative; the average's error against each field's mean |value|; min and
 max exact); (e) the allocated memory before and after trans_end() and
 empty_cache: the tables must be freed.  Phase 8 raises the cuFFT plan
-cache to 16,384 plans: its packets and adjoints add four field counts of
-1,280 lengths each.  Then the DENSE_PACK A/B line: K7 + K8 against K1 + K2
+cache to 16,384 plans: phase 13's per-NLOEN layer plans 1,280 lengths a
+field count (the bucketed layer of every other phase a dozen).  Then the
+DENSE_PACK A/B line: K7 + K8 against K1 + K2
 from phase 2 (the same call), and the two round trips' gate ratios, medians
 and launch counts from phases 4 and 5.  Phase 2 ends with trans_end, so
 that phase 4 times a setup of its own.
@@ -186,10 +187,34 @@ After phase 7, three phases at full width:
    niter of (b)'s; (e) the LAM driver at phase 10's domain and field
    count: its check OK, no kernel.
 
-Each prints its times, peak memory and seconds.  Then one JSON line with the
-kernels (K1-K4's launches: phase 4's and phase 8's (a) and (b), K4's of
-phase 9, phase 11's (a) and (e) summed over its ranks, and phase 12's (b)
-and (c)), and last the line
+13. the Fourier layer: (a) the bucketed chirp-z layer (every phase's) and
+   the per-NLOEN one (``_fourier="rows"``) on phase 4's Fourier tensors,
+   the 26-field synthesis input (caught by the inverse's fspgl_proc hook)
+   and its output grid, each direction, in turns: first call (planning),
+   median of 5 (host clock to synchronize), the device time of one call
+   from ``torch.profiler`` and the peak; the two layers within 100
+   eps(fp32) of each field's largest |value| of each other and of the
+   per-NLOEN layer in fp64 on the CPU; (b) phase 4's round trip on each
+   layer: a warm-up (its share of the 100 eps gate, with the (field, m,
+   n) of each family's largest error and the median error), the median of
+   3 in turns, and one steady round trip under the profiler: the device
+   busy share (the union of the device intervals over the wall time); (d)
+   the same error tail on the bucketed layer for the round trip, its
+   inverse alone (through an fp64 direct transform) and its direct
+   transform alone (of the fp64 inverse's grid rounded to fp32); (c) the
+   IFS-layout driver
+   (``benchmark_ifs``) at TCO1279 ``-l 137 --npromatr 8 -n 3 --check
+   100``, fp32, in this process through ``main(argv)``: 18 packets a
+   direction an iteration, of 8 vor/div pairs and 17 scalars, 8 and 16,
+   and 1 and 2; its check OK, K1 and K2 16 times a transform, K3 once a
+   direct transform, K4 once (first call, median, throughput, peak).
+
+Every phase runs the bucketed chirp-z Fourier layer of ``ops/fourier.py``
+but phase 13's per-NLOEN rows.  Each prints its times, peak memory and
+seconds.  Then one JSON line with the kernels (K1-K4's launches: phase
+4's and phase 8's (a) and (b), K4's of
+phase 9, phase 11's (a) and (e) summed over its ranks, phase 12's (b)
+and (c) and phase 13's (c)), and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 2 before doing anything.  TF32 is off for every
 matmul and convolution (the plain Legendre versions use torch.bmm).
@@ -1077,10 +1102,14 @@ def bench_inputs(nspec2: int, nsmax: int):
     return packed(NFLD_UV), packed(NFLD_UV), packed(NFLD_SC)
 
 
-def round_trip(res, sp, dtype, engine="dense", precision="highest"):
+def round_trip(res, sp, dtype, engine="dense", precision="highest",
+               layer="buckets"):
+    """bench.py's round trip; ``layer``: the Fourier layer ("buckets", the
+    main path's, or "rows", the per-NLOEN one of phase 13's A/B)."""
     import ectrans_tpu_torch as ett
 
-    kw = dict(dtype=dtype, precision=precision, _engine=engine)
+    kw = dict(dtype=dtype, precision=precision, _engine=engine,
+              _fourier=layer)
     grid = ett.inv_trans(res, *sp, flags=ett.InvFlags(scders=True, uvders=True),
                          **kw)
     u = grid[:NFLD_UV]
@@ -1379,8 +1408,8 @@ ADJOINT_TOL = 2000 * float(np.finfo(np.float32).eps)
 PACKET_TOL = (2e-5, 1e-5)
 NORM_TOL = 1e-6
 NPROMATR = 4
-# cuFFT plans cached: a round trip's field counts take 2 x 1,280 at
-# TCO1279, and phase 8's packets and adjoints four more field counts
+# cuFFT plans cached: the per-NLOEN layer of phase 13 takes 1,280 at
+# TCO1279 a field count and direction (the bucketed layer 12)
 CUFFT_PLANS = 16384
 
 
@@ -3024,6 +3053,289 @@ def phase_programs(dev: torch.device, counters: dict,
     return total
 
 
+# phase 13: the Fourier layers' A/B on phase 4's tensors, the device busy
+# share of phase 4's round trip on each layer, and the IFS-layout driver
+FOURIER_REPS = 5
+FOURIER_GATE = 100 * EPS32       # of each field's largest |value|
+PROGRAM_IFS = ("-g", "TCO1279", "-l", "137", "--npromatr", "8", "-n", "3",
+               "--check", "100")
+
+
+def kernel_spans(prof) -> list:
+    """The (start, end) ms of every device activity (kernels, copies,
+    sets) a ``torch.profiler`` run recorded."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = []
+    try:
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cuda:
+                spans.append((e.start_ns() / 1e6,
+                              (e.start_ns() + e.duration_ns()) / 1e6))
+    except AttributeError:
+        for e in prof.events():
+            if e.device_type == cuda:
+                spans.append((e.time_range.start / 1e3,
+                              e.time_range.end / 1e3))
+    return spans
+
+
+def union_ms(spans) -> float:
+    """The length of the union of intervals (ms)."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def device_profile(dev: torch.device, fn) -> dict:
+    """One call of fn() under ``torch.profiler`` (device activities only):
+    its wall ms (host clock to synchronize), the summed device ms, the
+    union of the device intervals (busy ms) and their count."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    # device activities only where the build records them (a CPU build
+    # records host ones, so no device interval)
+    acts = ([ProfilerActivity.CUDA]
+            if ProfilerActivity.CUDA in supported_activities()
+            else [ProfilerActivity.CPU])
+    _sync(dev)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = kernel_spans(prof)
+    return dict(wall_ms=wall, device_ms=sum(b - a for a, b in spans),
+                busy_ms=union_ms(spans), n=len(spans))
+
+
+def field_share(got, want, gate: float = FOURIER_GATE) -> float:
+    """The largest error of a field against ``want`` as a share of gate *
+    that field's largest |value| of want."""
+    d = (got.double().cpu() - want.double().cpu()).flatten(1).abs().amax(1)
+    s = want.double().cpu().flatten(1).abs().amax(1)
+    return float((d / (gate * torch.where(s > 0, s, 1.0))).max())
+
+
+def profile_note(p: dict) -> str:
+    if not p["n"]:
+        return "device time not measured (the profiler saw no device work)"
+    return (f"device {p['device_ms']:.2f} ms in {p['n']} activities, busy "
+            f"{p['busy_ms']:.2f} of {p['wall_ms']:.2f} ms profiled")
+
+
+def fourier_inputs(dev: torch.device, name: str = "TCO1279"):
+    """Phase 4's Fourier tensors: the inverse's synthesis input (26, 2, M,
+    ndgl), caught by its fspgl_proc hook, and its output grid (26, ndgl,
+    ndlon); with the Resolution and the spectra."""
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup(name)
+    sp = [x.to(dev) for x in bench_inputs(res.nspec2, res.nsmax)]
+    box = {}
+
+    def hook(four):
+        box["four"] = four
+        return four
+
+    grid = ett.inv_trans(res, *sp, flags=ett.InvFlags(scders=True,
+                                                      uvders=True),
+                         fspgl_proc=hook)
+    return res, sp, box["four"], grid
+
+
+def fourier_ab(dev: torch.device, res, four, grid) -> list:
+    """Phase 13 (a): each direction on each layer, in turns: first call
+    (planning), median of FOURIER_REPS, the profiler's device time and the
+    peak; the layers within 100 eps(fp32) of each field's max of each
+    other and of the per-NLOEN layer in fp64 on the CPU."""
+    from ectrans_tpu_torch import transform
+    from ectrans_tpu_torch.transform import FOURIER_LAYERS
+
+    calls = {
+        "synthesis": lambda layer: transform.synthesis(four, res,
+                                                       layer=layer),
+        "analysis": lambda layer: transform.analysis(grid, res,
+                                                     layer=layer)}
+    refs = {"synthesis": lambda: transform.synthesis(
+                four.double().cpu(), res, layer="rows"),
+            "analysis": lambda: transform.analysis(
+                grid.double().cpu(), res, layer="rows")}
+    lines = []
+    for way, call in calls.items():
+        rep, outs = {}, {}
+        for layer in FOURIER_LAYERS:
+            _sync(dev)
+            _reset_peak(dev)
+            base = (torch.cuda.memory_allocated(dev) / 2**30
+                    if dev.type == "cuda" else 0.0)
+            outs[layer], t_first = _timed(dev, lambda: call(layer))
+            rep[layer] = dict(first=t_first, peak=_peak(dev) - base,
+                              times=[])
+        for _ in range(FOURIER_REPS):
+            for layer in FOURIER_LAYERS:
+                rep[layer]["times"].append(_timed(dev,
+                                                  lambda: call(layer))[1])
+        for layer in FOURIER_LAYERS:
+            rep[layer]["prof"] = device_profile(dev, lambda: call(layer))
+        t0 = time.perf_counter()
+        ref = refs[way]()
+        t_ref = time.perf_counter() - t0
+        shares = dict(layers=field_share(outs["buckets"], outs["rows"]),
+                      buckets=field_share(outs["buckets"], ref),
+                      rows=field_share(outs["rows"], ref))
+        check(all(np.isfinite(v) and v <= 1.0 for v in shares.values()),
+              f"phase 13 (a) {way}: shares of 100 eps of each field's max "
+              f"{shares}")
+        for layer in FOURIER_LAYERS:
+            r = rep[layer]
+            med = statistics.median(r["times"]) * 1e3
+            lines.append(
+                f"phase 13 (a) {way} on {layer}: first call {r['first']:.3f}"
+                f" s; median {med:.2f} ms (min {min(r['times'])*1e3:.2f}, "
+                f"max {max(r['times'])*1e3:.2f}, n {FOURIER_REPS}); "
+                f"{profile_note(r['prof'])}; peak +{r['peak']:.2f} GiB "
+                f"over the inputs")
+        lines.append(
+            f"phase 13 (a) {way}: buckets vs rows {shares['layers']:.3f}, "
+            f"buckets vs fp64 rows (CPU, {t_ref:.1f} s) "
+            f"{shares['buckets']:.3f}, rows vs fp64 {shares['rows']:.3f} "
+            f"of 100 eps(fp32) of each field's max (at most 1)")
+        del outs, ref
+    return lines
+
+
+def tail(out, sp, res) -> str:
+    """Each family's error as a share of the 100 eps gate: the largest,
+    with the (field, m, n) where it sits, and the median over every
+    97th coefficient ((m, n) = (0, 0) of vor/div left out)."""
+    eps32 = float(np.finfo(np.float32).eps)
+    pm, pn = res.packed_gather_m, res.packed_gather_n
+    notes = []
+    for name, got, ref in zip(("vor", "div", "scalars"), out, sp):
+        d = (got.double() - ref.double()).abs()
+        if name != "scalars":
+            d[:, :2] = 0.0
+        gate = 100 * eps32 * ref.abs().max().item()
+        k = int(d.argmax())
+        f, i = divmod(k, d.shape[1])
+        med = d.flatten()[::97].median().item()
+        notes.append(f"{name} {d.max().item() / gate:.3f} at field {f} "
+                     f"(m {pm[i]}, n {pn[i]}), median {med / gate:.4f}")
+    return "; ".join(notes)
+
+
+def error_tail(dev: torch.device, res, sp) -> list:
+    """Phase 13 (d): where phase 4's round-trip error sits (``tail``), and
+    the same for its inverse alone (the fp32 grid through an fp64 direct
+    transform) and its direct transform alone (the fp64 inverse's grid
+    rounded to fp32, through the fp32 direct transform), all on the
+    bucketed layer ("dense"; fp64 in the kernels' fp64 variants)."""
+    import ectrans_tpu_torch as ett
+
+    nsc = NFLD_SC
+    f64 = torch.float64
+
+    def direct(grid, dtype):
+        return ett.dir_trans(res, grid[:NFLD_UV], grid[NFLD_UV:2 * NFLD_UV],
+                             grid[2 * NFLD_UV:2 * NFLD_UV + nsc], dtype=dtype)
+
+    grid, out = round_trip(res, sp, torch.float32)
+    g64 = ett.inv_trans(res, *[x.double() for x in sp], dtype=f64,
+                        flags=ett.InvFlags(scders=True, uvders=True))
+    rows = (("round trip", out),
+            ("inverse alone (fp32 inverse, fp64 direct)",
+             direct(grid.double(), f64)),
+            ("direct alone (fp64 inverse rounded to fp32, fp32 direct)",
+             direct(g64.float(), torch.float32)))
+    return [f"phase 13 (d) {what}: {tail(o, sp, res)}" for what, o in rows]
+
+
+def busy_shares(dev: torch.device, res, sp) -> list:
+    """Phase 13 (b): one steady round trip of phase 4 on each layer under
+    the profiler (after a warm one, which plans the layer's lengths):
+    the union of the device intervals over the wall time; with the
+    median of 3 round trips on each, in turns, and each layer's share of
+    the 100 eps gate (``tail``)."""
+    from ectrans_tpu_torch.transform import FOURIER_LAYERS
+
+    lines, times = [], {layer: [] for layer in FOURIER_LAYERS}
+    for layer in FOURIER_LAYERS:
+        (_, out), t_warm = _timed(dev, lambda: round_trip(
+            res, sp, torch.float32, layer=layer))
+        lines.append(f"phase 13 (b) round trip on {layer}: warm-up "
+                     f"{t_warm:.3f} s; share of the 100 eps gate: "
+                     f"{tail(out, sp, res)}")
+    for _ in range(3):
+        for layer in FOURIER_LAYERS:
+            times[layer].append(_timed(dev, lambda: round_trip(
+                res, sp, torch.float32, layer=layer))[1])
+    for layer in FOURIER_LAYERS:
+        p = device_profile(dev, lambda: round_trip(res, sp, torch.float32,
+                                                   layer=layer))
+        med = statistics.median(times[layer]) * 1e3
+        busy = (f"device busy share {p['busy_ms'] / p['wall_ms']:.3f} of "
+                f"the profiled round trip ({p['busy_ms']:.2f} of "
+                f"{p['wall_ms']:.2f} ms; {p['busy_ms'] / med:.3f} of the "
+                f"median)" if p["n"] else
+                "device busy share not measured (no device work profiled)")
+        lines.append(f"phase 13 (b) round trip on {layer}: median {med:.1f}"
+                     f" ms (n 3, in turns); {busy}; summed device "
+                     f"{p['device_ms']:.2f} ms in {p['n']} activities")
+    return lines
+
+
+def phase_fourier(dev: torch.device, counters: dict, name: str = "TCO1279",
+                  ifs=PROGRAM_IFS) -> dict:
+    """Phase 13: (a) the Fourier layers' A/B on phase 4's tensors, (b) the
+    device busy share of phase 4's round trip on each layer, (d) where
+    its error sits (printed before (c)), (c) the
+    IFS-layout driver at TCO1279 L137 in this process through
+    ``main(argv)``: its check OK, K1 and K2 16 times a transform (once an
+    m-group), K3 once a direct transform, K4 once.  Returns (c)'s
+    launches."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.programs import benchmark_ifs
+
+    t_phase = time.perf_counter()
+    _fresh(counters)
+    res, sp, four, grid = fourier_inputs(dev, name)
+    for line in fourier_ab(dev, res, four, grid):
+        print(line)
+    del four, grid
+    for line in busy_shares(dev, res, sp) + error_tail(dev, res, sp):
+        print(line)
+    del res, sp
+    _fresh(counters)
+    args = benchmark_ifs.parse_args(list(ifs))
+    groups = len(ett.setup(args.grid, args.truncation).legendre_groups())
+    t0 = time.perf_counter()
+    rep, out = run_program(benchmark_ifs.main,
+                           tuple(ifs) + ("--device", dev.type), "13(c)")
+    secs = time.perf_counter() - t0
+    calls = len(benchmark_ifs.packets(args.nlev, args.npromatr)) * (
+        args.niter + 1)
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    want = {"K1": groups * calls, "K2": groups * calls, "K3": calls,
+            "K4": 1}
+    check("-> OK" in out, "phase 13 (c): the IFS driver's check failed")
+    check(launches == want, f"phase 13 (c) launched {launches}; expected "
+                            f"{want}")
+    med = statistics.median(rep["t_rt"]) * 1e3
+    print(f"phase 13 (c) benchmark_ifs {args.grid} L{args.nlev} npromatr "
+          f"{args.npromatr} fp32: check OK (drift {rep['drift']:.3e}); "
+          f"{calls // (args.niter + 1)} packets a direction an iteration; "
+          f"first call (the warm-up iteration) {rep['first']:.2f} s; "
+          f"round trip median {med:.1f} ms (n {len(rep['t_rt'])}); "
+          f"throughput {rep['throughput']:.3e} gridpoints*fields/s; peak "
+          f"{_peak(dev):.2f} GiB; launches {launches}; {secs:.1f} s")
+    _fresh(counters)
+    print(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3057,6 +3369,7 @@ def main() -> int:
         a_grid=bench_out[0], a_spec=bench_out[1], e_grid=ll["grid"],
         f_grid=lam_out["grid"], f_spec=lam_out["spec"]))])
     merge_launches(launches, [phase_programs(dev, counters)])
+    merge_launches(launches, [phase_fourier(dev, counters)])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f}"
           " s")
     print(json.dumps({"kernels": [

@@ -12,8 +12,11 @@ satisfy the inner-product identity <F x, y> = <x, F^T y> to rounding error
 Both run the forward on the "xla" engine, as the JAX package does: the
 kernels are ctypes launches with no autograd rule, so a graph through them
 would be cut.  That engine sums fp32 contractions in fp64
-(``legendre_matmul.group_einsum``), and so do their transposes.  The Fourier
-layer's transposes are its other direction, scaled (``ops.fourier``).
+(``legendre_matmul.group_einsum``), and so do their transposes.  The
+forward runs with ``_normalize=False``, as the JAX package's does: the
+Fourier layer's RMS pair scaling is not linear, and its derivative at the
+zero fields differentiated here is NaN (sqrt at 0), while without it the
+layer is linear and autograd transposes its FFTs, products and slices.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ def inv_trans_adj(res: Resolution, grid_ad: torch.Tensor, nfld_uv: int = 0,
              for n in (nfld_uv, nfld_uv, nfld_sc)]
     args = [s if s.shape[0] else None for s in specs]
     with torch.enable_grad():
-        out = inv_trans(res, *args, flags=flags, dtype=dtype, _engine="xla")
+        out = inv_trans(res, *args, flags=flags, dtype=dtype,
+                        _normalize=False, _engine="xla")
     live = [s for s in args if s is not None]
     grads = iter(torch.autograd.grad(out, live, grid_ad.to(dtype)))
     return tuple(None if s is None else next(grads) for s in args)
@@ -80,7 +84,8 @@ def dir_trans_adj(res: Resolution, spvor_ad=None, spdiv_ad=None,
     grids = [_zeros((n, res.ndgl, res.grid.ndlon), like, dtype)
              if n else None for n in counts]
     with torch.enable_grad():
-        outs = dir_trans(res, *grids, dtype=dtype, _engine="xla")
+        outs = dir_trans(res, *grids, dtype=dtype, _normalize=False,
+                         _engine="xla")
     live = [(o, c.to(dtype)) for o, c in zip(outs, cots) if c is not None]
     inputs = [g for g in grids if g is not None]
     grads = iter(torch.autograd.grad([o for o, _ in live], inputs,

@@ -13,13 +13,17 @@ one (Resolution, w, v):
   by length and dealt round-robin, so each w-rank owns an equal mix of
   short and long rows (``lat_perm``: the row at each slot, ``ndgl`` padded
   to a multiple of w*v; pad slots hold rows >= ndgl);
+* **Fourier buckets** (``lat_buckets``, ``LatBucketMeta``): ranges
+  [lb0, lb1) of every w-rank's local latitude slots, nb = min(nbuckets,
+  LLW // 16) equal ones; the length-sorted deal gives every w-rank the same
+  length mix in a range, so each bucket's mb, ndlon and nfft are shared by
+  all w-ranks (``ops.fourier.good_size``, not the JAX package's
+  lane-aligned four-step length);
 * ``host_tables``: the index maps and spectral-operator coefficient tables
-  in that permuted, padded layout, bit for bit the JAX package's.
-
-Not carried over: ``LatBucketMeta`` and the per-bucket Bluestein tables.
-They feed the JAX package's chirp-z Fourier layer, which the port leaves
-out (ROADMAP A10): its Fourier layer plans ``torch.fft`` by row length
-(``ops.fourier``).  ``lat_perm`` does not depend on the buckets.
+  in that permuted, padded layout, bit for bit the JAX package's;
+* ``rank_fourier``: one w-rank's chirp-z tables of its own slots (pad
+  slots give zeros), on its device, for ``ops.fourier.synthesis_bucketed``
+  and ``analysis_bucketed`` (the JAX package's ``fb{k}_*_w`` host tables).
 
 The Legendre tables are not host tables here: ``rank_legendre`` has K4
 (``ops.legendre_tablegen``) build only the rows of one w-rank on the card,
@@ -39,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops import spectral as spectral_ops
+from ..ops.fourier import BucketedTables, bucket_tables, good_size
 from ..resolution import ON_TRANS_END, FullGroup, FullLegendre, Resolution
 
 
@@ -49,6 +54,19 @@ def pingpong_blocks(M: int, w: int) -> list[list[int]]:
         cycle, pos = divmod(i, w)
         blocks[pos if cycle % 2 == 0 else w - 1 - pos].append(i)
     return blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class LatBucketMeta:
+    """One Fourier latitude bucket of the mesh: local slots [lb0, lb1) on
+    every w-rank, the largest mode ``mb`` and row length ``ndlon`` over
+    those slots of every w-rank, and their convolution length ``nfft``."""
+
+    lb0: int
+    lb1: int
+    mb: int
+    ndlon: int
+    nfft: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +98,7 @@ class Distribution:
     groups: tuple           # tuple[GroupMeta]
     lat_perm: np.ndarray    # (ndgl_pad,) original row at permuted slot
     lat_pos: np.ndarray     # (ndgl,) permuted slot of natural row
+    lat_buckets: tuple      # tuple[LatBucketMeta]
 
     @property
     def ML(self) -> int:
@@ -103,10 +122,11 @@ class Distribution:
 
 
 @functools.lru_cache(maxsize=8)
-def build_distribution(res: Resolution, w: int, v: int) -> Distribution:
-    """Grouped round-robin wave distribution and the length-sorted latitude
-    distribution (``ectrans_tpu`` ``build_distribution`` without its
-    Fourier buckets)."""
+def build_distribution(res: Resolution, w: int, v: int,
+                       nbuckets: int = 12) -> Distribution:
+    """Grouped round-robin wave distribution, the length-sorted latitude
+    distribution and its Fourier buckets (``ectrans_tpu``
+    ``build_distribution``; nfft by ``ops.fourier.good_size``)."""
     M = res.M
     groups = []
     off = 0
@@ -149,10 +169,25 @@ def build_distribution(res: Resolution, w: int, v: int) -> Distribution:
         if r < ndgl:
             lat_pos[r] = p
 
+    nmen = [int(x) for x in res.nmen]
+    nb = max(1, min(nbuckets, LLW // 16))
+    bounds = [round(LLW * k / nb) for k in range(nb + 1)]
+    lat_buckets = []
+    for k in range(nb):
+        lb0, lb1 = bounds[k], bounds[k + 1]
+        if lb0 == lb1:
+            continue
+        rows = [r for r in order[lb0 * w: lb1 * w] if r < ndgl]
+        mb = min(res.nsmax, max((nmen[r] for r in rows), default=0))
+        ndlon_b = max((nloen[r] for r in rows), default=1)
+        lat_buckets.append(LatBucketMeta(
+            lb0=lb0, lb1=lb1, mb=mb, ndlon=ndlon_b,
+            nfft=good_size(ndlon_b + 2 * mb + 1)))
+
     return Distribution(
         res=res, w=w, v=v, M_pad=M_pad, ndgl_pad=ndgl_pad, perm=perm,
         pos_of_m=pos_of_m, pm_perm_pos=pm_perm_pos, groups=tuple(groups),
-        lat_perm=lat_perm, lat_pos=lat_pos)
+        lat_perm=lat_perm, lat_pos=lat_pos, lat_buckets=tuple(lat_buckets))
 
 
 def clear_caches():
@@ -276,6 +311,23 @@ def rank_tables(dist: Distribution, iw: int, engine: str,
             val, dtype=torch.int64 if val.dtype.kind in "iu" else dtype,
             device=device)
     return out
+
+
+def rank_fourier(dist: Distribution, iw: int, device) -> BucketedTables:
+    """w-rank iw's chirp-z buckets over its latitude slots
+    ``lat_perm[iw*LL:(iw+1)*LL]``, one span [lb0, lb1) each at the shared
+    (mb, ndlon, nfft) of ``lat_buckets``; pad slots have zero tables."""
+    res = dist.res
+    slots = dist.lat_perm[iw * dist.LL: (iw + 1) * dist.LL]
+    real = slots < res.ndgl
+    r = np.minimum(slots, res.ndgl - 1)
+    nloen = np.where(real, np.asarray(res.grid.nloen, np.int64)[r], 0)
+    nmen = np.where(real, np.asarray(res.nmen, np.int64)[r], 0)
+    bms = dist.lat_buckets
+    return bucket_tables(nloen, nmen, res.nsmax,
+                         [((b.lb0, b.lb1),) for b in bms], res.grid.ndlon,
+                         device,
+                         shapes=[(b.mb, b.ndlon, b.nfft) for b in bms])
 
 
 def rank_inputs(host: dict, ms: np.ndarray, M: int, device) -> dict:

@@ -39,8 +39,10 @@ before the all_reduce) for fp32 and bf16 tables when ``engine()`` is
 engine (each fp32 contraction as one fp64 einsum).  "pallas" and "planes"
 have no sharded form, as in the JAX package.  ``ECTRANS_TPU_PACK_KERNEL=xla``
 sends the "dense" engine's packing through the masked gather.  The Fourier
-layer is ``ops.fourier`` on the rank's rows (one ``torch.fft`` call per row
-length), not the JAX package's bucketed chirp-z transforms.
+layer is the bucketed chirp-z one of ``ops.fourier`` on the rank's latitude
+slots (``distribution.rank_fourier``: ``ECTRANS_TPU_FFT_BUCKETS`` ranges of
+local slots, each one convolution length shared by every w-rank), as in
+the JAX package.
 
 Every public method is collective: each rank of the mesh calls it with its
 own shards and the same field counts, flags and KVSET vectors.
@@ -60,8 +62,8 @@ from ..resolution import (GroupedLegendre, LegendreGroup, Resolution,
 from ..transform import (InvFlags, _check_precision, _check_spec,
                          _table_dtype, fsc, legendre_inputs)
 from . import comm
-from .distribution import (build_distribution, rank_groups, rank_inputs,
-                           rank_legendre, rank_tables)
+from .distribution import (build_distribution, rank_fourier, rank_groups,
+                           rank_inputs, rank_legendre, rank_tables)
 from .mesh import check_mesh
 
 
@@ -181,15 +183,15 @@ class ShardedTransform:
         eng = legendre_matmul.engine()
         self.eng = ("dense" if eng == "dense" and self.dtype != torch.float64
                     else "xla")
-        self.dist = d = build_distribution(res, self.w, self.v)
+        self.dist = d = build_distribution(res, self.w, self.v,
+                                           fourier.fft_buckets())
         iw = mesh.iw
         self.tables = rank_tables(d, iw, self.eng, self.dtype, self.device)
         self.legendre = rank_legendre(d, iw, _table_dtype(self.dtype,
                                                           precision),
                                       self.device)
-        # the w-rank's Fourier rows: its slots of lat_perm
-        self.rows = tuple(int(r) for r in d.lat_perm[iw * d.LL:
-                                                      (iw + 1) * d.LL])
+        # the chirp-z buckets of the w-rank's latitude slots of lat_perm
+        self.fourier = rank_fourier(d, iw, self.device)
         self._grid_group = mesh.group if self.w * self.v > 1 else None
         self._boundary = self._boundary_maps()
         self._ll_cache = {}
@@ -388,7 +390,8 @@ class ShardedTransform:
             # FSPGL (fspgl_int_mod.F90): this rank's latitude slots, all
             # m's; the rows are in the length-sorted order of lat_perm
             four2 = fspgl_proc(four2)
-        grid = fourier.synthesis(four2, res, self.rows)  # (F2, LL, ndlon)
+        # (F2, LL, ndlon)
+        grid = fourier.synthesis_bucketed(four2, self.fourier)
         # TRLTOG: the fields gathered over "v", the slots split further;
         # owner-major -> group-major
         grid = comm.all_to_all(grid, self.mesh.v_group, 1, 0, "TRLTOG")
@@ -406,7 +409,8 @@ class ShardedTransform:
         # TRGTOL: the fields scattered over "v", the slots gathered
         x = comm.all_to_all(grid[self._idx(om)], self.mesh.v_group, 0, 1,
                             "TRGTOL")
-        four = fourier.analysis(x, res, self.rows)       # (F, 2, M, LL)
+        four = fourier.analysis_bucketed(x, self.fourier, res.M)
+        # four: (F, 2, M, LL)
         Fuv = Fuv_g // self.v
         if Fuv:
             four[: 2 * Fuv] *= t["racthe_lat_w"]

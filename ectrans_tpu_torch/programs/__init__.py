@@ -1,9 +1,10 @@
 """Benchmark and information programs (the ``src/programs`` analogue).
 
 Counterpart of ``ectrans_tpu/programs``: ``benchmark`` (the global
-ectrans-benchmark), ``lam_benchmark`` (the LAM one) and ``info``, each run
-as ``python -m ectrans_tpu_torch.programs.<name>``, plus ``world``, the
-launcher that ``benchmark --mesh WxV`` starts its ranks with.  The drivers
+ectrans-benchmark), ``benchmark_ifs`` (the IFS-layout one), ``lam_benchmark``
+(the LAM one) and ``info``, each run as ``python -m
+ectrans_tpu_torch.programs.<name>``, plus ``world``, the launcher that
+``--mesh WxV`` starts its ranks with.  The drivers
 run on the CUDA card unless they are given ``--device cpu``; without a card
 ``--device cuda`` stops with a message, it never carries on on the CPU.
 """

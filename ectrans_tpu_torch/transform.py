@@ -48,9 +48,16 @@ launches the same kernel shapes and sums in the same order; the inverse
 output is reassembled in the single call's PGP order (``FieldLayout``), the
 direct output drops the padded fields.
 
+The Fourier layer is the bucketed chirp-z one (``fourier.
+synthesis_bucketed``/``analysis_bucketed`` on ``fourier.bucketed_tables``,
+``ECTRANS_TPU_FFT_BUCKETS`` buckets, read once per call), with each field
+scaled by its RMS around the pair pack unless ``_normalize=False``; the
+private ``_fourier="rows"`` runs the per-NLOEN layer instead (the tests'
+reference and ``chip_smoke.py``'s A/B).
+
 Both transforms are linear in their fields and differentiable through
-every layer on the "xla" engine (the adjoints of ``adjoint.py``); the
-kernels of the other engines have no autograd rule.
+every layer on the "xla" engine with ``_normalize=False`` (the adjoints of
+``adjoint.py``); the kernels of the other engines have no autograd rule.
 
 Not carried over from the JAX package: the dispatch splits and
 ``optimization_barrier`` guards against TPU-compiler faults, and the
@@ -125,6 +132,31 @@ def _leg_tables(res: Resolution, eng: str, dtype: torch.dtype,
     if eng == "dense":
         return res.full_legendre(_table_dtype(dtype, precision), device)
     return res.grouped_legendre(_table_dtype(dtype, precision), device)
+
+
+FOURIER_LAYERS = ("buckets", "rows")
+
+
+def _check_fourier(layer: str) -> None:
+    if layer not in FOURIER_LAYERS:
+        raise ValueError(f"unknown Fourier layer {layer!r}; expected one of "
+                         f"{FOURIER_LAYERS}")
+
+
+def synthesis(four, res, normalize=True, layer="buckets"):
+    """The inverse transform's Fourier synthesis on ``layer``."""
+    if layer == "rows":
+        return fourier.synthesis(four, res)
+    return fourier.synthesis_bucketed(
+        four, fourier.bucketed_tables(res, four.device), normalize)
+
+
+def analysis(grid, res, normalize=True, layer="buckets"):
+    """The direct transform's Fourier analysis on ``layer``."""
+    if layer == "rows":
+        return fourier.analysis(grid, res)
+    return fourier.analysis_bucketed(
+        grid, fourier.bucketed_tables(res, grid.device), res.M, normalize)
 
 
 def _device_of(*arrays) -> torch.device:
@@ -203,8 +235,9 @@ def fsc(four: torch.Tensor, nuv: int, nsc: int, flags: InvFlags,
 def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
               flags: InvFlags = InvFlags(), dtype=torch.float32,
               fspgl_proc=None, npromatr: int | None = None,
-              precision: str = "highest",
-              _engine: str | None = None) -> torch.Tensor:
+              precision: str = "highest", _normalize: bool = True,
+              _engine: str | None = None,
+              _fourier: str = "buckets") -> torch.Tensor:
     """Inverse transform: packed spectral tensors -> grid fields.
 
     spvor/spdiv: (nfld_uv, nspec2); spscalar: (nfld_sc, nspec2).  Returns
@@ -226,8 +259,11 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
     nfld_sc = 0 if spscalar is None else spscalar.shape[0]
     if npromatr and 2 * nfld_uv + nfld_sc > npromatr:
         return _inv_packets(res, spvor, spdiv, spscalar, flags, dtype,
-                            fspgl_proc, npromatr, precision, _engine)
+                            fspgl_proc, npromatr, precision,
+                            dict(_normalize=_normalize, _engine=_engine,
+                                 _fourier=_fourier))
     dtype = check_dtype(dtype)
+    _check_fourier(_fourier)
     eng = _resolve_engine(_engine, dtype)
     pack2 = legendre_matmul.dense_pack()
     _check_precision(precision)
@@ -254,12 +290,13 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
     four = fsc(four_all, nfld_uv, nfld_sc, flags, tables.racthe)
     if fspgl_proc is not None:
         four = fspgl_proc(four)
-    return fourier.synthesis(four, res)
+    return synthesis(four, res, _normalize, _fourier)
 
 
 def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
               dtype=torch.float32, npromatr: int | None = None,
-              precision: str = "highest", _engine: str | None = None):
+              precision: str = "highest", _normalize: bool = True,
+              _engine: str | None = None, _fourier: str = "buckets"):
     """Direct transform: grid fields -> packed spectral tensors.
 
     u/v: (nfld_uv, ndgl, ndlon) grid winds; scalars: (nfld_sc, ndgl, ndlon).
@@ -279,8 +316,10 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
     nfld_sc = 0 if scalars is None else scalars.shape[0]
     if npromatr and 2 * nfld_uv + nfld_sc > npromatr:
         return _dir_packets(res, u, v, scalars, dtype, npromatr, precision,
-                            _engine)
+                            dict(_normalize=_normalize, _engine=_engine,
+                                 _fourier=_fourier))
     dtype = check_dtype(dtype)
+    _check_fourier(_fourier)
     eng = _resolve_engine(_engine, dtype)
     pack2 = legendre_matmul.dense_pack()
     packing = pack.pack_kernel()
@@ -290,7 +329,7 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
     gl = _leg_tables(res, eng, dtype, precision, device)
     grids = [x.to(dtype) for x in (u, v, scalars) if x is not None]
 
-    four = fourier.analysis(torch.cat(grids), res)
+    four = analysis(torch.cat(grids), res, _normalize, _fourier)
     if nfld_uv:
         # LDFOU2: u, v Fourier coefficients times 1/(a cos(theta)); four is
         # this function's own tensor, so it is scaled in place
@@ -320,13 +359,14 @@ def _chunk_pad(x: torch.Tensor, size: int):
 
 
 def _inv_packets(res, spvor, spdiv, spscalar, flags, dtype, fspgl_proc,
-                 npromatr, precision, engine):
+                 npromatr, precision, private):
     """NPROMATR packet loop: uv pairs then scalars, group-wise reassembly
-    into the single call's PGP order."""
+    into the single call's PGP order; ``private``: the private keywords
+    of each packet's call."""
     nuv = 0 if spvor is None else spvor.shape[0]
     nsc = 0 if spscalar is None else spscalar.shape[0]
     kw = dict(flags=flags, dtype=dtype, fspgl_proc=fspgl_proc,
-              precision=precision, _engine=engine)
+              precision=precision, **private)
     parts = {}
     if nuv:
         size = max(1, npromatr // 2)
@@ -347,10 +387,10 @@ def _inv_packets(res, spvor, spdiv, spscalar, flags, dtype, fspgl_proc,
     return torch.cat([blk for k in order for blk in parts[k]])
 
 
-def _dir_packets(res, u, v, scalars, dtype, npromatr, precision, engine):
+def _dir_packets(res, u, v, scalars, dtype, npromatr, precision, private):
     """NPROMATR packet loop of the direct transform: uv pairs then scalars,
     the padded fields of each packet's output dropped."""
-    kw = dict(dtype=dtype, precision=precision, _engine=engine)
+    kw = dict(dtype=dtype, precision=precision, **private)
     sv_p, sd_p, ss_p = [], [], []
     if u is not None:
         size = max(1, npromatr // 2)

@@ -260,3 +260,34 @@ def test_layer_transposes():
     g = torch.from_numpy(rng.standard_normal(tuple(dense.shape)))
     (st,) = torch.autograd.grad(dense, spec, g)
     assert torch.equal(st, layout.dense_to_packed(g, res))
+
+
+@pytest.mark.parametrize("nb", ["12", "3"])
+def test_bucketed_layer_transposes(nb, monkeypatch):
+    """The chirp-z layer with normalize=False, transposed by autograd
+    through torch.fft, complex products and slices: the inner-product
+    identity in fp64, no NaN, and zero cotangents on the inputs it
+    ignores."""
+    from ectrans_tpu_torch.ops import fourier
+
+    monkeypatch.setenv("ECTRANS_TPU_FFT_BUCKETS", nb)
+    res = ett.setup("O48", 47)
+    bt = fourier.bucketed_tables(res, "cpu")
+    rng = np.random.default_rng(9)
+    four = torch.from_numpy(rng.standard_normal((3, 2, res.M, res.ndgl)))
+    grid = torch.from_numpy(rng.standard_normal((3, res.ndgl,
+                                                 res.grid.ndlon)))
+    syn = lambda x: fourier.synthesis_bucketed(x, bt, normalize=False)
+    ana = lambda x: fourier.analysis_bucketed(x, bt, res.M, normalize=False)
+    for fwd, x, y in ((syn, four, grid), (ana, grid, four)):
+        x = x.clone().requires_grad_(True)
+        (xt,) = torch.autograd.grad(fwd(x), x, y)
+        assert torch.isfinite(xt).all()
+        lhs, rhs = dot(fwd(x.detach()), y), dot(x.detach(), xt)
+        assert abs(lhs - rhs) <= 1e-13 * abs(lhs)
+        if fwd is syn:
+            assert torch.all(xt[:, ~bt.keep] == 0)
+        else:
+            past = ~torch.from_numpy(np.arange(res.grid.ndlon)[None, :]
+                                     < np.asarray(res.grid.nloen)[:, None])
+            assert torch.all(xt[:, past] == 0)

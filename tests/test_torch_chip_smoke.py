@@ -973,3 +973,57 @@ def test_run_command_fails_on_exit_code_and_limit(smoke, capsys):
         smoke.run_command(("timeit", "-n", "1", "-r", "1",
                            "import time; time.sleep(30)"), "12(z)", 2)
     assert "12(z) |" in capsys.readouterr().out
+
+
+def test_phase13_flags_and_packets(smoke):
+    """Phase 13 (c): the IFS driver at TCO1279 L137 in packets of 8 levels:
+    18 packets a direction an iteration, of (8, 17), (8, 16) and (1, 2)
+    (vor/div pairs, scalars)."""
+    from ectrans_tpu_torch.programs import benchmark_ifs
+
+    a = benchmark_ifs.parse_args(list(smoke.PROGRAM_IFS))
+    assert (a.grid, a.nlev, a.npromatr, a.niter, a.check, a.dtype) == (
+        "TCO1279", 137, 8, 3, 100.0, "float32")
+    loop = benchmark_ifs.packets(a.nlev, a.npromatr)
+    shapes = [(hi - lo, len(sc)) for lo, hi, sc in loop]
+    assert len(loop) == 18 and set(shapes) == {(8, 17), (8, 16), (1, 2)}
+    assert shapes[0] == (8, 17) and shapes[-1] == (1, 2)
+    assert sorted(i for _, _, sc in loop for i in sc) == list(range(275))
+
+
+def test_phase13_helpers(smoke):
+    assert smoke.union_ms([(0, 1), (0.5, 2), (3, 4), (3.5, 3.6)]) == 3.0
+    assert smoke.union_ms([]) == 0.0
+    want = torch.tensor([[[1.0, -2.0]], [[0.0, 0.0]]])
+    got = want + torch.tensor([[[0.0, 2 * smoke.FOURIER_GATE]],
+                               [[0.0, 0.0]]])
+    # field 0: 2 gate units over a max of 2 -> 1.0; the zero field 0
+    assert smoke.field_share(got, want) == pytest.approx(1.0)
+    p = smoke.device_profile(torch.device("cpu"), lambda: torch.ones(3) + 1)
+    assert p["n"] == 0 and p["wall_ms"] > 0
+    assert "not measured" in smoke.profile_note(p)
+
+
+def test_phase13_ab_busy_and_tail_lines_on_the_cpu(smoke):
+    """Phase 13 (a), (b) and (d) at O48 on the CPU: both layers within 100
+    eps of each field's max of each other and of fp64, a line each; each
+    round trip's error tail well inside the gate."""
+    cpu = torch.device("cpu")
+    res, sp, four, grid = smoke.fourier_inputs(cpu, "O48")
+    assert tuple(four.shape) == (26, 2, res.M, res.ndgl)
+    assert tuple(grid.shape) == (26, res.ndgl, res.grid.ndlon)
+    lines = smoke.fourier_ab(cpu, res, four, grid)
+    assert len(lines) == 6
+    assert sum("buckets vs rows" in line for line in lines) == 2
+    lines = smoke.busy_shares(cpu, res, sp)
+    assert len(lines) == 4 and "not measured" in lines[-1]
+    assert all("scalars" in line for line in lines[:2])
+    lines = smoke.error_tail(cpu, res, sp)
+    assert [line.split(":")[0] for line in lines] == [
+        "phase 13 (d) round trip",
+        "phase 13 (d) inverse alone (fp32 inverse, fp64 direct)",
+        "phase 13 (d) direct alone (fp64 inverse rounded to fp32, fp32 "
+        "direct)"]
+    shares = [float(w) for line in lines for w in
+              line.replace(";", " ").split() if w.startswith("0.")]
+    assert shares and max(shares) < 0.65

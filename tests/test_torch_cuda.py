@@ -1014,3 +1014,52 @@ def test_benchmark_driver_on_card_matches_cpu(dev, tmp_path, capsys):
     for k, want in out["cpu"].items():
         err = np.abs(out["cuda"][k] - want).max()
         assert err <= 1e-12 * np.abs(want).max(), (k, err)
+
+
+@pytest.mark.parametrize("nb", ["12", "3"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bucketed_fourier_on_card_matches_cpu(dev, dtype, nb, monkeypatch):
+    """The chirp-z layer (cuFFT) at T159 on the card against the same layer
+    on the CPU in fp64, both directions, with an odd field count and a
+    pair 1e7 apart: each field within the slice's tolerance of its own
+    largest |value|."""
+    from ectrans_tpu_torch.ops import fourier
+
+    monkeypatch.setenv("ECTRANS_TPU_FFT_BUCKETS", nb)
+    res = ett.setup("O160", 159)
+    rng = np.random.default_rng(5)
+    scale = np.array([1.0, 1e3, 1e-4, 1.0, 0.0])[:, None, None]
+    four = torch.from_numpy(rng.standard_normal((5, 2, res.M, res.ndgl))
+                            * scale[..., None])
+    grid = torch.from_numpy(rng.standard_normal((5, res.ndgl,
+                                                 res.grid.ndlon)) * scale)
+    cpu = torch.device("cpu")
+    atol, rtol = SLICE_TOL[dtype]
+    for f, x in ((lambda x, d: fourier.synthesis_bucketed(
+                      x, fourier.bucketed_tables(res, d)), four),
+                 (lambda x, d: fourier.analysis_bucketed(
+                      x, fourier.bucketed_tables(res, d), res.M),
+                  grid)):
+        want = f(x, cpu)
+        got = f(x.to(dev, dtype), dev).cpu().double()
+        for k in range(want.shape[0]):
+            s = want[k].abs().max().item()
+            err = (got[k] - want[k]).abs().max().item()
+            assert err <= (rtol * s if s else atol), (k, err, s)
+
+
+def test_ifs_driver_on_card_matches_cpu(dev):
+    """The IFS-layout driver at T159 (3 levels in packets of 2 + sp and 1)
+    in fp64 on the card against ``--device cpu``: the final spectra within
+    1e-12 of each family's largest |value|, both checks OK."""
+    from ectrans_tpu_torch.programs import benchmark_ifs
+
+    argv = ["-g", "O160", "-t", "159", "-l", "3", "--npromatr", "2", "-n",
+            "1", "--check", "1000", "--dtype", "float64"]
+    out = {}
+    for where in ("cpu", "cuda"):
+        out[where] = benchmark_ifs.main(argv + ["--device", where])["spectra"]
+        ett.trans_end()
+    for k, want in out["cpu"].items():
+        err = np.abs(out["cuda"][k] - want).max()
+        assert err <= 1e-12 * np.abs(want).max(), (k, err)

@@ -13,8 +13,10 @@ against ``ectrans_tpu.parallel.distribution`` (host only, no process group).
 
 The JAX package's Legendre and Bluestein tables (``fl*``, ``lg*``,
 ``fb*``) and its unused ``mval`` are not host tables of the port: its
-Legendre rows are made per rank, and its Fourier layer has no chirp-z
-tables (``distribution``'s docstring).
+Legendre rows are made per rank, and so are its chirp-z tables
+(``rank_fourier``, on the rank's device): those are held here against the
+single-device layer on the rank's rows, and the Fourier buckets
+(``lat_buckets``) against the JAX package's.
 """
 
 import numpy as np
@@ -129,3 +131,53 @@ def test_trans_end_clears_distributions():
     assert tdist.build_distribution.cache_info().currsize > 0
     ett.trans_end()
     assert tdist.build_distribution.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("w,v", [(1, 1), (2, 1), (2, 2), (3, 1), (8, 1)])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_lat_buckets_match_jax(grid, w, v):
+    """The mesh's Fourier buckets: the JAX package's slot ranges, mb and
+    ndlon (nfft is the port's own length, at least ndlon + 2 mb + 1)."""
+    jd, td = _pair(grid, w, v)
+    assert len(td.lat_buckets) == len(jd.lat_buckets) >= 1
+    for tb, jb in zip(td.lat_buckets, jd.lat_buckets):
+        assert (tb.lb0, tb.lb1, tb.mb, tb.ndlon) == (jb.lb0, jb.lb1, jb.mb,
+                                                     jb.ndlon)
+        assert tb.nfft >= tb.ndlon + 2 * tb.mb + 1
+
+
+@pytest.mark.parametrize("grid,w", [("O48", 2), ("O160", 3)])
+def test_rank_fourier_matches_single_device(grid, w):
+    """Each w-rank's chirp-z buckets (nb > 1 a rank here) on its slots give
+    the single-device synthesis and analysis of those rows within 1e-12 in
+    fp64; pad slots have zero tables and give zeros."""
+    from ectrans_tpu_torch.ops import fourier
+
+    res = ett.setup(grid)
+    td = tdist.build_distribution(res, w, 1)
+    assert len(td.lat_buckets) > 1
+    rng = np.random.default_rng(3)
+    four = torch.from_numpy(rng.standard_normal((3, 2, res.M, res.ndgl)))
+    grid_all = torch.from_numpy(rng.standard_normal((3, res.ndgl,
+                                                     res.grid.ndlon)))
+    g_ref = fourier.synthesis(four, res)
+    f_ref = fourier.analysis(grid_all, res)
+    for iw in range(w):
+        bt = tdist.rank_fourier(td, iw, "cpu")
+        slots = td.lat_perm[iw * td.LL:(iw + 1) * td.LL]
+        pad = torch.from_numpy(slots >= res.ndgl)
+        r = torch.from_numpy(np.minimum(slots, res.ndgl - 1))
+        x = four[..., r] * ~pad
+        g = fourier.synthesis_bucketed(x, bt)
+        want = g_ref[:, r] * ~pad[:, None]
+        assert (g - want).abs().max() <= 1e-12 * g_ref.abs().max()
+        f = fourier.analysis_bucketed(grid_all[:, r], bt, res.M)
+        want = f_ref[..., r] * ~pad
+        assert (f - want).abs().max() <= 1e-12 * f_ref.abs().max()
+        assert torch.all(f[..., pad] == 0) and torch.all(g[:, pad] == 0)
+        for bk, meta in zip(bt.buckets, td.lat_buckets):
+            assert (bk.mb, bk.ndlon, bk.nfft) == (meta.mb, meta.ndlon,
+                                                  meta.nfft)
+            rows = pad[meta.lb0:meta.lb1]
+            assert torch.all(bk.syn_bh[rows] == 0)
+            assert torch.all(bk.ana_out[rows] == 0)

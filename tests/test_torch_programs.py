@@ -13,6 +13,10 @@ JAX package's drivers:
   the JAX driver's;
 * the LAM driver's final spectra against the JAX LAM loop written out here
   (the JAX LAM driver dumps nothing), 1e-12;
+* the IFS-layout driver (F24 T47, 5 levels in packets of 2 + sp, 2 and 1
+  levels, fp64) against the JAX IFS driver's loop written out here, 1e-12
+  of each family's largest |value|, both drivers' ``--check 1000`` OK,
+  and serial against ``--mesh 2x2`` within 1e-10;
 * ``info``, ``--device cuda`` without a card, and ``world.run``'s failing
   ranks.
 
@@ -30,7 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from ectrans_tpu_torch.programs import benchmark, info, lam_benchmark, world
+from ectrans_tpu_torch.programs import (benchmark, benchmark_ifs, info,
+                                        lam_benchmark, world)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 EPS32 = float(np.finfo(np.float32).eps)
@@ -47,6 +52,8 @@ CASES = {
 }
 LAM = ["--nlon", "48", "--nlat", "40", "-n", "2", "-f", "2", "--vordiv",
        "--scders", "--uvders", "--check", "200", "--dtype", "float64"]
+IFS = ["-g", "F24", "-t", "47", "-l", "5", "--npromatr", "2", "-n", "2",
+       "--dtype", "float64", "--check", "1000"]
 
 
 def dumped(mod, argv, path, capsys):
@@ -195,6 +202,93 @@ def test_lam_driver_matches_jax_loop(capsys):
         assert err <= 1e-12 * scale[k], (k, err, scale[k])
 
 
+def jax_ifs_loop(argv):
+    """The JAX IFS driver's loop (``ectrans_tpu/programs/benchmark_ifs.py``
+    :90-118) on its seeded inputs: the final (vor, div, sc)."""
+    import jax.numpy as jnp
+
+    import ectrans_tpu as et
+    from ectrans_tpu.transform import InvFlags
+
+    args = benchmark_ifs.parse_args(argv)
+    res = et.setup(args.grid, args.truncation)
+    nlev, pk = args.nlev, args.npromatr
+    rng = np.random.default_rng(0)
+
+    def packed(n):
+        x = rng.standard_normal((n, res.nspec2))
+        x[:, 1: 2 * (res.nsmax + 1): 2] = 0.0
+        x[:, 0] = 0.0
+        return jnp.asarray(x, jnp.float64)
+
+    sv, sd, ss = packed(nlev), packed(nlev), packed(2 * nlev + 1)
+    flags = InvFlags(scders=True, uvders=True)
+    for _ in range(args.niter + 1):
+        sv2, sd2, ss2 = [], [], []
+        for lo in range(0, nlev, pk):
+            hi = min(nlev, lo + pk)
+            m = hi - lo
+            sc_idx = list(range(lo, hi)) + list(range(nlev + lo, nlev + hi))
+            if lo == 0:
+                sc_idx.append(2 * nlev)
+            g = et.inv_trans(res, spvor=sv[lo:hi], spdiv=sd[lo:hi],
+                             spscalar=ss[np.asarray(sc_idx)], flags=flags,
+                             dtype=jnp.float64)
+            pv, pd, psc = et.dir_trans(
+                res, u=g[:m], v=g[m: 2 * m],
+                scalars=g[2 * m: 2 * m + len(sc_idx)], dtype=jnp.float64)
+            sv2.append(pv)
+            sd2.append(pd)
+            ss2.append(psc)
+        sv, sd = jnp.concatenate(sv2), jnp.concatenate(sd2)
+        tpar, qpar, sp_f = [], [], None
+        for blk, lo in zip(ss2, range(0, nlev, pk)):
+            m = min(nlev, lo + pk) - lo
+            tpar.append(blk[:m])
+            qpar.append(blk[m: 2 * m])
+            if lo == 0:
+                sp_f = blk[2 * m:]
+        ss = jnp.concatenate(tpar + qpar + [sp_f])
+    return dict(vor=np.asarray(sv), div=np.asarray(sd), sc=np.asarray(ss))
+
+
+def test_ifs_packets():
+    """Packets of 2 + sp, 2 and 1 levels: three field-count shapes."""
+    assert benchmark_ifs.packets(5, 2) == [
+        (0, 2, [0, 1, 5, 6, 10]), (2, 4, [2, 3, 7, 8]), (4, 5, [4, 9])]
+    assert benchmark_ifs.packets(3, 8) == [(0, 3, [0, 1, 2, 3, 4, 5, 6])]
+
+
+def test_ifs_driver_matches_jax_loop(capsys):
+    from ectrans_tpu.programs import benchmark_ifs as jax_ifs
+
+    rep = benchmark_ifs.main(IFS + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "-> OK" in out and "device cpu" in out, out
+    assert "IFS layout: 5 levels vor/div + 11 scalar fields" in out
+    assert len(rep["t_rt"]) == 2 and rep["first"] > 0
+    jax_ifs.main(IFS)
+    jax_out = capsys.readouterr().out
+    assert "-> OK" in jax_out, jax_out
+    want = jax_ifs_loop(IFS)
+    for k, w in want.items():
+        got = rep["spectra"][k]
+        assert got.shape == w.shape, k
+        err = np.abs(got - w).max()
+        assert err <= 1e-12 * np.abs(w).max(), (k, err)
+
+
+def test_ifs_driver_mesh_matches_serial(capfd):
+    serial = benchmark_ifs.main(IFS + ["--device", "cpu"])
+    mesh = benchmark_ifs.main(IFS + ["--device", "cpu", "--mesh", "2x2"])
+    out = capfd.readouterr().out     # the ranks print from their processes
+    assert "mesh 2x2 over 4 ranks (gloo)" in out
+    assert out.count("-> OK") == 2, out
+    for k, w in serial["spectra"].items():
+        err = np.abs(mesh["spectra"][k] - w).max()
+        assert err <= 1e-10 * np.abs(w).max(), (k, err)
+
+
 def test_info_runs_without_a_card(capsys, monkeypatch):
     import ectrans_tpu_torch as ett
 
@@ -208,7 +302,8 @@ def test_info_runs_without_a_card(capsys, monkeypatch):
 
 @pytest.mark.parametrize("mod,argv", [
     (benchmark, BASE), (benchmark, BASE + ["--mesh", "2x1"]),
-    (lam_benchmark, ["--nlon", "48", "--nlat", "40", "-n", "1"])])
+    (lam_benchmark, ["--nlon", "48", "--nlat", "40", "-n", "1"]),
+    (benchmark_ifs, ["-g", "F24", "-l", "2", "-n", "1"])])
 def test_device_cuda_without_a_card_stops(monkeypatch, capsys, mod, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as e:

@@ -10,7 +10,8 @@ against the port's single-device transform:
   (1, 4) (meshes of fewer than 4 ranks on subgroups): inverse (F24, O48)
   and direct (O48) in fp64 within 1e-12 of the largest value, and every
   pair of meshes within 1e-13 (the JAX package's waiver,
-  ``tests/test_sharded.py``);
+  ``tests/test_sharded.py``), with the chirp-z Fourier buckets of each
+  rank's slots (up to 6 a rank, LLW // 16);
 * the fp32 round trip; "dense" (the plain K1/K2/K3 on the CPU) against
   "xla" within 100 eps; the bf16 tier; scalar-only and uv-only calls;
   fp64 running "xla"; KVSET ownership and NPROMATR packets; the lat-lon
@@ -99,6 +100,7 @@ def _rank(rank):
         for grid in ("F24", "O48"):
             st = handle(grid, w, v, **f64)
             out["eng64", w, v] = st._sharded.eng
+            out["nb", grid, w, v] = len(st._sharded.fourier.buckets)
             vor, div, sc = spectra(st.res, 2, 3, 0)
             out["inv", grid, w, v] = st.inv_trans(
                 *[st.dist_spec(x) for x in (vor, div, sc)],
@@ -318,6 +320,19 @@ def test_dir_decomposition_invariance(world, w, v):
             scale = np.abs(a).max()
             assert rel(g.numpy(), a[own], scale) < 1e-12, (r, fam)
             assert rel(g.numpy(), b[own], scale) < 1e-12, (r, fam)
+
+
+def test_fourier_buckets_on_ranks(world):
+    """The decomposition-invariance runs above ran nb = min(12, LLW // 16)
+    chirp-z buckets on every rank: several where a rank has 32 or more
+    latitude slots."""
+    res = world.results()
+    want = {("O48", 1, 1): 6, ("O48", 2, 1): 3, ("O48", 1, 2): 6,
+            ("O48", 2, 2): 3, ("O48", 4, 1): 1, ("F24", 1, 1): 3,
+            ("F24", 2, 2): 1}
+    for (grid, w, v), nb in want.items():
+        assert all(res[r]["nb", grid, w, v] == nb for r in range(w * v)), (
+            grid, w, v)
 
 
 def test_cross_mesh_max_delta(world):
