@@ -209,12 +209,35 @@ After phase 7, three phases at full width:
    and 1 and 2; its check OK, K1 and K2 16 times a transform, K3 once a
    direct transform, K4 once (first call, median, throughput, peak).
 
+14. the ectrans4py and C surfaces (``compat4py``, ``capi_bridge`` and the
+   port's shim ``capi/ectrans_tpu_torch_capi.c``), after ``trans_end``:
+   (a) one fp64 field through ``sp2gp_gauss4py`` (LGRADIENT, LREORDER) on
+   O1280's KLOEN at KTRUNC 1279 and back through ``gp2sp_gauss4py``: bit
+   for bit the module path (``inv_trans``/``dir_trans`` in fp64 on the
+   card, the reduced packing and the FA order around them), each field's
+   spectral-norm drift within 100 eps(fp64) (the drivers' fp64 check; the
+   largest coefficient error is printed, the reduced grid's aliasing puts
+   it far above 100 eps), K1 and K2 16 times, K3 and K4 once (first call,
+   median of 3, peak); (b) ``sp2gp_lam4py``/``gp2sp_lam4py`` on phase
+   10's domain in fp64, bit for bit ``inv_trans_lam``/``dir_trans_lam``,
+   no kernel; (c) ``get_legendre_assets`` at TCO639 with every column
+   (640 x 205,760, ~1 GB), built and read back bit for bit through a
+   legpol cache in a temporary directory, within 1e-11 of the card's fp64
+   tables (K4), and ``sp2gp_fft1d4py`` against numpy's cos/sin sums
+   (1e-12); (d) the C API: the unchanged ``src/capi/test_capi.c`` linked
+   to the shim and run on the card ("C API test OK"), then the shim in
+   this process (ctypes): ``ectrans_tpu_setup("TCO1279", -1)``, bench.py's
+   fields through ``invtrans_full`` and ``dirtrans_full`` in fp64 bit for
+   bit the module path, and the ``_f`` entries on the 6 scalars bit for
+   bit the module path in fp32 and within 0.65 of the 100 eps gate, each
+   with K1 and K2 16 times, K3 and K4 once.
+
 Every phase runs the bucketed chirp-z Fourier layer of ``ops/fourier.py``
 but phase 13's per-NLOEN rows.  Each prints its times, peak memory and
 seconds.  Then one JSON line with the kernels (K1-K4's launches: phase
 4's and phase 8's (a) and (b), K4's of
 phase 9, phase 11's (a) and (e) summed over its ranks, phase 12's (b)
-and (c) and phase 13's (c)), and last the line
+and (c), phase 13's (c) and phase 14's (a) and (d)), and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 2 before doing anything.  TF32 is off for every
 matmul and convolution (the plain Legendre versions use torch.bmm).
@@ -2892,16 +2915,19 @@ def run_program(main, argv, tag: str) -> tuple:
     return rep, buf.getvalue()
 
 
-def run_command(argv, tag: str, limit: float) -> str:
-    """A program as its own command (``python -m ...``, from the root of the
-    checkout), in a process group of its own that is killed whole if it
+def run_command(argv, tag: str, limit: float, env=None,
+                module: bool = True) -> str:
+    """A program as its own command (``python -m ...``, or argv itself
+    when not ``module``, from the root of the checkout, in ``env`` if
+    given), in a process group of its own that is killed whole if it
     outlasts ``limit`` seconds; its lines printed behind ``tag``.  Fails
     unless it exits 0.  Returns its output."""
     import signal
 
-    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, start_new_session=True)
+    cmd = [sys.executable, "-m", *argv] if module else list(argv)
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
     try:
         out, _ = proc.communicate(timeout=limit)
     except subprocess.TimeoutExpired:
@@ -3336,6 +3362,406 @@ def phase_fourier(dev: torch.device, counters: dict, name: str = "TCO1279",
     return launches
 
 
+# phase 14: the ectrans4py and C surfaces (compat4py, capi_bridge and the
+# port's C shim) on the card: (a) compat4py at TCO1279 on O1280's KLOEN,
+# (b) on phase 10's LAM domain, (c) its host assets at TCO639 through the
+# legpol cache, (d) the C API: test_capi.c at O48 and the shim in this
+# process at TCO1279
+EPS64 = float(np.finfo(np.float64).eps)
+# (a)'s round trip: each field's spectral-norm drift, as the drivers'
+# fp64 --check 100 holds it over one iteration; its largest coefficient
+# error is printed in eps, not gated at 100 of them: the reduced grid's
+# own aliasing puts it near 3e4-7e4 eps at n = nsmax (TCO95-TCO319 on the
+# CPU's fp64), and plain fp64 sums near 900 eps on the full F160
+SURFACE_NORM_GATE = 100 * EPS64
+SURFACE_FFT_TOL = 1e-12      # (c)'s 1-D synthesis against numpy's sums
+SURFACE_REPS = 3
+SURFACES = dict(gauss=("TCO1279", None), lam=LAM_DOMAIN, assets="TCO639",
+                capi="TCO1279", capi_limit=300)
+
+
+def expect_launches(dev: torch.device, got: dict, want: dict,
+                    tag: str) -> None:
+    """A surface's launches on the card must be want's (on the CPU the plain
+    versions run, which count none)."""
+    if dev.type == "cuda":
+        check(got == want, f"phase 14 {tag} launched {got}; expected {want}")
+
+
+def fa_spectrum(ktrunc: int, seed: int = 0) -> np.ndarray:
+    """One field in the FA file order: (ktrunc + 1)^2 values, seeded."""
+    return np.random.default_rng(seed).standard_normal((ktrunc + 1) ** 2)
+
+
+def eps_share(got, want) -> float:
+    """max |got - want| in eps(fp64) of want's largest |value|."""
+    return float(np.abs(got - want).max() / np.abs(want).max() / EPS64)
+
+
+def gauss_round_trip(grid, fa, dev):
+    """compat4py's sp2gp_gauss4py (LGRADIENT, LREORDER) and gp2sp_gauss4py
+    of its grid, on grid's KLOEN: ((PGPT, PGPTM, PGPTL), FA spectrum)."""
+    from ectrans_tpu_torch import compat4py as c4
+
+    ks, T, kloen = grid.ndgl, grid.nsmax, np.asarray(grid.nloen)
+    pg = c4.sp2gp_gauss4py(ks, T, 10, grid.ngptot, ks, kloen, fa.size, True,
+                           True, fa, device=dev)
+    return pg, c4.gp2sp_gauss4py(fa.size, ks, T, 10, ks, kloen, grid.ngptot,
+                                 True, pg[0], device=dev)
+
+
+def gauss_module(grid, fa, pgpt, dev):
+    """The module path on (a)'s inputs: the packed inv_trans of fa (with
+    N-S and E-W derivatives) and dir_trans of pgpt, in FA order, fp64; and
+    the Resolution."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import compat4py as c4
+
+    T = grid.nsmax
+    res = ett.setup(c4._gauss_grid(grid.ndgl, T, grid.nloen))
+    model = c4._reorder_fa_to_model(fa, T, res.nspec2)
+    out = ett.inv_trans(res, spscalar=torch.tensor(model[None], device=dev),
+                        flags=ett.InvFlags(scders=True), dtype=torch.float64)
+    packed = c4._pack_reduced(out, grid.nloen).cpu().numpy()
+    rows = c4._unpack_reduced(torch.tensor(pgpt[None], device=dev),
+                              grid.nloen, grid.ndlon)
+    _, _, spec = ett.dir_trans(res, scalars=rows, dtype=torch.float64)
+    back = c4._reorder_model_to_fa(spec[0].cpu().numpy(), T, fa.size)
+    return packed, back, res
+
+
+def surface_gauss(dev: torch.device, counters: dict, name: str,
+                  nsmax=None) -> dict:
+    """(a): one fp64 field through sp2gp_gauss4py and back through
+    gp2sp_gauss4py on the grid's KLOEN and truncation, bit for bit the
+    module path's; K1 and K2 16 times (once an m-group), K3 and K4
+    once."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import compat4py as c4
+    from ectrans_tpu_torch.programs import drift
+
+    grid = ett.make_grid(name, nsmax)
+    fa = fa_spectrum(grid.nsmax)
+    _zero(counters)
+    _reset_peak(dev)
+    (pg, back), t_first = _timed(dev, lambda: gauss_round_trip(grid, fa, dev))
+    launches = _counts(counters)
+    packed, want_back, res = gauss_module(grid, fa, pg[0], dev)
+    groups = len(res.legendre_groups())
+    expect_launches(dev, launches, {"K1": groups, "K2": groups, "K3": 1,
+                                    "K4": 1}, "(a)")
+    check(all(np.array_equal(a, b) for a, b in zip(pg, packed)),
+          "phase 14 (a): sp2gp_gauss4py differs from the module path")
+    check(np.array_equal(back, want_back),
+          "phase 14 (a): gp2sp_gauss4py differs from the module path")
+    times = [_timed(dev, lambda: gauss_round_trip(grid, fa, dev))[1]
+             for _ in range(SURFACE_REPS)]
+    peak = _peak(dev)
+    T = grid.nsmax
+    norm_in, norm_out = (ett.specnorm(res, torch.from_numpy(
+        c4._reorder_fa_to_model(x, T, res.nspec2))[None]).numpy()
+        for x in (fa, back))
+    norm_drift = drift(norm_out, norm_in)
+    check(norm_drift <= SURFACE_NORM_GATE,
+          f"phase 14 (a): norm drift {norm_drift:.3e} over "
+          f"{SURFACE_NORM_GATE:.3e}")
+    print(f"phase 14 (a) compat4py {name} (KLOEN of {grid.ndgl} rows, "
+          f"KTRUNC {T}) fp64, LGRADIENT and LREORDER: sp2gp_gauss4py and "
+          f"the derivatives bit-identical to the module path, gp2sp_gauss4py "
+          f"too; round trip: norm drift {norm_drift / EPS64:.2f} eps (at "
+          f"most 100), largest coefficient error {eps_share(back, fa):.0f} "
+          f"eps of the largest |value| (the reduced grid's aliasing); first "
+          f"round trip {t_first:.3f} s (tables by K4); median "
+          f"{statistics.median(times) * 1e3:.1f} ms (min "
+          f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}, n "
+          f"{SURFACE_REPS}); peak {peak:.2f} GiB; launches {launches}")
+    return launches
+
+
+def surface_lam(dev: torch.device, counters: dict, domain: dict) -> None:
+    """(b): one fp64 field through sp2gp_lam4py and gp2sp_lam4py
+    (LGRADIENT, LREORDER) on the domain, bit for bit inv_trans_lam's and
+    dir_trans_lam's; no kernel."""
+    from ectrans_tpu_torch import compat4py as c4
+    from ectrans_tpu_torch.lam import LamInvFlags, dir_trans_lam, inv_trans_lam
+
+    d = domain
+    nx, ny, dx, dy = d["nx"], d["ny"], d["dx"], d["dy"]
+    dims = (nx, ny, d["nxux"], d["nyux"], (nx - 1) // 2, (ny - 1) // 2)
+    res = c4._lam_res(*dims, dx, dy)
+    model = lam_inputs(res, 0, 1)[2][0].double().numpy()
+    fa = c4._lam_reorder_model_to_fa(model, res, res.nspec2)
+    _zero(counters)
+    _reset_peak(dev)
+    out, t_inv = _timed(dev, lambda: c4.sp2gp_lam4py(
+        *dims, 10, res.nspec2, True, True, dx, dy, fa, device=dev))
+    back, t_dir = _timed(dev, lambda: c4.gp2sp_lam4py(
+        res.nspec2, *dims, 10, dx, dy, True, out[0], device=dev))
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    check(not launched, f"phase 14 (b) launched {launched}")
+    grid = inv_trans_lam(res, spscalar=torch.tensor(model[None], device=dev),
+                         flags=LamInvFlags(scders=True), dtype=torch.float64)
+    check(all(np.array_equal(a, b.cpu().numpy().ravel())
+              for a, b in zip(out, grid)),
+          "phase 14 (b): sp2gp_lam4py differs from inv_trans_lam")
+    rows = torch.tensor(out[0], device=dev).reshape(1, ny, nx)
+    spec = dir_trans_lam(res, scalars=rows, dtype=torch.float64)[2]
+    want = c4._lam_reorder_model_to_fa(spec[0].cpu().numpy(), res,
+                                       res.nspec2)
+    check(np.array_equal(back, want),
+          "phase 14 (b): gp2sp_lam4py differs from dir_trans_lam")
+    print(f"phase 14 (b) compat4py LAM {nx} x {ny} at dx {dx:g} m, "
+          f"truncation {dims[4:]}, fp64: sp2gp_lam4py and gp2sp_lam4py "
+          f"bit-identical to inv_trans_lam and dir_trans_lam; round trip "
+          f"{eps_share(back, fa):.1f} eps of the largest |value|; "
+          f"sp2gp {t_inv:.3f} s, gp2sp {t_dir:.3f} s (first calls); peak "
+          f"{_peak(dev):.2f} GiB; no kernel")
+
+
+def assets_vs_tables(prpnm: np.ndarray, res, fl) -> float:
+    """Largest |PRPNM - the tables of ``fl``| (full_legendre's groups, pn[m
+    - m0, j, i - i0] = P̄_{m+j}^m(mu_i); PRPNM's rows above i0 must be 0),
+    of PRPNM's largest |value|."""
+    T = res.nsmax
+    starts = np.concatenate([[0], np.cumsum(T + 2 - np.arange(T + 1))])
+    worst = 0.0
+    for g in fl.groups:
+        pn = g.pn.cpu().numpy()
+        for m in range(g.m0, g.m1):
+            cols = prpnm[:, starts[m]: starts[m + 1]]   # n = T+1 .. m
+            card = pn[m - g.m0, : T + 2 - m][::-1].T
+            worst = max(worst, float(np.abs(cols[g.i0:] - card).max()),
+                        float(np.abs(cols[: g.i0]).max(initial=0.0)))
+    return worst / float(np.abs(prpnm).max())
+
+
+def fft1d_direct(spec: np.ndarray, ktrunc: int, L: int) -> np.ndarray:
+    """sp2gp_fft1d4py's synthesis by explicit fp64 cos/sin sums."""
+    x = 2 * np.pi * np.arange(L) / L
+    k = np.arange(1, ktrunc + 1)[:, None]
+    re, im = spec[0: 2 * (ktrunc + 1): 2], spec[1: 2 * (ktrunc + 1): 2]
+    return re[0] + 2 * (re[1:, None] * np.cos(k * x)
+                        - im[1:, None] * np.sin(k * x)).sum(0)
+
+
+def surface_assets(dev: torch.device, name: str) -> None:
+    """(c): get_legendre_assets with every column, built and then read
+    back through a legpol cache of its own, against the card's fp64 tables
+    (K4) at 1e-11; sp2gp_fft1d4py on the grid's longest row against
+    numpy's sums."""
+    import tempfile
+
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import compat4py as c4
+
+    grid = ett.make_grid(name)
+    ks, T, kloen = grid.ndgl, grid.nsmax, np.asarray(grid.nloen)
+    ncol = (T + 2) * (T + 3) // 2 - 1
+    with tempfile.TemporaryDirectory() as d, environ(
+            ECTRANS_TPU_LEGPOL_DIR=d):
+        (kn, pgw, prpnm), t_build = _timed(dev, lambda: c4.get_legendre_assets(
+            ks, T, ks, ncol, kloen))
+        cached = sorted(p for p in os.listdir(d) if p.startswith("legpol_"))
+        check(len(cached) == 2, f"phase 14 (c): the cache holds {cached}")
+        again, t_read = _timed(dev, lambda: c4.get_legendre_assets(
+            ks, T, ks, ncol, kloen))
+        check(all(np.array_equal(a, b) for a, b in
+                  zip((kn, pgw, prpnm), again)),
+              "phase 14 (c): the assets read from the cache differ")
+        del again
+    res = ett.setup(c4._gauss_grid(ks, T, kloen))
+    check(np.array_equal(kn, res.nmen) and np.array_equal(pgw, res.w),
+          "phase 14 (c): KNMENG or PGW differ from the Resolution's")
+    (fl, t_k4) = _timed(dev, lambda: res.full_legendre(torch.float64, dev))
+    worst = assets_vs_tables(prpnm, res, fl)
+    res.drop_cached("full_legendre")
+    check(worst <= LATLON_TABLE_TOL, f"phase 14 (c): PRPNM {worst:.3e} from "
+                                     f"the card's fp64 tables")
+    spec = np.random.default_rng(1).standard_normal(2 * (T + 1))
+    L = grid.ndlon
+    out = c4.sp2gp_fft1d4py(spec.size, T, spec, L, device=dev)
+    want = fft1d_direct(spec, T, L)
+    fft = float(np.abs(out - want).max() / np.abs(want).max())
+    check(fft <= SURFACE_FFT_TOL, f"phase 14 (c): sp2gp_fft1d4py {fft:.3e} "
+                                  f"from numpy's sums")
+    print(f"phase 14 (c) get_legendre_assets {name}: PRPNM {prpnm.shape} "
+          f"({prpnm.nbytes / 2**30:.2f} GiB) built in {t_build:.2f} s "
+          f"(cache written), read back bit for bit in {t_read:.2f} s; "
+          f"{worst:.2e} of its largest |value| from the card's fp64 tables "
+          f"(K4, {t_k4:.2f} s; at most {LATLON_TABLE_TOL:g}); "
+          f"sp2gp_fft1d4py T{T} onto {L} points {fft:.2e} from numpy's "
+          f"cos/sin sums (at most {SURFACE_FFT_TOL:g})")
+
+
+def _void(a: np.ndarray) -> int:
+    """The address of a's data, for the shim's pointer arguments."""
+    return a.ctypes.data
+
+
+def capi_test_program(dev: torch.device, limit: float) -> float:
+    """The unchanged src/capi/test_capi.c linked to the port's shim and run
+    on dev: it must exit 0 and print "C API test OK".  Returns seconds."""
+    import tempfile
+
+    from ectrans_tpu_torch import capi
+
+    with tempfile.TemporaryDirectory() as d:
+        exe = os.path.join(d, "test_capi")
+        subprocess.run([capi.cc(), "-O2",
+                        os.path.join(ROOT, "src", "capi", "test_capi.c"),
+                        "-o", exe] + capi.link_flags() + ["-lm"],
+                       check=True, capture_output=True)
+        env = dict(capi.bridge_env(dev.type), ECTRANS_TPU_LEGPOL_DIR="")
+        t0 = time.perf_counter()
+        out = run_command([exe], "14(d)", limit, env=env, module=False)
+        secs = time.perf_counter() - t0
+    check("C API test OK" in out, "phase 14 (d): test_capi.c printed no OK")
+    return secs
+
+
+def capi_round_trip(lib, h, sp, gp, out):
+    """ectrans_tpu_invtrans_full of bench.py's fields with lscalarders and
+    luvder_ew into gp, ectrans_tpu_dirtrans_full of its u, v and scalars
+    into out; returns invtrans_full's field count."""
+    vor, div, sc = sp
+    nout = lib.ectrans_tpu_invtrans_full(h, NFLD_UV, NFLD_SC, _void(vor),
+                                         _void(div), _void(sc), 1, 1, 0,
+                                         _void(gp))
+    rc = lib.ectrans_tpu_dirtrans_full(h, NFLD_UV, NFLD_SC, _void(gp),
+                                       *map(_void, out))
+    check(rc == 0, f"ectrans_tpu_dirtrans_full returned {rc}")
+    return nout
+
+
+def capi_module(res, sp, flags, gp, dev, dtype):
+    """The module path on the C API's inputs: the packed inv_trans of sp
+    ((vor, div, scalars), None where absent) under flags, and dir_trans of
+    gp's first rows (u, v, scalars), each (vor, div, scalars) on the
+    host."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import compat4py as c4
+
+    t = [None if x is None else torch.tensor(x, device=dev) for x in sp]
+    out = ett.inv_trans(res, *t, flags=flags, dtype=dtype)
+    packed = c4._pack_reduced(out, res.grid.nloen).cpu().numpy()
+    del out
+    nuv, nsc = (0 if x is None else x.shape[0] for x in sp[1:])
+    rows = c4._unpack_reduced(torch.tensor(gp[: 2 * nuv + nsc], device=dev),
+                              res.grid.nloen, res.grid.ndlon)
+    fields = (rows[:nuv], rows[nuv: 2 * nuv], rows[2 * nuv:])
+    spec = ett.dir_trans(res, *(x if x.shape[0] else None for x in fields),
+                         dtype=dtype)
+    return packed, [None if x is None else x.cpu().numpy() for x in spec]
+
+
+def capi_scalars_f(lib, h, sc, gp, out) -> None:
+    for name, a, b in (("invtrans_f", sc, gp), ("dirtrans_f", gp, out)):
+        rc = getattr(lib, f"ectrans_tpu_{name}")(h, sc.shape[0], _void(a),
+                                                 _void(b))
+        check(rc == 0, f"ectrans_tpu_{name} returned {rc}")
+
+
+def surface_capi(dev: torch.device, counters: dict, name: str,
+                 limit: float) -> dict:
+    """(d): test_capi.c on dev, then the shim in this process (ctypes, the
+    GIL released): ectrans_tpu_setup(name, -1), bench.py's fields through
+    invtrans_full and dirtrans_full in fp64, bit for bit the module path's;
+    the _f entries on the 6 scalars in fp32, bit for bit the module path's
+    and within phase 4's share of the 100 eps gate.  Returns the fp64
+    round trip's and the _f pair's launches."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import capi, capi_bridge
+
+    _, t_build = _timed(dev, capi.build)
+    t_prog = capi_test_program(dev, limit)
+    lib = capi.load()
+    with environ(ECTRANS_TPU_CAPI_DEVICE=dev.type):
+        h = lib.ectrans_tpu_setup(name.encode(), -1)
+    check(h >= 0, f"ectrans_tpu_setup({name!r}) returned {h}")
+    res = capi_bridge._res(h).res
+    check(capi_bridge._res(h).device.type == dev.type,
+          f"the C API's handle is on {capi_bridge._res(h).device}")
+    groups = len(res.legendre_groups())
+    sp = [x.double().numpy() for x in bench_inputs(res.nspec2, res.nsmax)]
+    flags = ett.InvFlags(scders=True, uvders=True)
+    nout = ett.num_inv_output_fields(NFLD_UV, NFLD_SC, flags)
+    gp = np.zeros((nout, res.grid.ngptot))
+    out = [np.zeros_like(x) for x in sp]
+    _zero(counters)
+    _reset_peak(dev)
+    got, t_first = _timed(dev, lambda: capi_round_trip(lib, h, sp, gp, out))
+    launches = _counts(counters)
+    check(got == nout, f"ectrans_tpu_invtrans_full returned {got}")
+    expect_launches(dev, launches, {"K1": groups, "K2": groups, "K3": 1,
+                                    "K4": 1}, "(d) fp64")
+    times = [_timed(dev, lambda: capi_round_trip(lib, h, sp, gp, out))[1]
+             for _ in range(SURFACE_REPS)]
+    peak = _peak(dev)
+    packed, spec = capi_module(res, sp, flags, gp, dev, torch.float64)
+    check(np.array_equal(packed, gp), "phase 14 (d): invtrans_full differs "
+                                      "from the module path")
+    check(all(np.array_equal(a, b) for a, b in zip(out, spec)),
+          "phase 14 (d): dirtrans_full differs from the module path")
+    errs = family_errors([torch.from_numpy(x) for x in out],
+                         [torch.from_numpy(x) for x in sp])
+    worst64 = max(e / m for e, m in errs) / EPS64
+    del packed, spec
+    # the _f entries: phase 4's scalars in fp32
+    sc = sp[2].astype(np.float32)
+    gpf = np.zeros((NFLD_SC, res.grid.ngptot), np.float32)
+    spf = np.zeros_like(sc)
+    _zero(counters)
+    _, t_f = _timed(dev, lambda: capi_scalars_f(lib, h, sc, gpf, spf))
+    launches_f = _counts(counters)
+    expect_launches(dev, launches_f, {"K1": groups, "K2": groups, "K3": 1,
+                                      "K4": 1}, "(d) _f")
+    packed, spec = capi_module(res, (None, None, sc), ett.InvFlags(), gpf,
+                               dev, torch.float32)
+    check(np.array_equal(packed, gpf) and np.array_equal(spf, spec[2]),
+          "phase 14 (d): the _f entries differ from the module path")
+    (e, m), = family_errors([torch.from_numpy(spf)], [torch.from_numpy(sc)])
+    share = e / (100 * EPS32 * m)
+    check(share <= DENSE_GATE_SHARE,
+          f"phase 14 (d): the _f round trip {share:.3f} of the 100 eps gate, "
+          f"over the {DENSE_GATE_SHARE} allowed")
+    check(lib.ectrans_tpu_release(h) == 0, "ectrans_tpu_release failed")
+    print(f"phase 14 (d) C API: shim built in {t_build:.2f} s; test_capi.c "
+          f"(O48, unchanged) on the {dev.type}: C API test OK in "
+          f"{t_prog:.1f} s; in this process ectrans_tpu_setup({name!r}, -1), "
+          f"invtrans_full ({nout} fields) + dirtrans_full fp64 bit-identical "
+          f"to the module path, round trip {worst64:.0f} eps of each "
+          f"family's largest |value|; first round trip {t_first:.3f} s; "
+          f"median {statistics.median(times) * 1e3:.1f} ms (min "
+          f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}, n "
+          f"{SURFACE_REPS}; the host's buffers included); peak {peak:.2f} "
+          f"GiB; launches {launches}; _f entries on the {NFLD_SC} scalars "
+          f"bit-identical to the module path, {share:.3f} of the 100 eps "
+          f"gate (at most {DENSE_GATE_SHARE}), {t_f:.3f} s, launches "
+          f"{launches_f}")
+    return {k: launches[k] + launches_f[k] for k in launches}
+
+
+def phase_surfaces(dev: torch.device, counters: dict,
+                   cfg: dict = SURFACES) -> dict:
+    """Phase 14: the ectrans4py and C surfaces on dev, (a)-(d) above.
+    Returns the launches of (a) and (d)."""
+    t_phase = time.perf_counter()
+    _fresh(counters)
+    launches = surface_gauss(dev, counters, *cfg["gauss"])
+    _fresh(counters)
+    surface_lam(dev, counters, cfg["lam"])
+    _fresh(counters)
+    surface_assets(dev, cfg["assets"])
+    _fresh(counters)
+    for k, n in surface_capi(dev, counters, cfg["capi"],
+                             cfg["capi_limit"]).items():
+        launches[k] += n
+    _fresh(counters)
+    print(f"phase 14 done in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches of (a) and (d) {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3345,6 +3771,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
+    # the host's Legendre tables are built anew, as before the legpol cache
+    # (phase 14 (c) gives the cache a directory of its own)
+    os.environ.setdefault("ECTRANS_TPU_LEGPOL_DIR", "")
     t_run = time.perf_counter()
     phase_build()
     kern = phase_kernels(dev)
@@ -3370,6 +3799,7 @@ def main() -> int:
         f_grid=lam_out["grid"], f_spec=lam_out["spec"]))])
     merge_launches(launches, [phase_programs(dev, counters)])
     merge_launches(launches, [phase_fourier(dev, counters)])
+    merge_launches(launches, [phase_surfaces(dev, counters)])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f}"
           " s")
     print(json.dumps({"kernels": [

@@ -44,11 +44,13 @@ from .transform import InvFlags
 _FLAG_NAMES = frozenset(InvFlags.__dataclass_fields__)
 
 
-def _handle_device(device) -> torch.device:
+def _handle_device(device, who: str = "SpectralTransform") -> torch.device:
+    """``device`` as a canonical torch.device; a CUDA device without a card
+    raises (naming ``who``): nothing falls back to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "SpectralTransform: no CUDA device is available for device="
+            f"{who}: no CUDA device is available for device="
             f"{str(device)!r}; pass device='cpu' to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")

@@ -12,7 +12,8 @@ request for one (dtype, device) pair and cached on the Resolution itself:
   CUDA device they are generated on the card by the table-generator kernel
   (``ops.legendre_tablegen``, one launch for all groups, from a few MB of
   seeds instead of GiBs of host tables); on the CPU they come from the
-  host fp64 recurrence, built only when asked for;
+  host fp64 recurrence, built only when asked for, or from the on-disk
+  legpol cache (``cache.py``);
 * ``grouped_legendre(dtype, device)`` and ``planes_legendre(nplanes,
   device)``: the parity pairs of the "xla"/"pallas" engines and the bf16
   limb planes of the "planes" engine, both derived from those pn tables on
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from .grids import GridSpec, make_grid
-from .legendre import build_parity_tables, eps_table
+from .legendre import eps_table
 
 EARTH_RADIUS = 6371229.0  # metres; reference default RA (setup_trans0.F90)
 
@@ -223,11 +224,14 @@ class Resolution:
         return tuple(out)
 
     def parity_tables(self) -> tuple[np.ndarray, np.ndarray]:
-        """Host fp64 (psym, pasym), each (M, ndgnh, kmax).  Built on every
-        call and not kept: at TCO1279 they take ~17 GB."""
+        """Host fp64 (psym, pasym), each (M, ndgnh, kmax), from the on-disk
+        legpol cache (``cache.load_parity_cached``: read-only memmaps) or
+        built there.  Not kept: at TCO1279 they take ~17 GB."""
+        from .cache import load_parity_cached
+
         nh = self.ndgnh
-        psym, pasym, kmax = build_parity_tables(
-            self.nsmax, self.mu[:nh], 1, self.nmen[:nh])
+        psym, pasym, kmax = load_parity_cached(self.grid, self.mu[:nh],
+                                               self.nmen[:nh])
         assert kmax == self.kmax
         return psym, pasym
 

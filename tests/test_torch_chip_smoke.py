@@ -5,7 +5,9 @@ The script itself runs only on a CUDA card."""
 
 import importlib.util
 import pathlib
+import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -1027,3 +1029,76 @@ def test_phase13_ab_busy_and_tail_lines_on_the_cpu(smoke):
     shares = [float(w) for line in lines for w in
               line.replace(";", " ").split() if w.startswith("0.")]
     assert shares and max(shares) < 0.65
+
+
+# phase 14 at O48 and below: (a) on a full F48 grid at T95 (a reduced
+# grid's round trip aliases near n = nsmax above the norm gate at this
+# size), the LAM on 64 x 48, the assets at TCO47 (O48), the C API at TCO47
+SURFACES_SMALL = dict(gauss=("F48", 95),
+                      lam=dict(nx=64, ny=48, nxux=53, nyux=37, dx=1300.0,
+                               dy=1300.0),
+                      assets="TCO47", capi="TCO47", capi_limit=300)
+
+
+def test_phase14_config(smoke):
+    cfg = smoke.SURFACES
+    assert cfg["gauss"] == ("TCO1279", None) and cfg["capi"] == "TCO1279"
+    assert cfg["assets"] == "TCO639" and cfg["lam"] == smoke.LAM_DOMAIN
+    assert smoke.SURFACE_NORM_GATE == 100 * np.finfo(np.float64).eps
+
+
+def test_phase14_helpers(smoke):
+    fa = smoke.fa_spectrum(13)
+    assert fa.shape == (14 * 14,)
+    assert np.array_equal(fa, smoke.fa_spectrum(13))
+    want = np.array([1.0, -0.5])
+    assert smoke.eps_share(want + [0.0, 2.0**-40], want) == 2.0**12
+    spec = np.random.default_rng(2).standard_normal(12)
+    from ectrans_tpu_torch import compat4py as c4
+    np.testing.assert_allclose(
+        smoke.fft1d_direct(spec, 5, 32),
+        c4.sp2gp_fft1d4py(12, 5, spec, 32, device="cpu"), atol=1e-13)
+    # the launch check holds on the card only
+    smoke.expect_launches(torch.device("cpu"), {"K1": 0}, {"K1": 16}, "(x)")
+    with pytest.raises(RuntimeError, match="expected"):
+        smoke.expect_launches(torch.device("cuda", 0), {"K1": 0},
+                              {"K1": 16}, "(x)")
+
+
+def test_phase14_assets_against_tables(smoke):
+    """assets_vs_tables reads every PRPNM column against the full-n tables
+    and sees one changed entry, in a table column or in the rows that must
+    be 0."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import compat4py as c4
+
+    grid = ett.make_grid("TCO47")
+    ks, T, kloen = grid.ndgl, grid.nsmax, np.asarray(grid.nloen)
+    ncol = (T + 2) * (T + 3) // 2 - 1
+    _, _, prpnm = c4.get_legendre_assets(ks, T, ks, ncol, kloen)
+    res = ett.setup(c4._gauss_grid(ks, T, kloen))
+    fl = res.full_legendre(torch.float64, "cpu")
+    assert smoke.assets_vs_tables(prpnm, res, fl) == 0.0
+    bad = prpnm.copy()
+    bad[-1, ncol // 2] += 1e-9
+    assert smoke.assets_vs_tables(bad, res, fl) > 1e-10
+    g = fl.groups[-1]
+    assert g.i0 > 0
+    bad = prpnm.copy()
+    bad[0, -1] = 1e-9
+    assert smoke.assets_vs_tables(bad, res, fl) > 1e-10
+
+
+@pytest.mark.skipif(shutil.which("cc") is None and shutil.which("gcc")
+                    is None, reason="no C compiler")
+def test_phase14_on_the_cpu(smoke, capsys):
+    """Phase 14 end to end on the CPU at SURFACES_SMALL: every check but
+    the launch counts (the plain versions count none), a line each."""
+    out = smoke.phase_surfaces(torch.device("cpu"), smoke.launch_counters(),
+                               SURFACES_SMALL)
+    assert out == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    lines = capsys.readouterr().out.splitlines()
+    heads = [line.split(" ", 3)[2] for line in lines
+             if line.startswith("phase 14 (")]
+    assert heads == ["(a)", "(b)", "(c)", "(d)"]
+    assert any("C API test OK" in line for line in lines)

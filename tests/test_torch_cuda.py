@@ -46,10 +46,12 @@ SLICE_TOL = {torch.float64: (0.0, 1e-10), torch.float32: (2e-5, 1e-5)}
 
 
 @pytest.fixture(autouse=True)
-def fresh_setup():
+def fresh_setup(monkeypatch):
     """Each test starts from a setup of its own, as if no other test had run
     (``setup`` shares one Resolution, and its tables, among its callers), so
-    that a test counting K4's launches sees its own table build."""
+    that a test counting K4's launches sees its own table build; the host
+    tables of the CPU references are built anew (no legpol cache)."""
+    monkeypatch.setenv("ECTRANS_TPU_LEGPOL_DIR", "")
     ett.trans_end()
     yield
     ett.trans_end()
@@ -1063,3 +1065,89 @@ def test_ifs_driver_on_card_matches_cpu(dev):
     for k, want in out["cpu"].items():
         err = np.abs(out["cuda"][k] - want).max()
         assert err <= 1e-12 * np.abs(want).max(), (k, err)
+
+
+def _slice_close(got, want, dtype):
+    atol, rtol = SLICE_TOL[dtype]
+    want = np.asarray(want, np.float64)
+    err = np.abs(np.asarray(got, np.float64) - want).max()
+    assert err <= atol + rtol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("reorder", [False, True])
+def test_compat4py_on_card_matches_cpu(dev, reorder):
+    """The ectrans4py surface on the card against the CPU (fp64): the
+    Gaussian pair at O48 with the derivatives, the LAM pair on 48 x 40
+    and the 1-D synthesis."""
+    from ectrans_tpu_torch import compat4py as c4
+
+    grid = ett.make_grid("O48", 47)
+    ks, T, nl = grid.ndgl, grid.nsmax, np.asarray(grid.nloen)
+    n = (T + 1) ** 2 if reorder else grid.nspec2
+    sp = np.random.default_rng(30).standard_normal(n)
+    if not reorder:
+        sp[1: 2 * (T + 1): 2] = 0.0
+    outs = {}
+    for d in (dev, "cpu"):
+        pg = c4.sp2gp_gauss4py(ks, T, 10, grid.ngptot, ks, nl, n, True,
+                               reorder, sp, device=d)
+        back = c4.gp2sp_gauss4py(n, ks, T, 10, ks, nl, grid.ngptot, reorder,
+                                 pg[0], device=d)
+        lam = (48, 40, 43, 37, 23, 19)
+        _, ns = c4.etrans_inq4py(*lam, 10, 1300.0, 1300.0)
+        lsp = np.random.default_rng(31).standard_normal(ns)
+        lg = c4.sp2gp_lam4py(*lam, 10, ns, True, reorder, 1300.0, 1300.0,
+                             lsp, device=d)
+        lback = c4.gp2sp_lam4py(ns, *lam, 10, 1300.0, 1300.0, reorder,
+                                lg[0], device=d)
+        fft = c4.sp2gp_fft1d4py(12, 5, sp[:12], 40, device=d)
+        outs[str(d)] = [*pg, back, *lg, lback, fft]
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        _slice_close(got, want, torch.float64)
+
+
+def test_capi_bridge_on_card_matches_cpu(dev, monkeypatch):
+    """The C API's bridge on the card (its default device) against the
+    CPU's: the full-option transforms in fp64, the _f entries in fp32, the
+    LAM scalar pair; each handle on the device its setup read."""
+    from ectrans_tpu_torch import capi_bridge as cb
+
+    def ptr(a):
+        return a.ctypes.data
+
+    outs = {}
+    for want in (None, "cpu"):
+        if want is None:
+            monkeypatch.delenv("ECTRANS_TPU_CAPI_DEVICE", raising=False)
+        else:
+            monkeypatch.setenv("ECTRANS_TPU_CAPI_DEVICE", want)
+        h, hl = cb.setup("O48", 47), cb.setup_lam(48, 40, 48, 40, -1, -1,
+                                                  1000.0, 1000.0)
+        assert cb._res(h).device.type == (want or "cuda")
+        nspec2, ngptot = cb.inquire(h)[:2]
+        sp = packed(cb._res(h).res, 5, 32)
+        nout = ett.num_inv_output_fields(1, 3, ett.InvFlags(
+            scders=True, uvders=True, vorgp=True, divgp=True))
+        gp = np.zeros((nout, ngptot))
+        assert cb.invtrans_full(h, 1, 3, ptr(sp[0:1].copy()),
+                                ptr(sp[1:2].copy()), ptr(sp[2:].copy()),
+                                1, 1, 1, ptr(gp)) == nout
+        back = np.zeros((5, nspec2))
+        # u, v and the scalars follow vor and div
+        assert cb.dirtrans_full(h, 1, 3, ptr(gp[2:7].copy()), ptr(back[0:]),
+                                ptr(back[1:]), ptr(back[2:])) == 0
+        spf = sp[2:].astype(np.float32)
+        gpf = np.zeros((3, ngptot), np.float32)
+        backf = np.zeros_like(spf)
+        cb.invtrans_scalar_f(h, 3, ptr(spf), ptr(gpf))
+        cb.dirtrans_scalar_f(h, 3, ptr(gpf), ptr(backf))
+        nsl, ngl, _, _ = cb.inquire_lam(hl)
+        lsp = np.random.default_rng(33).standard_normal((2, nsl))
+        lgp = np.zeros((2, ngl))
+        cb.invtrans_lam_scalar(hl, 2, ptr(lsp), ptr(lgp))
+        outs[want] = (gp, back, gpf, backf, lgp)
+        cb.release(h)
+        cb.release_lam(hl)
+    for got, ref in zip(outs[None], outs["cpu"]):
+        dtype = torch.float32 if ref.dtype == np.float32 else torch.float64
+        _slice_close(got, ref, dtype)
