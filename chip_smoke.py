@@ -232,12 +232,35 @@ After phase 7, three phases at full width:
    bit the module path in fp32 and within 0.65 of the 100 eps gate, each
    with K1 and K2 16 times, K3 and K4 once.
 
+15. the host tables and the table knobs, after ``trans_end``: (a) the
+   native Legendre builder (``native/``): its g++ build time, its fp64
+   tables at TCO639 against the numpy recurrence's
+   (``ECTRANS_TPU_DISABLE_NATIVE``; 1e-12 of the largest |value|, both
+   timed), its fp32 tables at TCO1279 (2 x 1280 x 1280 x 641 x 4 B, the
+   build timed) against K4's fp32 tables group by group (1e-7 of the
+   largest |value|); (b) phase 4's round trip under
+   ``ECTRANS_TPU_TABLE_SOURCE=host`` (the host tables built and copied up
+   a group at a time in the setup): K4 0, K1 and K2 16, K3 1, the gate
+   share beside phase 4's and held to 1.0, grid and spectra within 100 eps
+   of each family's max of phase 4's; (c) the same at
+   ``ECTRANS_TPU_LEG_GROUPS`` 8 and 40 (``TABLE_GROUPS``; 40 is past K3's
+   and K4's 16 by-value groups): K1 and K2 a launch a group, K3 and K4
+   once, the tables' GiB against the default groups'; (b) and (c) print
+   setup, first call, median of 3, the device time and busy share of one
+   steady round trip (``torch.profiler``) and peak; (d) ``entry.entry()`` on the
+   card against the same step on the CPU (100 eps of each family's max,
+   K1-K4 launched), then ``entry.dryrun_multichip(4)`` on four gloo ranks
+   sharing the card.  Phase 2 also holds K3 and K4 at 40 groups against
+   their plain versions (their line after the redesign lines, beside the
+   16-group times).
+
 Every phase runs the bucketed chirp-z Fourier layer of ``ops/fourier.py``
 but phase 13's per-NLOEN rows.  Each prints its times, peak memory and
 seconds.  Then one JSON line with the kernels (K1-K4's launches: phase
 4's and phase 8's (a) and (b), K4's of
 phase 9, phase 11's (a) and (e) summed over its ranks, phase 12's (b)
-and (c), phase 13's (c) and phase 14's (a) and (d)), and last the line
+and (c), phase 13's (c), phase 14's (a) and (d) and phase 15's (b)-(d)),
+and last the line
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; with
 no CUDA device it exits 2 before doing anything.  TF32 is off for every
 matmul and convolution (the plain Legendre versions use torch.bmm).
@@ -320,6 +343,9 @@ PALLAS_GATE_SHARE = 0.80
 # template kernels)
 PLANES_GATE_SHARE = 0.65
 ENGINES = ("dense", "xla", "pallas", "planes")
+# ECTRANS_TPU_LEG_GROUPS of phase 15 (c) at TCO1279 (8 and 40 groups; the
+# last past K3's and K4's 16 by-value groups, also held in phase 2)
+TABLE_GROUPS = (8, 40)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -485,7 +511,8 @@ def hold(key: str, kern, plain, args_list, tol: float = 5e-6, flop=None,
             del largs
             t_k += (turns[0] + turns[2]) / 2
             t_l += (turns[1] + turns[3]) / 2
-        t_p += cuda_ms(lambda: plain(*args), plain_reps)
+        if plain_reps:
+            t_p += cuda_ms(lambda: plain(*args), plain_reps)
         if spin:
             d, h = spin_ms(lambda: kern(*args), reps)
             t_dev += d
@@ -494,7 +521,8 @@ def hold(key: str, kern, plain, args_list, tol: float = 5e-6, flop=None,
         check(exact, f"{key} vs plain: not bit-exact")
     else:
         check(rel <= tol, f"{key} vs plain: {rel:.3e} > {tol:g} relative")
-    return dict(max_abs_err=err, rel=rel, exact=exact, ms=t_k, plain_ms=t_p,
+    return dict(max_abs_err=err, rel=rel, exact=exact, ms=t_k,
+                plain_ms=t_p if plain_reps else None,
                 library_ms=t_l if library else None, reps=reps,
                 tol="bit-exact" if tol == 0 else f"{tol:g} rel",
                 spin_ms=t_dev if spin else None,
@@ -538,14 +566,16 @@ def registers(key: str, needle: str, variants: int = 2) -> dict:
 
 def variant_of(name: str, needle: str) -> str:
     """The variant a mangled kernel name in build.log is: fp32, fp64, bf16
-    (its table type), or for K9 and K10 its plane count (template argument
-    <P>)."""
+    (its table type; K3's and K4's "array" variants, template argument
+    DEV, find their groups in a device array), or for K9 and K10 its plane
+    count (template argument <P>)."""
     if needle + "ILi3E" in name:
         return "3 planes"
     if needle + "ILi1E" in name:
         return "1 plane"
-    return ("bf16" if "bfloat16" in name else
+    kind = ("bf16" if "bfloat16" in name else
             "fp64" if needle + "Id" in name else "fp32")
+    return kind + (" array" if "Lb1E" in name else "")
 
 # the kernels whose library line is a yardstick, not the same inputs: one
 # torch.bmm on fp32 operands whose limbs and planes were summed beforehand
@@ -556,8 +586,11 @@ YARDSTICKS = ("K9", "K10")
 # the same outputs at twice the FLOP, a reference only; None: no one call)
 REDESIGNED = {"K1": ("k116inv_dense_kernel", ("fp32", "bf16"), "K7"),
               "K2": ("k216dir_dense_kernel", ("fp32", "bf16"), "K8"),
-              "K3": ("14k3_pack_kernel", ("fp32", "fp64"), "K3"),
-              "K4": ("18k4_tablegen_kernel", ("fp32", "fp64", "bf16"), None),
+              "K3": ("14k3_pack_kernel", ("fp32", "fp64", "fp32 array",
+                                          "fp64 array"), "K3"),
+              "K4": ("18k4_tablegen_kernel", ("fp32", "fp64", "bf16",
+                                              "fp32 array", "fp64 array",
+                                              "bf16 array"), None),
               "K5": ("k518inv_grouped_kernel", ("fp32", "bf16"), "K5"),
               "K6": ("k618dir_grouped_kernel", ("fp32", "bf16"), "K6"),
               "K7": ("k717inv_dense2_kernel", ("fp32", "bf16"), "K7"),
@@ -669,17 +702,18 @@ def k4_input_bytes(groups, ndgnh: int) -> int:
     return per_m + 8 * (ndgnh - min(i0 for _, _, i0, _ in groups))
 
 
-def hold_k4(res, dev: torch.device) -> dict:
+def hold_k4(res, dev: torch.device, ngroups: int | None = None) -> dict:
     """K4 at TCO1279: every group in one launch, held against the plain fp64
     recurrence (1e-7 of the table scale; bit identity reported), on fp32
-    tables and on the "bf16" tier's (which must be the fp32 table rounded to
-    nearest even, bit for bit); times on the table measure (2-call means;
-    plain: 1 call) and behind a spin kernel; its bound counts the tables
-    written and the inputs read (``k4_input_bytes``) against the fp64-pipe
-    slots of its loop."""
+    tables and, at the default groups, on the "bf16" tier's (which must be
+    the fp32 table rounded to nearest even, bit for bit); times on the
+    table measure (2-call means; plain: 1 call) and behind a spin kernel;
+    its bound counts the tables written and the inputs read
+    (``k4_input_bytes``) against the fp64-pipe slots of its loop.
+    ``ngroups`` past 16 takes the kernel's device-array descriptors."""
     from ectrans_tpu_torch.ops import legendre_tablegen as tg
 
-    groups = res.legendre_groups()
+    groups = res.legendre_groups(ngroups)
     inp = tg._device_inputs(res, dev)
     f32, bf16 = torch.float32, torch.bfloat16
     n = sum((m1 - m0) * J * (res.ndgnh - i0) for m0, m1, i0, J in groups)
@@ -689,7 +723,12 @@ def hold_k4(res, dev: torch.device) -> dict:
                       for m0, m1, i0, J in groups],
              [()], tol=1e-7, flop=lambda: n * k4_slots(f32), rate=FP64_INSTR,
              nbytes=lambda args, got: tensor_bytes(got) + in_bytes, spin=True,
-             reps=2, plain_reps=1)
+             reps=2, plain_reps=0 if ngroups else 1)
+    if ngroups is not None:
+        k.update(what=f"fp32 tables, {len(groups)} groups, one launch",
+                 shapes=[tg.gen_groups_shape(
+                     tg.launch_plan(groups, res.ndgnh)[1])])
+        return k
     pns, bf = tg.gen_groups(inp, groups, f32), tg.gen_groups(inp, groups, bf16)
     check(all(torch.equal(b, p.to(bf16)) for b, p in zip(bf, pns)),
           "K4 bf16 tables are not the fp32 tables rounded to bf16")
@@ -708,21 +747,24 @@ def hold_k4(res, dev: torch.device) -> dict:
     return k
 
 
-def hold_k3(res, dev: torch.device, gen: torch.Generator) -> dict:
+def hold_k3(res, dev: torch.device, gen: torch.Generator,
+            ngroups: int | None = None) -> dict:
     """K3 at TCO1279 with bench.py's 10 output fields (vor, div x2, 6
     scalars), all groups in one launch, bit-exact against the index gather;
     times on the table measure (3-call means) and behind a spin kernel; its
     bound counts each packed value read once and written once (the rows
-    past an m's last degree are never read)."""
+    past an m's last degree are never read).  ``ngroups`` past 16 takes
+    the kernel's device-array descriptors."""
     from ectrans_tpu_torch.ops import pack
 
     nfld = 2 * NFLD_UV + NFLD_SC
     rows = [torch.randn(m1 - m0, 2 * nfld, J, generator=gen, device=dev)
-            for m0, m1, i0, J in res.legendre_groups()]
-    k = hold("K3", lambda r: pack.packed_from_group_rows(r, res),
-             lambda r: pack.packed_from_group_rows_plain(r, res), [(rows,)],
-             tol=0, nbytes=lambda args, got: 2 * tensor_bytes(got), spin=True,
-             library=(lambda r: k3_library(r, res), torch.take))
+            for m0, m1, i0, J in res.legendre_groups(ngroups)]
+    k = hold("K3", lambda r: pack.packed_from_group_rows(r, res, ngroups),
+             lambda r: pack.packed_from_group_rows_plain(r, res, ngroups),
+             [(rows,)], tol=0,
+             nbytes=lambda args, got: 2 * tensor_bytes(got), spin=True,
+             library=(lambda r: k3_library(r, res, ngroups), torch.take))
     k.update(what=f"fp32, {nfld} fields, {len(rows)} groups, one launch, a "
                   f"warp a field row of an m",
              shapes=[pack.packed_from_group_rows_shape(nfld, res.nsmax)],
@@ -730,7 +772,7 @@ def hold_k3(res, dev: torch.device, gen: torch.Generator) -> dict:
     return k
 
 
-def k3_library(rows: list, res) -> tuple:
+def k3_library(rows: list, res, ngroups: int | None = None) -> tuple:
     """K3's one-call counterpart's operands: the groups' rows concatenated
     into one flat tensor, and the (nfld, nspec2) index of each packed
     value in it (both made before the timing), for one ``torch.take``."""
@@ -739,7 +781,7 @@ def k3_library(rows: list, res) -> tuple:
     nfld = rows[0].shape[1] // 2
     f = np.arange(nfld)[:, None]
     idx, off = [], 0
-    for r, (m0, _, seg0, seg1) in zip(rows, pack.segments(res)):
+    for r, (m0, _, seg0, seg1) in zip(rows, pack.segments(res, ngroups)):
         gm, nrow, J = r.shape
         sl = slice(seg0, seg1)
         m, c = res.packed_gather_m[sl], res.packed_gather_c[sl]
@@ -1027,6 +1069,9 @@ def phase_kernels(dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     out["K4"] = hold_k4(res, dev)
+    # K4 past 16 groups (ECTRANS_TPU_LEG_GROUPS): its descriptors in a
+    # device array
+    out["K4 g40"] = hold_k4(res, dev, TABLE_GROUPS[-1])
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -1091,6 +1136,7 @@ def phase_kernels(dev: torch.device) -> dict:
     res.drop_cached("planes_legendre")
 
     out["K3"] = hold_k3(res, dev, gen)
+    out["K3 g40"] = hold_k3(res, dev, gen, TABLE_GROUPS[-1])
 
     # K11 and K12 at the roofline probe's 512 MiB shape
     x = rnd(roofline.N_ROWS, roofline.N_COLS)
@@ -1103,9 +1149,20 @@ def phase_kernels(dev: torch.device) -> dict:
     for key in REDESIGNED:
         redesign_report(key, out)
     padding_report(padding)
+    print("phase 2 K3 and K4 past 16 groups (ECTRANS_TPU_LEG_GROUPS "
+          f"{TABLE_GROUPS[-1]}: descriptors in a device array): " + "; ".join(
+              f"{k} {out[k]['what']}: {out[k]['ms']:.3f} ms (16 groups "
+              f"{out[k.split()[0]]['ms']:.3f}), device "
+              f"{out[k]['spin_ms']:.3f} ms (16 groups "
+              f"{out[k.split()[0]]['spin_ms']:.3f}), host "
+              f"{out[k]['host_ms'] * 1e3:.0f} us a call, bound "
+              f"{out[k]['bound_ms']:.4f} ms ({out[k]['bound_by']}), "
+              f"{'bit-exact' if out[k]['exact'] else 'err ' + format(out[k]['rel'], '.2e')}"
+              for k in ("K3 g40", "K4 g40")))
     print("phase 2 kernels vs plain (TCO1279 shapes): " + "; ".join(
         f"{k} err {v['max_abs_err']:.3e} ({v['tol']}) {v['ms']:.3f} ms vs "
-        f"plain {v['plain_ms']:.3f} ms"
+        + ("plain not timed" if v["plain_ms"] is None
+           else f"plain {v['plain_ms']:.3f} ms")
         for k, v in sorted(out.items(),
                            key=lambda kv: int(kv[0][1:].split()[0]))))
     return out
@@ -3381,11 +3438,12 @@ SURFACES = dict(gauss=("TCO1279", None), lam=LAM_DOMAIN, assets="TCO639",
 
 
 def expect_launches(dev: torch.device, got: dict, want: dict,
-                    tag: str) -> None:
-    """A surface's launches on the card must be want's (on the CPU the plain
+                    tag: str, phase: int = 14) -> None:
+    """A run's launches on the card must be want's (on the CPU the plain
     versions run, which count none)."""
     if dev.type == "cuda":
-        check(got == want, f"phase 14 {tag} launched {got}; expected {want}")
+        check(got == want, f"phase {phase} {tag} launched {got}; expected "
+                           f"{want}")
 
 
 def fa_spectrum(ktrunc: int, seed: int = 0) -> np.ndarray:
@@ -3762,6 +3820,250 @@ def phase_surfaces(dev: torch.device, counters: dict,
     return launches
 
 
+# phase 15: (a)'s fp64 comparison and fp32 build, (b)'s configuration, (c)'s
+# group counts (block 32 at TCO1279: 40 groups, past K3's and K4's 16
+# by-value groups), (d)'s world
+TABLES = dict(fp64="TCO639", fp32="TCO1279", bench="TCO1279",
+              groups=TABLE_GROUPS, world=4)
+NATIVE_TOL = 1e-12           # (a): native vs numpy, of the largest |value|
+HOST_K4_TOL = 1e-7           # (a): tests/test_tablegen.py's budget
+TABLES_GATE = 100 * EPS32    # (b)-(d): of each family's largest |value|
+
+
+def interleave(psym, pasym, m0: int, m1: int, i0: int, J: int) -> np.ndarray:
+    """One group's full-n table (gm, J, ig) from host parity tables."""
+    kg = J // 2
+    pn = np.empty((m1 - m0, J, psym.shape[1] - i0), psym.dtype)
+    pn[:, 0::2] = np.swapaxes(psym[m0:m1, i0:, :kg], 1, 2)
+    pn[:, 1::2] = np.swapaxes(pasym[m0:m1, i0:, :kg], 1, 2)
+    return pn
+
+
+def host_tables(res, dtype):
+    """(psym, pasym, seconds) of the native builder at res's NH nodes."""
+    from ectrans_tpu_torch import native
+
+    nh = res.ndgnh
+    t0 = time.perf_counter()
+    ps, pa, kmax = native.build_legendre_parity(
+        res.nsmax, res.mu[:nh], 1, res.nmen[:nh], dtype)
+    check(kmax == res.kmax, f"native kmax {kmax} != {res.kmax}")
+    return ps, pa, time.perf_counter() - t0
+
+
+def tables_native(dev: torch.device, cfg: dict) -> None:
+    """(a): the native builder's g++ build, its fp64 tables against the
+    numpy recurrence's, and its fp32 tables at TCO1279 against K4's."""
+    import tempfile
+
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import legendre, native
+    from ectrans_tpu_torch.ops import legendre_tablegen as tg
+
+    # the g++ build timed into a directory of its own: earlier phases' host
+    # tables have built the library in use already
+    with tempfile.TemporaryDirectory() as tmp, \
+            environ(ECTRANS_TPU_NATIVE_DIR=tmp):
+        t0 = time.perf_counter()
+        native.build()
+        t_build = time.perf_counter() - t0
+    path = native.build()
+    check(native.available(), "native builder unavailable")
+    res = ett.setup(cfg["fp64"])
+    ps, pa, t_nat = host_tables(res, np.float64)
+    nh = res.ndgnh
+    t0 = time.perf_counter()
+    with environ(ECTRANS_TPU_DISABLE_NATIVE="1"):
+        nps, npa, _ = legendre.build_parity_tables(
+            res.nsmax, res.mu[:nh], 1, res.nmen[:nh])
+    t_np = time.perf_counter() - t0
+    scale = max(np.abs(ps).max(), np.abs(pa).max())
+    err = max(np.abs(ps - nps).max(), np.abs(pa - npa).max()) / scale
+    check(err <= NATIVE_TOL, f"phase 15 (a) native vs numpy {err:.3e} of "
+                             f"the largest |value|")
+    del ps, pa, nps, npa
+    res = ett.setup(cfg["fp32"])
+    ps, pa, t32 = host_tables(res, np.float32)
+    nbytes = ps.nbytes + pa.nbytes
+    inp = tg._device_inputs(res, dev)
+    d, scale = 0.0, 0.0
+    for m0, m1, i0, J in res.legendre_groups():
+        host = torch.from_numpy(interleave(ps, pa, m0, m1, i0, J)).to(dev)
+        k4 = tg.gen_group(inp, m0, m1, J, i0, torch.float32)
+        d = max(d, (host - k4).abs().max().item())
+        scale = max(scale, k4.abs().max().item())
+        del host, k4
+    del ps, pa
+    check(d <= HOST_K4_TOL * scale, f"phase 15 (a) native fp32 vs K4: "
+                                    f"{d / scale:.3e} of the largest |value|")
+    print(f"phase 15 (a) native Legendre builder: g++ build {t_build:.2f} s "
+          f"({path.name}); {cfg['fp64']} fp64 native {t_nat:.2f} s vs numpy "
+          f"{t_np:.2f} s, {err:.3e} of the largest |value| (at most "
+          f"{NATIVE_TOL:g}); {cfg['fp32']} fp32 tables {nbytes:,} B "
+          f"({nbytes / 1e9:.2f} GB) in {t32:.2f} s, against K4's fp32 tables "
+          f"{d / scale:.3e} of the largest |value| (at most {HOST_K4_TOL:g})")
+
+
+def tables_round_trip(dev, counters, res, sp, refs, tag: str, want: dict,
+                      env: dict) -> dict:
+    """Phase 4's round trip with ``env`` set: the table build (setup)
+    timed, the launches (``want``: kernel -> count) checked, the gate share
+    held to 1.0 and the outputs to 100 eps of each family's max of phase
+    4's; first call, median of 3, peak and the tables' bytes."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.field_layout import FieldLayout
+
+    flags_sizes = FieldLayout.inv(NFLD_UV, NFLD_SC, ett.InvFlags(
+        scders=True, uvders=True)).sizes_padded
+    with environ(**env):
+        _zero(counters)
+        _reset_peak(dev)
+        fl, t_setup = _timed(dev, lambda: res.full_legendre(torch.float32,
+                                                            dev))
+        tbytes = tensor_bytes([g.pn for g in fl.groups])
+        (grid, out), t_first = _timed(dev, lambda: round_trip(
+            res, sp, torch.float32))
+        launches = _counts(counters)
+        expect_launches(dev, launches, want, f"({tag})", 15)
+        check(bool(torch.isfinite(grid).all()), f"phase 15 ({tag}): "
+                                                "non-finite grid values")
+        err, gate = max(((e, TABLES_GATE * m)
+                         for e, m in family_errors(out, sp)),
+                        key=lambda x: x[0] / x[1])
+        check(err <= gate, f"phase 15 ({tag}) gate {err / gate:.3f} of "
+                           "100 eps, over 1.0")
+        vs = family_stats(grid, refs[0].numpy(), flags_sizes) + [
+            family_stats(o, r.numpy(), [o.shape[0]])[0]
+            for o, r in zip(out, refs[1])]
+        share = worst_share(vs, TABLES_GATE)
+        check(share <= 1.0, f"phase 15 ({tag}) against phase 4: {share:.3f}"
+                            " of 100 eps of the family max")
+        del grid, out
+        times = [_timed(dev, lambda: round_trip(res, sp, torch.float32))[1]
+                 * 1e3 for _ in range(3)]
+        med, lo, hi = statistics.median(times), min(times), max(times)
+        prof = device_profile(dev, lambda: round_trip(res, sp,
+                                                      torch.float32))
+    res.drop_cached("full_legendre")
+    return dict(setup=t_setup, first=t_first, median=med, lo=lo, hi=hi,
+                prof=prof,
+                peak=_peak(dev), share=err / gate, vs=share,
+                exact=all(b for _, _, b in vs), gib=tbytes / 2**30,
+                launches=launches)
+
+
+def tables_line(tag: str, what: str, r: dict, ref_share: float) -> str:
+    return (f"phase 15 ({tag}) {what}: launches {r['launches']}; gate "
+            f"{r['share']:.4f} of 100 eps (phase 4 {ref_share:.4f}; at most "
+            f"1.0); against phase 4 {r['vs']:.3f} of 100 eps of each "
+            f"family's max (bit-identical {r['exact']}); setup "
+            f"{r['setup']:.2f} s; first round trip {r['first']:.3f} s; median "
+            f"{r['median']:.1f} ms (min {r['lo']:.1f}, max {r['hi']:.1f}, n "
+            f"3); one steady round trip under the profiler: "
+            f"{profile_note(r['prof'])}; peak {r['peak']:.2f} GiB; tables "
+            f"{r['gib']:.3f} GiB")
+
+
+def tables_host(dev, counters, refs, ref_share: float, name: str) -> dict:
+    """(b): phase 4's round trip on the host table source (the native
+    builder's fp32 tables copied up a group at a time; no K4)."""
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup(name)
+    sp = [x.to(dev) for x in bench_inputs(res.nspec2, res.nsmax)]
+    n = len(res.legendre_groups())
+    r = tables_round_trip(dev, counters, res, sp, refs, "b", dict(
+        K1=n, K2=n, K3=1, K4=0), dict(ECTRANS_TPU_TABLE_SOURCE="host"))
+    print(tables_line("b", f"{name} round trip on the host table source "
+                           f"(host tables "
+                           f"{np.dtype(res.host_table_dtype).name}, built "
+                           "and copied up in the setup)", r, ref_share))
+    return r["launches"]
+
+
+def tables_groups(dev, counters, refs, ref_share: float, name: str,
+                  counts: tuple) -> dict:
+    """(c): phase 4's round trip at ECTRANS_TPU_LEG_GROUPS = each of
+    ``counts`` (K1 and K2 a launch a group, K3 and K4 one each), its tables'
+    GiB against the default groups'."""
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup(name)
+    sp = [x.to(dev) for x in bench_inputs(res.nspec2, res.nsmax)]
+    base = 4 * sum((m1 - m0) * J * (res.ndgnh - i0)
+                   for m0, m1, i0, J in res.legendre_groups()) / 2**30
+    launches = {}
+    for ng in counts:
+        n = len(res.legendre_groups(ng))
+        r = tables_round_trip(dev, counters, res, sp, refs, f"c {ng}",
+                              dict(K1=n, K2=n, K3=1, K4=1),
+                              dict(ECTRANS_TPU_LEG_GROUPS=str(ng)))
+        merge_launches(launches, [r["launches"]])
+        print(tables_line("c", f"{name} round trip at ECTRANS_TPU_LEG_GROUPS "
+                               f"{ng} ({n} groups)", r, ref_share)
+              + f" ({r['gib'] / base:.4f} of the default groups' "
+                f"{base:.3f} GiB)")
+    return launches
+
+
+def tables_entry(dev, counters, world: int) -> dict:
+    """(d): ``entry()`` on the card against the same step on the CPU (100
+    eps of each family's max, K1-K4 launched), then
+    ``dryrun_multichip(world)`` on gloo ranks sharing the card."""
+    from ectrans_tpu_torch import entry
+
+    step, args = entry.entry(device="cpu")
+    want = step(*args)
+    step, args = (entry.entry() if dev.type == "cuda"
+                  else entry.entry(device=dev))
+    check(all(a.device == dev for a in args), f"entry() off {dev}")
+    _zero(counters)
+    got, t_first = _timed(dev, lambda: step(*args))
+    launches = _counts(counters)
+    check(dev.type != "cuda" or all(launches.values()),
+          f"phase 15 (d) entry() launched {launches}; expected K1-K4")
+    share = max((a.cpu().double() - b.double()).abs().max().item()
+                / (TABLES_GATE * b.abs().max().item())
+                for a, b in zip(got, want))
+    check(share <= 1.0, f"phase 15 (d) entry() card vs CPU {share:.3f} of "
+                        "100 eps")
+    del got
+    t0 = time.perf_counter()
+    reps = (entry.dryrun_multichip(world) if dev.type == "cuda"
+            else entry.dryrun_multichip(world, device=dev))
+    t_world = time.perf_counter() - t0
+    print(f"phase 15 (d) entry() O48 T47 on the card vs the CPU: "
+          f"{share:.3f} of 100 eps of each family's max; first call "
+          f"{t_first:.2f} s; launches {launches}; dryrun_multichip({world}) "
+          f"on {world} gloo ranks sharing the card: round trip errors "
+          f"{max(r['err'] for r in reps):.3e} (O160 T159), "
+          f"{max(r['lam_err'] for r in reps):.3e} (LAM 32 x 24), each under "
+          f"1e-3, in {t_world:.1f} s")
+    return launches
+
+
+def phase_tables(dev: torch.device, counters: dict, refs, ref_share: float,
+                 cfg: dict = TABLES) -> dict:
+    """Phase 15: the native builder, the host table source and the group
+    knob at TCO1279, and the entry points, (a)-(d) above.  Returns the
+    launches of (b), (c) and (d)."""
+    t_phase = time.perf_counter()
+    _fresh(counters)
+    tables_native(dev, cfg)
+    _fresh(counters)
+    launches = {}
+    merge_launches(launches, [tables_host(dev, counters, refs, ref_share,
+                                          cfg["bench"])])
+    merge_launches(launches, [tables_groups(dev, counters, refs, ref_share,
+                                            cfg["bench"], cfg["groups"])])
+    _fresh(counters)
+    merge_launches(launches, [tables_entry(dev, counters, cfg["world"])])
+    _fresh(counters)
+    print(f"phase 15 done in {time.perf_counter() - t_phase:.1f} s; "
+          f"launches of (b)-(d) {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3800,6 +4102,8 @@ def main() -> int:
     merge_launches(launches, [phase_programs(dev, counters)])
     merge_launches(launches, [phase_fourier(dev, counters)])
     merge_launches(launches, [phase_surfaces(dev, counters)])
+    merge_launches(launches, [phase_tables(dev, counters, bench_out,
+                                           dense["ratio"])])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f}"
           " s")
     print(json.dumps({"kernels": [

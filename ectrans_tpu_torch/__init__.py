@@ -27,12 +27,14 @@ Both take ``mesh=`` (``ectrans_tpu_torch.parallel.make_mesh``, over the
 caller's ``torch.distributed`` process group) for the distributed
 transforms, each rank holding its shards.
 
-This package imports neither ``jax`` nor ``ectrans_tpu``.
+``ectrans_tpu_torch.entry`` holds the counterparts of the JAX package's
+entry points (``entry``, ``dryrun_multichip``).  This package
+imports neither ``jax`` nor ``ectrans_tpu``.
 """
 
 from .adjoint import dir_trans_adj, inv_trans_adj
 from .api import SpectralTransform, vordiv_to_uv
-from .grids import GridSpec, make_grid
+from .grids import GridSpec, full_gaussian_grid, make_grid, octahedral_grid
 from .lam import LamTransform
 from .latlon import LatLonGrid, dir_trans_latlon, inv_trans_latlon
 from .norms import gpnorm, gpnorm_ad, gpnorm_tl, specnorm
@@ -51,6 +53,7 @@ __all__ = [
     "dir_trans",
     "dir_trans_adj",
     "dir_trans_latlon",
+    "full_gaussian_grid",
     "get_current",
     "gpnorm",
     "gpnorm_ad",
@@ -60,6 +63,7 @@ __all__ = [
     "inv_trans_latlon",
     "make_grid",
     "num_inv_output_fields",
+    "octahedral_grid",
     "setup",
     "specnorm",
     "trans_end",

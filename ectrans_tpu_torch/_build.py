@@ -65,9 +65,9 @@ _ENTRIES = {
                        _SINGLE),
     "ect_inv_planes_shape": ([_I, _I, _I, _I, _I, _P], _SINGLE),
     "ect_dir_planes_shape": ([_I, _I, _I, _I, _I, _P], _SINGLE),
-    "ect_compact": ([_P, _P, _P, _I, _P, _I, _I, _L, _P], _FLOAT),
+    "ect_compact": ([_P, _P, _P, _I, _P, _P, _I, _I, _L, _P], _FLOAT),
     "ect_compact_shape": ([_I, _I, _P], _SINGLE),
-    "ect_tablegen": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _P],
+    "ect_tablegen": ([_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P],
                      _TABLES),
     "ect_tablegen_shape": ([_I, _P], _TABLES),
     "ect_copy": ([_P, _P, _L, _I, _P], ("_f32",)),

@@ -271,7 +271,8 @@ class SpectralTransform:
     def legendre_polynomials(self, m: int) -> np.ndarray:
         """P̄_n^m at all Gaussian latitudes for one m (TRANS_PNM,
         ``trans_pnm.F90``): shape (nsmax+2-m, ndgl) -> (n index, lat).
-        Builds the host fp64 parity tables of every m (``parity_tables``)."""
+        Builds the host parity tables of every m (``parity_tables``; fp32
+        above ``ECTRANS_TPU_FP64_TABLE_LIMIT``, as the JAX package's)."""
         res = self.res
         tables = res.parity_tables()
         tab = np.zeros((res.NP - m, res.ndgl))

@@ -1,4 +1,4 @@
-"""On-disk cache of the host fp64 Legendre parity tables.
+"""On-disk cache of the host Legendre parity tables.
 
 Counterpart of ``ectrans_tpu/cache.py`` (the reference's legpol checkpoint,
 ``CDIO_LEGPOL='READF'/'WRITEF'``, ``setup_trans.F90:360-384``): the host
@@ -6,7 +6,8 @@ table source, ``Resolution.parity_tables``, reads (psym, pasym) from a pair
 of ``.npy`` files when it finds one and writes the pair after building it.
 The key and the file format are the JAX package's, so a pair written by
 either package is read by the other.  On a CUDA card the tables are made by
-the table kernel (K4) and never pass through here.
+the table kernel (K4) and pass through here only under
+``ECTRANS_TPU_TABLE_SOURCE=host``.
 
 ``ECTRANS_TPU_LEGPOL_DIR`` moves the cache (default
 ``~/.cache/ectrans_tpu_torch/legpol``); the empty string disables it.
@@ -48,7 +49,8 @@ def load_parity_cached(grid: GridSpec, mu_nh: np.ndarray,
                        ) -> tuple[np.ndarray, np.ndarray, int]:
     """(psym, pasym, kmax) parity tables at the latitudes ``mu_nh``: a
     cached pair loaded with ``mmap_mode="r"`` (read-only; pages are read
-    as they are touched), else built with the host recurrence and written.
+    as they are touched), else built in ``dtype`` by the host builder
+    (``build_parity_tables``) and written.
     A legacy ``.npz`` entry is converted into the pair on first touch; a
     failed write is not an error."""
     d = _cache_dir()
@@ -59,9 +61,8 @@ def load_parity_cached(grid: GridSpec, mu_nh: np.ndarray,
             got = _convert_npz(base)
         if got is not None:
             return got
-    psym, pasym, kmax = build_parity_tables(grid.nsmax, mu_nh, 1, nmen_nh)
-    psym, pasym = psym.astype(dtype, copy=False), pasym.astype(dtype,
-                                                              copy=False)
+    psym, pasym, kmax = build_parity_tables(grid.nsmax, mu_nh, 1, nmen_nh,
+                                            dtype)
     if base is not None:
         try:
             d.mkdir(parents=True, exist_ok=True)

@@ -72,9 +72,10 @@ def etrans_inq4py(KSIZEI, KSIZEJ, KPHYSICALSIZEI, KPHYSICALSIZEJ,
 def get_legendre_assets(KSIZEJ, KTRUNC, KSLOEN, KSPOLEGL, KLOEN,
                         KNUMMAXRESOL=10):
     """(KNMENG, PGW, PRPNM) — cut-off wavenumbers, Gaussian weights and the
-    NH Legendre polynomials (``__init__.py:89-118``), from the host fp64
-    parity tables (``Resolution.parity_tables``, through the legpol
-    cache).  PRPNM columns are m-major with n descending within m (the LT
+    NH Legendre polynomials (``__init__.py:89-118``), from the host parity
+    tables (``Resolution.parity_tables``, through the legpol cache): fp64,
+    or fp32 above ``ECTRANS_TPU_FP64_TABLE_LIMIT``, as the JAX package's
+    setup tables.  PRPNM columns are m-major with n descending within m (the LT
     work ordering, NLTN), the first KSPOLEGL of them."""
     grid = _gauss_grid(KSIZEJ, KTRUNC, KLOEN)
     res = setup(grid)

@@ -14,10 +14,15 @@
 // plan, lane roll, one-hot interleave matmul) because that backend has no
 // cheap scattered access.  Here:
 // - one launch packs every group: the groups' row pointers, first m and row
-//   lengths travel by value in the kernel's parameters (they change every
-//   call, so nothing is cached on the device);
-// - one warp per (m, field) row, no search: NASM0[m] = m (2 nsmax + 3 - m)
-//   in closed form, and each warp finds its group once among at most 16;
+//   lengths change every call, so nothing is cached on the device.  Up to
+//   MAXG = 16 groups they travel by value in the kernel's parameters and a
+//   warp finds its group by an unrolled scan of the constant bank; past 16
+//   (ECTRANS_TPU_LEG_GROUPS, up to one group an m) the launch first copies
+//   them into a device array (16 bytes a group, on the same stream) and a
+//   warp finds its group by a binary search on m0 there, ~log2(groups)
+//   cached loads once per warp;
+// - one warp per (m, field) row: NASM0[m] = m (2 nsmax + 3 - m) in closed
+//   form;
 // - lane j reads rows c = 0 and c = 1 at j (coalesced, two streams) and
 //   stores the pair (re, im) as one 8-byte (fp32) or 16-byte (fp64) store:
 //   NASM0[m] and nspec2 are even, so every pair is aligned;
@@ -29,11 +34,13 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 #include "legendre_common.cuh"
 
 namespace k3 {
 
-constexpr int MAXG = 16;             // Resolution.legendre_groups() gives <= 16
+constexpr int MAXG = 16;             // groups passed by value
 constexpr int WARPS = 8;             // rows (warps) per block
 constexpr int THREADS = 32 * WARPS;
 constexpr int U = 8;                 // pairs in flight per lane and pass
@@ -45,30 +52,58 @@ struct Groups {
   int n;
 };
 
+// one group's descriptor in the device array of a launch past MAXG groups
+struct Desc {
+  const void* rows;
+  int m0;
+  int jrow;
+};
+static_assert(sizeof(Desc) == 16, "K3's descriptors are 16 bytes");
+
 template <typename T> struct PairOf;
 template <> struct PairOf<float> { typedef float2 type; };
 template <> struct PairOf<double> { typedef double2 type; };
 
-template <typename T>
+// DEV: the groups' descriptors are in ``d`` (g.n of them, m0 ascending),
+// else in g
+template <typename T, bool DEV>
 __global__ void __launch_bounds__(THREADS)
-k3_pack_kernel(const Groups g, T* __restrict__ out, int nfld, int nsmax,
-               long long nspec2) {
+k3_pack_kernel(const Groups g, const Desc* __restrict__ d,
+               T* __restrict__ out, int nfld, int nsmax, long long nspec2) {
   typedef typename PairOf<T>::type Pair;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= (nsmax + 1) * nfld) return;
   const int m = row / nfld;
   const int f = row - m * nfld;
-  // the group of m: the last group whose first m is <= m (static indices,
-  // so the parameters stay in the constant bank)
-  const void* base = g.rows[0];
-  int m0 = g.m0[0], jrow = g.jrow[0];
+  // the group of m: the last group whose first m is <= m
+  const void* base;
+  int m0, jrow;
+  if constexpr (DEV) {
+    int lo = 0, hi = g.n - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (__ldg(&d[mid].m0) <= m) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    base = d[lo].rows;
+    m0 = d[lo].m0;
+    jrow = d[lo].jrow;
+  } else {
+    // static indices, so the parameters stay in the constant bank
+    base = g.rows[0];
+    m0 = g.m0[0];
+    jrow = g.jrow[0];
 #pragma unroll
-  for (int k = 1; k < MAXG; ++k) {
-    if (k < g.n && g.m0[k] <= m) {
-      base = g.rows[k];
-      m0 = g.m0[k];
-      jrow = g.jrow[k];
+    for (int k = 1; k < MAXG; ++k) {
+      if (k < g.n && g.m0[k] <= m) {
+        base = g.rows[k];
+        m0 = g.m0[k];
+        jrow = g.jrow[k];
+      }
     }
   }
   const int len = nsmax + 1 - m;
@@ -105,20 +140,42 @@ inline dim3 grid_of(int nfld, int nsmax) {
 
 template <typename T>
 int launch(const void* const* rows, const int* m0, const int* jrow,
-           int ngroups, void* out, int nfld, int nsmax, long long nspec2,
-           void* stream) {
-  if (ngroups < 1 || ngroups > MAXG) return (int)cudaErrorInvalidValue;
-  Groups g = {};
-  for (int k = 0; k < ngroups; ++k) {
-    g.rows[k] = rows[k];
-    g.m0[k] = m0[k];
-    g.jrow[k] = jrow[k];
+           int ngroups, void* desc, void* out, int nfld, int nsmax,
+           long long nspec2, void* stream) {
+  if (ngroups < 1 || m0[0] != 0) return (int)cudaErrorInvalidValue;
+  for (int k = 1; k < ngroups; ++k) {
+    if (m0[k] <= m0[k - 1]) return (int)cudaErrorInvalidValue;
   }
+  const bool dev = ngroups > MAXG;
+  if (dev && desc == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  Groups g = {};
   g.n = ngroups;
+  if (dev) {
+    // staged from pageable memory before the call returns, ahead of the
+    // kernel on the stream
+    std::vector<Desc> h(ngroups);
+    for (int k = 0; k < ngroups; ++k) h[k] = Desc{rows[k], m0[k], jrow[k]};
+    const cudaError_t rc =
+        cudaMemcpyAsync(desc, h.data(), sizeof(Desc) * ngroups,
+                        cudaMemcpyHostToDevice, s);
+    if (rc != cudaSuccess) return (int)rc;
+  } else {
+    for (int k = 0; k < ngroups; ++k) {
+      g.rows[k] = rows[k];
+      g.m0[k] = m0[k];
+      g.jrow[k] = jrow[k];
+    }
+  }
   const dim3 grid = grid_of(nfld, nsmax);
   if (grid.x == 0) return 0;
-  k3_pack_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      g, (T*)out, nfld, nsmax, nspec2);
+  if (dev) {
+    k3_pack_kernel<T, true><<<grid, THREADS, 0, s>>>(
+        g, (const Desc*)desc, (T*)out, nfld, nsmax, nspec2);
+  } else {
+    k3_pack_kernel<T, false><<<grid, THREADS, 0, s>>>(
+        g, nullptr, (T*)out, nfld, nsmax, nspec2);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -126,27 +183,29 @@ int launch(const void* const* rows, const int* m0, const int* jrow,
 
 extern "C" {
 
-// rows, m0, jrow: host arrays of ngroups (<= 16) entries, one per group:
-// the device pointer of its rows, its first m, and its rows' length
+// rows, m0, jrow: host arrays of ngroups entries, one per group, m0
+// ascending from 0: the device pointer of its rows, its first m, and its
+// rows' length; desc: a device buffer of 16 * ngroups bytes, used (and
+// required) past 16 groups
 int ect_compact_f32(const void* const* rows, const int* m0, const int* jrow,
-                    int ngroups, void* out, int nfld, int nsmax,
+                    int ngroups, void* desc, void* out, int nfld, int nsmax,
                     long long nspec2, void* stream) {
-  return k3::launch<float>(rows, m0, jrow, ngroups, out, nfld, nsmax, nspec2,
-                           stream);
+  return k3::launch<float>(rows, m0, jrow, ngroups, desc, out, nfld, nsmax,
+                           nspec2, stream);
 }
 
 int ect_compact_f64(const void* const* rows, const int* m0, const int* jrow,
-                    int ngroups, void* out, int nfld, int nsmax,
+                    int ngroups, void* desc, void* out, int nfld, int nsmax,
                     long long nspec2, void* stream) {
-  return k3::launch<double>(rows, m0, jrow, ngroups, out, nfld, nsmax,
+  return k3::launch<double>(rows, m0, jrow, ngroups, desc, out, nfld, nsmax,
                             nspec2, stream);
 }
 
-// K3's launch (ect::launch_shape's info; the fp32 and fp64 variants launch
-// alike)
+// K3's launch (ect::launch_shape's info; the fp32 and fp64 variants, and
+// both lookups, launch alike)
 int ect_compact_shape(int nfld, int nsmax, int* info) {
-  return ect::launch_shape(k3::k3_pack_kernel<float>, k3::grid_of(nfld, nsmax),
-                           k3::THREADS, 0, info);
+  return ect::launch_shape(k3::k3_pack_kernel<float, false>,
+                           k3::grid_of(nfld, nsmax), k3::THREADS, 0, info);
 }
 
 }  // extern "C"

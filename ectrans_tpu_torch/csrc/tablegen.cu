@@ -20,11 +20,16 @@
 // masked seeds m > nmen(lat) carries correctness downstream).  At TCO1279
 // that is 926,445,600 entries, 3.71 GB of fp32: the bound is the write
 // (1.1 ms at 3.35 TB/s), with the fp64 pipe close behind.  The design:
-// - one launch for every group of a table build, the groups' outputs and
-//   shapes by value in the kernel's parameters, the longest chains (J) first;
-//   a group's columns are numbered flat over (m, latitude), so a block runs
-//   128 consecutive columns and only a group's last block is ragged.  A
-//   one-group launch is the same kernel with one descriptor;
+// - one launch for every group of a table build, the longest chains (J)
+//   first; a group's columns are numbered flat over (m, latitude), so a
+//   block runs 128 consecutive columns and only a group's last block is
+//   ragged.  Up to MAXG = 16 groups their outputs and shapes travel by value
+//   in the kernel's parameters (an unrolled scan finds a block's group);
+//   past 16 (ECTRANS_TPU_LEG_GROUPS, up to one group an m) the launch first
+//   copies them into a device array (32 bytes a group, on the same stream)
+//   and each thread finds its block's group by a binary search on the
+//   groups' first blocks, ~log2(groups) cached loads before a chain of J
+//   steps.  A one-group launch is the same kernel with one descriptor;
 // - few fp64 instructions per entry: 3 multiplies and 1 subtraction of the
 //   recurrence, 1 multiply by the cached scale 2^E, and the conversion to
 //   the output type.  Scaling by a power of two is exact while values stay
@@ -42,12 +47,14 @@
 
 #include <cuda_runtime.h>
 
+#include <vector>
+
 #include "legendre_common.cuh"
 
 namespace k4 {
 
 constexpr int THREADS = 128;
-constexpr int MAXG = 16;         // Resolution.legendre_groups() gives <= 16
+constexpr int MAXG = 16;         // groups passed by value
 constexpr int K = 4;             // recurrence steps between rescaling tests
 constexpr int RS_SHIFT = 256;
 // |mantissa| < 2^370, so 2^E_FLUSH * 2^370 < DBL_MIN
@@ -58,6 +65,8 @@ struct Group {
   void* out;
   int m0, gm, J, i0, ig, block0;
 };
+
+static_assert(sizeof(Group) == 32, "K4's descriptors are 32 bytes");
 
 struct Groups {
   Group g[MAXG];
@@ -127,18 +136,35 @@ __device__ __forceinline__ void rescale(double& p, double& q, int& E,
   }
 }
 
-template <typename O>
+// DEV: the groups' descriptors are in ``d`` (gs.n of them, first blocks
+// ascending), else in gs
+template <typename O, bool DEV>
 __global__ void __launch_bounds__(THREADS, 8)
 k4_tablegen_kernel(const double* __restrict__ A, const double* __restrict__ B,
                    int tc, const double* __restrict__ smant,
                    const int* __restrict__ sexp, int ld,
-                   const double* __restrict__ mu, const Groups gs) {
-  // this block's group: the last whose first block is <= blockIdx.x (static
-  // indices keep the parameters in the constant bank)
-  Group g = gs.g[0];
+                   const double* __restrict__ mu, const Groups gs,
+                   const Group* __restrict__ d) {
+  // this block's group: the last whose first block is <= blockIdx.x
+  Group g;
+  if constexpr (DEV) {
+    int lo = 0, hi = gs.n - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (__ldg(&d[mid].block0) <= (int)blockIdx.x) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    g = d[lo];
+  } else {
+    // static indices keep the parameters in the constant bank
+    g = gs.g[0];
 #pragma unroll
-  for (int k = 1; k < MAXG; ++k) {
-    if (k < gs.n && gs.g[k].block0 <= (int)blockIdx.x) g = gs.g[k];
+    for (int k = 1; k < MAXG; ++k) {
+      if (k < gs.n && gs.g[k].block0 <= (int)blockIdx.x) g = gs.g[k];
+    }
   }
   const long long col =
       (long long)((int)blockIdx.x - g.block0) * THREADS + threadIdx.x;
@@ -179,29 +205,45 @@ k4_tablegen_kernel(const double* __restrict__ A, const double* __restrict__ B,
 }
 
 // desc: 6 ints a group, in launch order: m0, gm, J, i0, ig, first block
-inline int groups_of(void* const* outs, const int* desc, int ngroups,
-                     Groups* gs) {
-  if (ngroups < 1 || ngroups > MAXG) return (int)cudaErrorInvalidValue;
-  *gs = Groups{};
-  for (int k = 0; k < ngroups; ++k) {
-    const int* d = desc + 6 * k;
-    gs->g[k] = Group{outs[k], d[0], d[1], d[2], d[3], d[4], d[5]};
-  }
-  gs->n = ngroups;
-  return 0;
-}
-
+// (0 for the first group, ascending); past MAXG groups the descriptors go to
+// the device buffer ``dev_desc`` (32 bytes a group), else into gs
 template <typename O>
 int launch(const void* A, const void* B, int tc, const void* smant,
            const void* sexp, int ld, const void* mu, void* const* outs,
-           const int* desc, int ngroups, int nblocks, void* stream) {
-  Groups gs;
-  const int rc = groups_of(outs, desc, ngroups, &gs);
-  if (rc != 0) return rc;
+           const int* desc, int ngroups, void* dev_desc, int nblocks,
+           void* stream) {
+  if (ngroups < 1 || desc[5] != 0) return (int)cudaErrorInvalidValue;
+  std::vector<Group> h(ngroups);
+  for (int k = 0; k < ngroups; ++k) {
+    const int* d = desc + 6 * k;
+    if (k > 0 && d[5] < h[k - 1].block0) return (int)cudaErrorInvalidValue;
+    h[k] = Group{outs[k], d[0], d[1], d[2], d[3], d[4], d[5]};
+  }
+  const bool dev = ngroups > MAXG;
+  if (dev && dev_desc == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  Groups gs = {};
+  gs.n = ngroups;
+  if (dev) {
+    // staged from pageable memory before the call returns, ahead of the
+    // kernel on the stream
+    const cudaError_t rc = cudaMemcpyAsync(
+        dev_desc, h.data(), sizeof(Group) * ngroups, cudaMemcpyHostToDevice,
+        s);
+    if (rc != cudaSuccess) return (int)rc;
+  } else {
+    for (int k = 0; k < ngroups; ++k) gs.g[k] = h[k];
+  }
   if (nblocks == 0) return 0;
-  k4_tablegen_kernel<O><<<nblocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const double*)A, (const double*)B, tc, (const double*)smant,
-      (const int*)sexp, ld, (const double*)mu, gs);
+  if (dev) {
+    k4_tablegen_kernel<O, true><<<nblocks, THREADS, 0, s>>>(
+        (const double*)A, (const double*)B, tc, (const double*)smant,
+        (const int*)sexp, ld, (const double*)mu, gs, (const Group*)dev_desc);
+  } else {
+    k4_tablegen_kernel<O, false><<<nblocks, THREADS, 0, s>>>(
+        (const double*)A, (const double*)B, tc, (const double*)smant,
+        (const int*)sexp, ld, (const double*)mu, gs, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -213,13 +255,13 @@ extern "C" {
   int ect_tablegen##SUFFIX(const void* A, const void* B, int tc,             \
                            const void* smant, const void* sexp, int ld,      \
                            const void* mu, void* const* outs,                \
-                           const int* desc, int ngroups, int nblocks,        \
-                           void* stream) {                                   \
+                           const int* desc, int ngroups, void* dev_desc,     \
+                           int nblocks, void* stream) {                      \
     return k4::launch<O>(A, B, tc, smant, sexp, ld, mu, outs, desc, ngroups, \
-                         nblocks, stream);                                   \
+                         dev_desc, nblocks, stream);                         \
   }                                                                          \
   int ect_tablegen_shape##SUFFIX(int nblocks, int* info) {                   \
-    return ect::launch_shape(k4::k4_tablegen_kernel<O>, dim3(nblocks),       \
+    return ect::launch_shape(k4::k4_tablegen_kernel<O, false>, dim3(nblocks),\
                              k4::THREADS, 0, info);                          \
   }
 

@@ -34,7 +34,7 @@ import torch
 from .legendre import build_parity_tables
 from .ops import fourier, layout, legendre_matmul, spectral
 from .resolution import (GroupedLegendre, LegendreGroup, Resolution,
-                         canonical_device, check_dtype)
+                         canonical_device, check_dtype, default_leg_groups)
 from .transform import (InvFlags, _check_spec, _device_of, fsc,
                         legendre_inputs)
 
@@ -66,10 +66,11 @@ class LatLonGrid:
 
 def latlon_groups(res: Resolution) -> tuple:
     """The m-groups (m0, m1, i0, J) of the lat-lon tables (``ectrans_tpu``
-    ``_latlon_tables``): every latitude active (i0 = 0), J = 2 kg degrees
-    from m0."""
+    ``_latlon_tables``): the fixed group count (``ECTRANS_TPU_LEG_GROUPS``
+    does not reach them, as in the JAX package), every latitude active
+    (i0 = 0), J = 2 kg degrees from m0."""
     M = res.M
-    bs = -(-M // max(1, min(16, M // 8)))
+    bs = -(-M // default_leg_groups(M))
     return tuple((m0, min(M, m0 + bs), 0, 2 * ((res.nsmax + 1 - m0) // 2 + 1))
                  for m0 in range(0, M, bs))
 

@@ -11,10 +11,12 @@ with the upward three-term recurrence in n
     eps(n,m) = sqrt((n^2-m^2)/(4n^2-1)).
 
 ``eps_table`` and ``sectoral_seeds`` feed the CUDA table generator
-(``ops.legendre_tablegen``); ``compute_legendre_table`` and
-``build_parity_tables`` are the host table source, used for tensors that lie
-on the CPU.  The JAX package's native C++ table code (``ectrans_tpu/native``)
-is not ported: on the GPU the tables are generated on the card.
+(``ops.legendre_tablegen``); ``build_parity_tables`` is the host table
+source (tensors on the CPU, and the card under
+``ECTRANS_TPU_TABLE_SOURCE=host``): the native C++ builder of ``native/``,
+or, only when ``ECTRANS_TPU_DISABLE_NATIVE`` is set,
+``compute_legendre_table`` and ``split_parity``, this module's numpy
+recurrence.
 """
 
 from __future__ import annotations
@@ -150,8 +152,19 @@ def build_parity_tables(
     mu: np.ndarray,
     ntmax_extra: int = 1,
     nmen_nh: np.ndarray | None = None,
+    dtype=np.float64,
 ) -> tuple[np.ndarray, np.ndarray, int]:
-    """Parity-split fp64 Legendre tables (psym, pasym, kmax) built with the
-    numpy recurrence: O(nsmax^2 * nlat) host work and memory."""
+    """Parity-split Legendre tables (psym, pasym, kmax) in ``dtype`` (float64
+    or float32; the recurrence is fp64): O(nsmax^2 * nlat) host work.  The
+    native builder (``native.build_legendre_parity``) writes them directly;
+    with ``ECTRANS_TPU_DISABLE_NATIVE`` set, the numpy recurrence builds the
+    dense fp64 table, splits it and casts (~4x the tables' memory)."""
+    from . import native
+
+    out = native.build_legendre_parity(nsmax, mu, ntmax_extra, nmen_nh, dtype)
+    if out is not None:
+        return out
     ptable = compute_legendre_table(nsmax, mu, ntmax_extra, nmen_nh)
-    return split_parity(ptable, nsmax)
+    psym, pasym, kmax = split_parity(ptable, nsmax)
+    return (psym.astype(dtype, copy=False), pasym.astype(dtype, copy=False),
+            kmax)

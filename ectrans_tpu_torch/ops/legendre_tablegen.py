@@ -37,7 +37,7 @@ _RS_LO = 2.0 ** -256
 _RS_SHIFT = 256
 _E_FLUSH = -1400   # |mantissa| <= 2^257: 2^-1400 * 2^257 < fp64 tiny
 THREADS = 128      # K4's block (csrc/tablegen.cu)
-MAX_GROUPS = 16    # groups in one launch (the kernel's parameter block)
+K4_PARAM_GROUPS = 16   # groups whose descriptors fit K4's parameter block
 _OUT_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
@@ -127,13 +127,13 @@ def gen_group_plain(inp: dict, m0: int, m1: int, J: int, i0: int,
 
 
 def launch_plan(groups, ndgnh: int) -> tuple:
-    """K4's work order for ``groups`` [(m0, m1, i0, J), ...]: the launch's
-    group descriptors (index into ``groups``, m0, gm, J, i0, ig, first
-    block), longest chains (J) first, each group's gm * ig columns on
-    consecutive blocks of ``THREADS``; and the launch's block count."""
-    if not 1 <= len(groups) <= MAX_GROUPS:
-        raise ValueError(f"{len(groups)} groups in one K4 launch (1 to "
-                         f"{MAX_GROUPS})")
+    """K4's work order for ``groups`` [(m0, m1, i0, J), ...] (one or more,
+    any count): the launch's group descriptors (index into ``groups``, m0,
+    gm, J, i0, ig, first block), longest chains (J) first, each group's
+    gm * ig columns on consecutive blocks of ``THREADS``; and the launch's
+    block count."""
+    if not groups:
+        raise ValueError("a K4 launch takes at least one group")
     order = sorted(range(len(groups)), key=lambda k: -groups[k][3])
     desc, block = [], 0
     for k in order:
@@ -148,7 +148,9 @@ def gen_groups(inp: dict, groups, dtype: torch.dtype) -> list:
     """The tables of ``groups`` [(m0, m1, i0, J), ...] (K4; replaces
     ``legendre_tablegen._gen_group``), one (m1-m0, J, ndgnh-i0) tensor each,
     in float32, float64 or bfloat16, on the device of ``inp``: one kernel
-    launch for all of them; CPU inputs take ``gen_group_plain`` per group."""
+    launch for all of them (past 16 groups it also fills a device array of
+    their descriptors, 32 bytes a group); CPU inputs take
+    ``gen_group_plain`` per group."""
     mu = inp["mu"]
     if _build.on_cpu(mu):
         return [gen_group_plain(inp, m0, m1, J, i0, dtype)
@@ -176,10 +178,13 @@ def gen_groups(inp: dict, groups, dtype: torch.dtype) -> list:
     n = len(desc)
     ptrs = (ctypes.c_void_p * n)(*(outs[d[0]].data_ptr() for d in desc))
     ints = (ctypes.c_int * (6 * n))(*(v for d in desc for v in d[1:]))
+    dev_desc = (None if n <= K4_PARAM_GROUPS else
+                torch.empty(4 * n, dtype=torch.int64, device=mu.device))
     with _build.on_device(mu):
         _build.launch("ect_tablegen", dtype, inp["A"].data_ptr(),
                       inp["B"].data_ptr(), tc, inp["mant"].data_ptr(),
                       sexp.data_ptr(), ndgnh, mu.data_ptr(), ptrs, ints, n,
+                      None if dev_desc is None else dev_desc.data_ptr(),
                       nblocks)
     gen_groups.launches += 1
     return outs

@@ -5,7 +5,9 @@ Counterpart of ``ectrans_tpu/parallel/distribution.py``.  On the host, for
 one (Resolution, w, v):
 
 * **wave distribution** (reference ``suwavedi_mod.F90:115-131``): the
-  contiguous m-groups of ``Resolution.legendre_groups`` dealt round-robin
+  contiguous m-groups of ``Resolution.legendre_groups`` at the fixed count
+  (``default_leg_groups``; ``ECTRANS_TPU_LEG_GROUPS`` does not reach a
+  mesh, as in the JAX package) dealt round-robin
   to the w ranks, so each w-rank owns ``Lg`` m's of every group and every
   rank's tables have the same shapes; ``perm`` lists the m's in w-rank
   order (``M`` marks padding);
@@ -44,7 +46,8 @@ import torch
 
 from ..ops import spectral as spectral_ops
 from ..ops.fourier import BucketedTables, bucket_tables, good_size
-from ..resolution import ON_TRANS_END, FullGroup, FullLegendre, Resolution
+from ..resolution import (ON_TRANS_END, FullGroup, FullLegendre, Resolution,
+                          default_leg_groups)
 
 
 def pingpong_blocks(M: int, w: int) -> list[list[int]]:
@@ -130,7 +133,9 @@ def build_distribution(res: Resolution, w: int, v: int,
     M = res.M
     groups = []
     off = 0
-    for m0, m1, i0, J in res.legendre_groups():
+    # the fixed group count: the mesh does not follow ECTRANS_TPU_LEG_GROUPS
+    # (``ectrans_tpu`` ``build_distribution``)
+    for m0, m1, i0, J in res.legendre_groups(default_leg_groups(res.M)):
         Lg = -(-(m1 - m0) // w)
         groups.append(GroupMeta(m0=m0, m1=m1, Lg=Lg, i0=i0, kg=J // 2,
                                 off=off))

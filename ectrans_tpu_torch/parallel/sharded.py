@@ -58,7 +58,7 @@ from ..field_layout import FieldLayout
 from ..ops import fourier, layout, legendre_dense, legendre_matmul, pack
 from ..ops import spectral
 from ..resolution import (GroupedLegendre, LegendreGroup, Resolution,
-                          check_dtype)
+                          check_dtype, default_leg_groups)
 from ..transform import (InvFlags, _check_precision, _check_spec,
                          _table_dtype, fsc, legendre_inputs)
 from . import comm
@@ -350,8 +350,11 @@ class ShardedTransform:
             # full-M m-major rows (zero rows where another w-rank owns m)
             # for the compaction kernel K3, one launch, before the sum
             mm = loc[self.tables["rom_w"]]
+            # the mesh keeps the fixed group count, as the JAX package's
+            ngroups = default_leg_groups(res.M)
             packed = pack.packed_from_group_rows(
-                [mm[m0:m1] for m0, m1, _, _ in res.legendre_groups()], res)
+                [mm[m0:m1] for m0, m1, _, _ in res.legendre_groups(ngroups)],
+                res, ngroups)
             return comm.all_reduce_sum(packed, self.mesh.w_group, "psum")
         sym, asym = legendre_matmul.legendre_dir_grouped(
             four, self._grouped(self.legendre), w)

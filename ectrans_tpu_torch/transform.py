@@ -34,10 +34,12 @@ CPU): "dense" through ``legendre_dense.legendre_dir_dense``, "planes"
 through ``legendre_matmul.dir_planes``.  Every engine serves the tiers
 "highest", "high" (the same arithmetic) and "bf16" (bf16 tables,
 ``_table_dtype``); see ``ops.legendre_matmul``.  The environment is read
-once per call, here, and passed down.
+once per call, here, and passed down: the engine knobs and the table knobs
+``ECTRANS_TPU_LEG_GROUPS`` (the tables' m-groups, which K3 packs) and
+``ECTRANS_TPU_TABLE_SOURCE`` (``resolution.leg_groups``, ``table_source``).
 
 The tables of every engine derive from the full-n tables (kernel K4 on a
-GPU).  Field order of the inverse output (``inv_trans.F90:58-106``): vor?,
+GPU, unless the table source is "host").  Field order of the inverse output (``inv_trans.F90:58-106``): vor?,
 div?, u, v, scalars, N-S derivatives of scalars?, E-W derivatives of u and
 v?, E-W derivatives of scalars?.
 
@@ -74,7 +76,7 @@ from .field_layout import FieldLayout
 from .ops import (fourier, layout, legendre_dense, legendre_matmul, pack,
                   spectral)
 from .ops.legendre_planes import planes_for_tier
-from .resolution import Resolution, check_dtype
+from .resolution import Resolution, check_dtype, leg_groups, table_source
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,14 +126,19 @@ def _table_dtype(dtype: torch.dtype, precision: str) -> torch.dtype:
 
 
 def _leg_tables(res: Resolution, eng: str, dtype: torch.dtype,
-                precision: str, device: torch.device):
-    """The Legendre tables an engine streams: limb planes ("planes"),
-    full-n tables ("dense") or parity pairs ("xla", "pallas")."""
+                precision: str, device: torch.device, ngroups: int,
+                source: str):
+    """The Legendre tables an engine streams, in ``ngroups`` m-groups from
+    ``source``: limb planes ("planes"), full-n tables ("dense") or parity
+    pairs ("xla", "pallas")."""
     if eng == "planes":
-        return res.planes_legendre(planes_for_tier(precision), device)
+        return res.planes_legendre(planes_for_tier(precision), device,
+                                   ngroups, source)
     if eng == "dense":
-        return res.full_legendre(_table_dtype(dtype, precision), device)
-    return res.grouped_legendre(_table_dtype(dtype, precision), device)
+        return res.full_legendre(_table_dtype(dtype, precision), device,
+                                 ngroups, source)
+    return res.grouped_legendre(_table_dtype(dtype, precision), device,
+                                ngroups, source)
 
 
 FOURIER_LAYERS = ("buckets", "rows")
@@ -269,7 +276,8 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
     _check_precision(precision)
     device = _device_of(spvor, spdiv, spscalar)
     tables = res.device_tables(dtype, device)
-    gl = _leg_tables(res, eng, dtype, precision, device)
+    gl = _leg_tables(res, eng, dtype, precision, device, leg_groups(res.M),
+                     table_source(device))
 
     def dense(x):
         return (None if x is None
@@ -326,7 +334,9 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
     _check_precision(precision)
     device = _device_of(u, v, scalars)
     tables = res.device_tables(dtype, device)
-    gl = _leg_tables(res, eng, dtype, precision, device)
+    ngroups = leg_groups(res.M)
+    gl = _leg_tables(res, eng, dtype, precision, device, ngroups,
+                     table_source(device))
     grids = [x.to(dtype) for x in (u, v, scalars) if x is not None]
 
     four = analysis(torch.cat(grids), res, _normalize, _fourier)
@@ -337,10 +347,10 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
     w = tables.w[: res.ndgnh]
     if eng in ("dense", "planes") and packing == "kernel":
         packed = _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng,
-                                  precision, pack2)
+                                  precision, pack2, ngroups)
     else:
         packed = _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng,
-                                   precision, pack2, packing)
+                                   precision, pack2, packing, ngroups)
     spvor = packed[:nfld_uv] if nfld_uv else None
     spdiv = packed[nfld_uv: 2 * nfld_uv] if nfld_uv else None
     spsc = packed[2 * nfld_uv:] if nfld_sc else None
@@ -406,7 +416,7 @@ def _dir_packets(res, u, v, scalars, dtype, npromatr, precision, private):
 
 
 def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
-                     pack2):
+                     pack2, ngroups):
     """"dense"/"planes" direct LT in the kernels' m-major rows -> per-group
     UVTVD -> K3.  Returns packed [vor, div, scalars] (nfld, nspec2)."""
     if eng == "dense":
@@ -418,11 +428,11 @@ def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
         # [vor, div, scalars]
         rows_list = spectral.vordiv_rows(rows_list, gl.groups, nfld_uv,
                                          four.shape[0], tables.uvtvd_mm)
-    return pack.packed_from_group_rows(rows_list, res)
+    return pack.packed_from_group_rows(rows_list, res, ngroups)
 
 
 def _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
-                      pack2, packing):
+                      pack2, packing, ngroups):
     """Direct LT to the dense layout -> dense UVTVD -> K3 ("pallas") or the
     index gather ("xla", and every engine when ``packing`` is "xla")."""
     if eng == "dense":
@@ -439,4 +449,4 @@ def _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
         dense = torch.cat([dvor, ddiv, dense[2 * nfld_uv:]])
     if eng == "xla" or packing == "xla":
         return layout.dense_to_packed(dense, res)
-    return pack.dense_to_packed(dense, res)
+    return pack.dense_to_packed(dense, res, ngroups)

@@ -189,39 +189,80 @@ def test_k4_bound_counts_fp64_issue_slots(smoke):
 
 
 PACK_TABLEGEN_LOG = (
+    # K3 and K4 with their groups by value (Lb0E) and in a device array
+    # (Lb1E)
     "ptxas info    : Compiling entry function "
-    "'_ZN2k314k3_pack_kernelIfEEvNS_6GroupsEPT_iix' for 'sm_90a'\n"
-    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+    "'_ZN2k314k3_pack_kernelIfLb0EEEvNS_6Group"
+    "sEPKNS_4DescEPT_iix' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "0 bytes spill loads\n"
     "ptxas info    : Used 26 registers, 664 bytes cmem[0]\n"
     "ptxas info    : Compiling entry function "
-    "'_ZN2k314k3_pack_kernelIdEEvNS_6GroupsEPT_iix' for 'sm_90a'\n"
-    "    0 bytes stack frame, {k3} bytes spill stores, 0 bytes spill loads\n"
+    "'_ZN2k314k3_pack_kernelIdLb0EEEvNS_6Group"
+    "sEPKNS_4DescEPT_iix' for 'sm_90a'\n"
+    "    0 bytes stack frame, {k3} bytes spill stores, "
+    "0 bytes spill loads\n"
     "ptxas info    : Used 30 registers, 664 bytes cmem[0]\n"
     "ptxas info    : Compiling entry function "
-    "'_ZN2k418k4_tablegen_kernelIfEEvPKdS2_iS2_PKiiS2_NS_6GroupsE' for "
-    "'sm_90a'\n"
-    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-    "ptxas info    : Used 48 registers, 900 bytes cmem[0]\n"
+    "'_ZN2k314k3_pack_kernelIfLb1EEEvNS_6Group"
+    "sEPKNS_4DescEPT_iix' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "0 bytes spill loads\n"
+    "ptxas info    : Used 27 registers, 664 bytes cmem[0]\n"
     "ptxas info    : Compiling entry function "
-    "'_ZN2k418k4_tablegen_kernelIdEEvPKdS2_iS2_PKiiS2_NS_6GroupsE' for "
-    "'sm_90a'\n"
-    "    0 bytes stack frame, 0 bytes spill stores, {k4} bytes spill loads\n"
-    "ptxas info    : Used 56 registers, 900 bytes cmem[0]\n"
+    "'_ZN2k314k3_pack_kernelIdLb1EEEvNS_6Group"
+    "sEPKNS_4DescEPT_iix' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "0 bytes spill loads\n"
+    "ptxas info    : Used 31 registers, 664 bytes cmem[0]\n"
     "ptxas info    : Compiling entry function "
-    "'_ZN2k418k4_tablegen_kernelI13__nv_bfloat16EEvPKdS3_iS3_PKiiS3_NS_6"
-    "GroupsE' for 'sm_90a'\n"
-    "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-    "ptxas info    : Used 50 registers, 900 bytes cmem[0]\n")
+    "'_ZN2k418k4_tablegen_kernelIfLb0EEEvPKdS2"
+    "_iS2_PKiiS2_NS_6GroupsEPKNS_5GroupE' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "0 bytes spill loads\n"
+    "ptxas info    : Used 48 registers, 664 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k418k4_tablegen_kernelIdLb0EEEvPKdS2"
+    "_iS2_PKiiS2_NS_6GroupsEPKNS_5GroupE' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "{k4} bytes spill loads\n"
+    "ptxas info    : Used 56 registers, 664 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k418k4_tablegen_kernelI13__nv_bfloat"
+    "16Lb0EEEvPKdS3_iS3_PKiiS3_NS_6GroupsEPKNS_5GroupE' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "0 bytes spill loads\n"
+    "ptxas info    : Used 50 registers, 664 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k418k4_tablegen_kernelIfLb1EEEvPKdS2"
+    "_iS2_PKiiS2_NS_6GroupsEPKNS_5GroupE' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "0 bytes spill loads\n"
+    "ptxas info    : Used 44 registers, 664 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k418k4_tablegen_kernelIdLb1EEEvPKdS2"
+    "_iS2_PKiiS2_NS_6GroupsEPKNS_5GroupE' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "0 bytes spill loads\n"
+    "ptxas info    : Used 46 registers, 664 bytes cmem[0]\n"
+    "ptxas info    : Compiling entry function "
+    "'_ZN2k418k4_tablegen_kernelI13__nv_bfloat"
+    "16Lb1EEEvPKdS3_iS3_PKiiS3_NS_6GroupsEPKNS_5GroupE' for 'sm_90a'\n"
+    "    0 bytes stack frame, 0 bytes spill stores, "
+    "0 bytes spill loads\n"
+    "ptxas info    : Used 45 registers, 664 bytes cmem[0]\n")
 
 
 @pytest.mark.parametrize("key,variants,regs", [
-    ("K3", 2, {"fp32": 26, "fp64": 30}),
-    ("K4", 3, {"fp32": 48, "fp64": 56, "bf16": 50})])
+    ("K3", 4, {"fp32": 26, "fp64": 30, "fp32 array": 27, "fp64 array": 31}),
+    ("K4", 6, {"fp32": 48, "fp64": 56, "bf16": 50, "fp32 array": 44,
+               "fp64 array": 46, "bf16 array": 45})])
 @pytest.mark.parametrize("spill", [0, 8])
 def test_registers_of_k3_k4_refuse_a_spill(smoke, tmp_path, monkeypatch,
                                            key, variants, regs, spill):
     """K3's and K4's lines read their variants' registers (fp32 and fp64;
-    and bf16 for K4) from build.log; a spill in any fails the run."""
+    and bf16 for K4; each with its groups by value and in a device array)
+    from build.log; a spill in any fails the run."""
     log = PACK_TABLEGEN_LOG.format(k3=spill if key == "K3" else 0,
                                    k4=spill if key == "K4" else 0)
     (tmp_path / "build.log").write_text(log + DENSE_LOG.format(k1=0, k2=0,
@@ -288,7 +329,8 @@ def test_k3_line(smoke, cpu_card, capsys):
     for part in ("% of it", "operations 0.0000 ms", "moves", "GB/s",
                  "behind a spin kernel", "us a call",
                  "blocks per launch 1600 of 256 threads", "1.52 waves",
-                 "registers 26 (fp32) / 30 (fp64), no spills", "bit-exact"):
+                 "registers 26 (fp32) / 30 (fp64) / 27 (fp32 array) / 31 "
+                 "(fp64 array), no spills", "bit-exact"):
         assert part in line, part
 
 
@@ -311,7 +353,8 @@ def test_k4_line(smoke, cpu_card, capsys):
     assert f"{n:,} entries" in line
     for part in ("bound", "bytes", "operations", "9 fp64-pipe slots an "
                  "entry", "bf16 tables", "registers 48 (fp32) / 56 (fp64) / "
-                 "50 (bf16), no spills", "bit-identical to the plain"):
+                 "50 (bf16) / 44 (fp32 array) / 46 (fp64 array) / 45 (bf16 "
+                 "array), no spills", "bit-identical to the plain"):
         assert part in line, part
 
 
@@ -1102,3 +1145,43 @@ def test_phase14_on_the_cpu(smoke, capsys):
              if line.startswith("phase 14 (")]
     assert heads == ["(a)", "(b)", "(c)", "(d)"]
     assert any("C API test OK" in line for line in lines)
+
+
+@pytest.mark.parametrize("ngroups", [24, 48])
+def test_k3_k4_holds_past_16_groups(smoke, cpu_card, ngroups):
+    """Phase 2's K3 and K4 holds at a group count past their 16 by-value
+    groups (O48: 24 groups of 2 m, one group an m): bit-exact, K4's plain
+    version not timed."""
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup("O48", 47)
+    k3 = smoke.hold_k3(res, cpu_card, torch.Generator().manual_seed(0),
+                       ngroups)
+    assert k3["exact"] and k3["library_ms"] > 0
+    k4 = smoke.hold_k4(res, cpu_card, ngroups)
+    assert k4["exact"] and k4["plain_ms"] is None
+    assert k4["what"] == f"fp32 tables, {ngroups} groups, one launch"
+
+
+TABLES_SMALL = dict(fp64="O48", fp32="O160", bench="O48", groups=(3, 24),
+                    world=2)
+
+
+def test_phase15_on_the_cpu(smoke, capsys):
+    """Phase 15 end to end on the CPU at TABLES_SMALL, against phase 4's
+    round trip at O48: every check but the launch counts (the plain
+    versions count none), a line each for (a), (b), (c) at each count and
+    (d)."""
+    import ectrans_tpu_torch as ett
+
+    res = ett.setup("O48", 47)
+    sp = smoke.bench_inputs(res.nspec2, res.nsmax)
+    grid, out = smoke.round_trip(res, sp, torch.float32)
+    got = smoke.phase_tables(torch.device("cpu"), smoke.launch_counters(),
+                             (grid, list(out)), 0.5, TABLES_SMALL)
+    assert got == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    lines = capsys.readouterr().out.splitlines()
+    heads = [line.split(" ", 3)[2] for line in lines
+             if line.startswith("phase 15 (")]
+    assert heads == ["(a)", "(b)", "(c)", "(c)", "(d)"]
+    assert "ECTRANS_TPU_LEG_GROUPS 24 (24 groups)" in lines[3]

@@ -853,9 +853,10 @@ def test_wrappers_reject_bad_operands(dev):
         pack.packed_from_group_rows(
             rows[:-1] + [rows[-1].transpose(0, 1).contiguous()
                          .transpose(0, 1)], res)
-    with pytest.raises(ValueError, match="1 to 16"):
-        tg.gen_groups(tg._device_inputs(res, dev),
-                      [res.legendre_groups()[0]] * 17, torch.float32)
+    # any group count from one (past 16 the descriptors go to a device
+    # array); none is refused
+    with pytest.raises(ValueError, match="at least one group"):
+        tg.gen_groups(tg._device_inputs(res, dev), [], torch.float32)
     planes = (torch.zeros(2, 5, 6, device=dev, dtype=torch.bfloat16),)
     with pytest.raises(TypeError, match="dtype"):
         lp.group_inv_planes(torch.zeros(2, 8, 6, device=dev), planes, 1, 4)
@@ -1151,3 +1152,109 @@ def test_capi_bridge_on_card_matches_cpu(dev, monkeypatch):
     for got, ref in zip(outs[None], outs["cpu"]):
         dtype = torch.float32 if ref.dtype == np.float32 else torch.float64
         _slice_close(got, ref, dtype)
+
+
+# -- K3 and K4 past 16 groups; the table knobs and entry() on the card ------
+
+@pytest.mark.parametrize("ngroups", [40, 160])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pack_kernel_past_16_groups(dev, dtype, ngroups):
+    """K3 on more groups than its parameter block holds (the descriptors
+    in a device array, a binary search on m0): 40 groups of 4 m, and one
+    group an m, at T159; one launch, bit-exact against the index gather."""
+    res = ett.setup("O160", 159)
+    groups = res.legendre_groups(ngroups)
+    assert len(groups) == ngroups
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = [torch.randn(m1 - m0, 6, J + 3, generator=g, device=dev,
+                        dtype=dtype) for m0, m1, _, J in groups]
+    pack.packed_from_group_rows.launches = 0
+    got = pack.packed_from_group_rows(rows, res, ngroups)
+    assert pack.packed_from_group_rows.launches == 1
+    assert torch.equal(got, pack.packed_from_group_rows_plain(rows, res,
+                                                              ngroups))
+
+
+@pytest.mark.parametrize("ngroups", [40, 160])
+@pytest.mark.parametrize("dtype", DTYPES + [torch.bfloat16])
+def test_tablegen_kernel_past_16_groups(dev, dtype, ngroups):
+    """K4 on 40 groups and on one group an m at T159 (descriptors in a
+    device array, a binary search on the first blocks), one launch: the
+    plain recurrence's entries bit for bit."""
+    res = ett.setup("O160", 159)
+    inp = tg._device_inputs(res, dev)
+    groups = res.legendre_groups(ngroups)
+    tg.gen_groups.launches = 0
+    got = tg.gen_groups(inp, groups, dtype)
+    assert tg.gen_groups.launches == 1
+    for pn, (m0, m1, i0, J) in zip(got, groups):
+        assert torch.equal(pn, tg.gen_group_plain(inp, m0, m1, J, i0, dtype)), m0
+
+
+def _kernel_counts(fn) -> list:
+    counters = [ld.group_inv_dense, ld.group_dir_dense,
+                pack.packed_from_group_rows, tg.gen_groups]
+    for c in counters:
+        c.launches = 0
+    fn()
+    return [c.launches for c in counters]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_leg_groups_knob_on_card(dev, monkeypatch, dtype):
+    """ECTRANS_TPU_LEG_GROUPS=40 at T159: the round trip on the card runs
+    40 groups (K1 and K2 40 launches, K3 and K4 one each) and matches the
+    CPU's fp64 on the default groups."""
+    res = ett.setup("O160", 159)
+    sp = [packed(res, n, seed) for n, seed in ((2, 0), (2, 1), (6, 2))]
+    g0, out0 = round_trip(res, sp, torch.float64, "cpu")
+    monkeypatch.setenv("ECTRANS_TPU_LEG_GROUPS", "40")
+    got = {}
+    assert _kernel_counts(lambda: got.update(
+        r=round_trip(res, sp, dtype, dev))) == [40, 40, 1, 1]
+    g1, out1 = got["r"]
+    atol, rtol = SLICE_TOL[dtype]
+    for a, b in [(g1, g0)] + list(zip(out1, out0)):
+        err = (a.cpu().double() - b).abs().max().item()
+        assert err <= atol + rtol * b.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_host_table_source_on_card(dev, monkeypatch, dtype):
+    """ECTRANS_TPU_TABLE_SOURCE=host on the card: no K4 launch, the tables
+    the host's rounded to the table dtype, and the round trip matches the
+    CPU's fp64."""
+    res = ett.setup("O160", 159)
+    sp = [packed(res, n, seed) for n, seed in ((2, 0), (2, 1), (6, 2))]
+    g0, out0 = round_trip(res, sp, torch.float64, "cpu")
+    monkeypatch.setenv("ECTRANS_TPU_TABLE_SOURCE", "host")
+    got = {}
+    ngroups = len(res.legendre_groups())
+    assert _kernel_counts(lambda: got.update(
+        r=round_trip(res, sp, dtype, dev))) == [ngroups, ngroups, 1, 0]
+    fl = res.full_legendre(dtype, dev)
+    for g, pn in zip(fl.groups, res.host_full_legendre()):
+        assert g.pn.device == dev and torch.equal(
+            g.pn.cpu(), torch.from_numpy(pn).to(dtype))
+    g1, out1 = got["r"]
+    atol, rtol = SLICE_TOL[dtype]
+    for a, b in [(g1, g0)] + list(zip(out1, out0)):
+        err = (a.cpu().double() - b).abs().max().item()
+        assert err <= atol + rtol * b.abs().max().item()
+
+
+def test_entry_on_card_matches_cpu(dev):
+    """entry()'s O48 round trip on the card against the same step on the
+    CPU (100 eps(fp32) of each family's largest |value|), through K1-K4."""
+    from ectrans_tpu_torch import entry
+
+    step, args = entry.entry(device="cpu")
+    want = step(*args)
+    step, args = entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    got = {}
+    counts = _kernel_counts(lambda: got.update(out=step(*args)))
+    assert all(counts), counts
+    eps = float(np.finfo(np.float32).eps)
+    for a, b in zip(got["out"], want):
+        assert (a.cpu() - b).abs().max() <= 100 * eps * b.abs().max()

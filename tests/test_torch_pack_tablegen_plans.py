@@ -115,11 +115,21 @@ def test_tablegen_plan_covers_every_column_once(name, nsmax):
 
 
 def test_tablegen_plan_refuses_more_groups_than_a_launch_takes():
+    """A K4 launch takes any count of groups from one (past 16 their
+    descriptors go to a device array): the plan refuses an empty launch,
+    and plans 24 and 48 groups (one an m) in launch order, first blocks
+    ascending from 0."""
     res = ett.setup("O48", 47)
-    with pytest.raises(ValueError, match="1 to 16"):
-        tg.launch_plan([res.legendre_groups()[0]] * 17, res.ndgnh)
-    with pytest.raises(ValueError, match="1 to 16"):
+    with pytest.raises(ValueError, match="at least one group"):
         tg.launch_plan([], res.ndgnh)
+    for ngroups in (24, 48):
+        groups = res.legendre_groups(ngroups)
+        assert len(groups) == ngroups
+        desc, nblocks = tg.launch_plan(groups, res.ndgnh)
+        firsts = [d[6] for d in desc]
+        assert firsts[0] == 0 and firsts == sorted(firsts)
+        assert nblocks == firsts[-1] + -(-desc[-1][2] * desc[-1][5]
+                                         // tg.THREADS)
 
 
 def _pow2(e):

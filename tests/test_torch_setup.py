@@ -53,7 +53,8 @@ def test_import_leaves_jax_out():
             "ectrans_tpu_torch.programs.info",
             "ectrans_tpu_torch.programs.world",
             "ectrans_tpu_torch.compat4py", "ectrans_tpu_torch.capi_bridge",
-            "ectrans_tpu_torch.cache", "ectrans_tpu_torch.capi"} <= set(mods)
+            "ectrans_tpu_torch.cache", "ectrans_tpu_torch.capi",
+            "ectrans_tpu_torch.native", "ectrans_tpu_torch.entry"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
