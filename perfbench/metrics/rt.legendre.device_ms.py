@@ -1,0 +1,8 @@
+"""rt.legendre.device_ms: legendre.device_ms in the one-field round-trip
+cells, where it moves p95_rt_ms."""
+
+from perfbench import spec
+
+_base = spec.reader("legendre.device_ms")
+SPANS = getattr(_base, "SPANS", {})
+read = _base.read
