@@ -25,6 +25,8 @@ import threading
 
 import torch
 
+from .utils.timing import hook
+
 _HERE = pathlib.Path(__file__).parent
 _SRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
@@ -143,12 +145,13 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            cdll = ctypes.CDLL(str(build()))
-            for stem, (argtypes, suffixes) in _ENTRIES.items():
-                for suffix in suffixes:
-                    fn = getattr(cdll, stem + suffix)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+            with hook("build.kernels"):
+                cdll = ctypes.CDLL(str(build()))
+                for stem, (argtypes, suffixes) in _ENTRIES.items():
+                    for suffix in suffixes:
+                        fn = getattr(cdll, stem + suffix)
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
             _lib = cdll
         return _lib
 

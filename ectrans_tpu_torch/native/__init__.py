@@ -29,6 +29,8 @@ import threading
 
 import numpy as np
 
+from ..utils.timing import hook
+
 _MADV_HUGEPAGE = 14
 _SRC = pathlib.Path(__file__).parent / "legendre_builder.cpp"
 FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-funroll-loops"]
@@ -102,7 +104,8 @@ def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            with hook("build.native"):
+                lib = ctypes.CDLL(str(build()))
             for name, ctype, _ in _ENTRIES:
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int

@@ -73,6 +73,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils.timing import hook
+
 
 def fold(re: torch.Tensor, im: torch.Tensor, L: int) -> torch.Tensor:
     """Modes k = 0 .. K-1 on the last axis of (re, im) -> the half spectrum
@@ -596,10 +598,11 @@ def synthesis_bucketed(fourier: torch.Tensor, bt: BucketedTables,
         x = x / scale
     out = fourier.new_zeros((x.shape[0], nrow, bt.ndlon))
     for bk in bt.buckets:
-        piece = _bucket_synthesis(x, bk)
-        if normalize:
-            piece = piece * scale[:, 0]
-        _place(out, piece, bk.spans, 1, bk.ndlon)
+        with hook("fourier.bucket"):
+            piece = _bucket_synthesis(x, bk)
+            if normalize:
+                piece = piece * scale[:, 0]
+            _place(out, piece, bk.spans, 1, bk.ndlon)
     return out[:nfld]
 
 
@@ -619,14 +622,15 @@ def analysis_bucketed(grid: torch.Tensor, bt: BucketedTables, M: int,
     x = _even(grid)
     out = x.new_zeros((x.shape[0], 2, M, nrow))
     for bk in bt.buckets:
-        g = torch.where(bk.valid, _rows(x[..., : bk.ndlon], bk.spans, 1),
-                        0.0).to(PASS_DTYPE)
-        if normalize:
-            scale = _rms(g, (1, 2))
-            g = g / scale
-        K = min(M, bk.mb + 1)
-        piece = _bucket_analysis(g, bk, K)
-        if normalize:
-            piece = piece * scale[..., None]
-        _place(out[:, :, :K], piece, bk.spans, 3)
+        with hook("fourier.bucket"):
+            g = torch.where(bk.valid, _rows(x[..., : bk.ndlon], bk.spans, 1),
+                            0.0).to(PASS_DTYPE)
+            if normalize:
+                scale = _rms(g, (1, 2))
+                g = g / scale
+            K = min(M, bk.mb + 1)
+            piece = _bucket_analysis(g, bk, K)
+            if normalize:
+                piece = piece * scale[..., None]
+            _place(out[:, :, :K], piece, bk.spans, 3)
     return out[:nfld]

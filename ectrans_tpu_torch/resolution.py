@@ -49,6 +49,7 @@ import torch
 
 from .grids import GridSpec, make_grid
 from .legendre import eps_table
+from .utils.timing import hook
 
 EARTH_RADIUS = 6371229.0  # metres; reference default RA (setup_trans0.F90)
 
@@ -265,9 +266,12 @@ class Resolution:
         return (self.nsmax + 3) // 2
 
     def cached(self, key, build: Callable[[], Any]):
-        """Per-resolution cache of derived state (device tensors, plans)."""
+        """Per-resolution cache of derived state (device tensors, plans);
+        a miss is the span ``build.<the key's first item>``."""
         if key not in self._cache:
-            self._cache[key] = build()
+            name = key[0] if isinstance(key, tuple) else key
+            with hook(f"build.{name}"):
+                self._cache[key] = build()
         return self._cache[key]
 
     def legendre_groups(self, ngroups: int | None = None) -> tuple:

@@ -61,6 +61,10 @@ Both transforms are linear in their fields and differentiable through
 every layer on the "xla" engine with ``_normalize=False`` (the adjoints of
 ``adjoint.py``); the kernels of the other engines have no autograd rule.
 
+The layers are spans of ``utils.timing`` (nothing while its recorder is
+off): ``api.inv_trans``/``api.dir_trans`` around each call (and each
+packet), ``spectral``, ``legendre`` and ``fourier`` inside them.
+
 Not carried over from the JAX package: the dispatch splits and
 ``optimization_barrier`` guards against TPU-compiler faults, and the
 analysis of u/v and scalars in separate calls.
@@ -77,6 +81,7 @@ from .ops import (fourier, layout, legendre_dense, legendre_matmul, pack,
                   spectral)
 from .ops.legendre_planes import planes_for_tier
 from .resolution import Resolution, check_dtype, leg_groups, table_source
+from .utils.timing import hook
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,18 +157,20 @@ def _check_fourier(layer: str) -> None:
 
 def synthesis(four, res, normalize=True, layer="buckets"):
     """The inverse transform's Fourier synthesis on ``layer``."""
-    if layer == "rows":
-        return fourier.synthesis(four, res)
-    return fourier.synthesis_bucketed(
-        four, fourier.bucketed_tables(res, four.device), normalize)
+    with hook("fourier"):
+        if layer == "rows":
+            return fourier.synthesis(four, res)
+        return fourier.synthesis_bucketed(
+            four, fourier.bucketed_tables(res, four.device), normalize)
 
 
 def analysis(grid, res, normalize=True, layer="buckets"):
     """The direct transform's Fourier analysis on ``layer``."""
-    if layer == "rows":
-        return fourier.analysis(grid, res)
-    return fourier.analysis_bucketed(
-        grid, fourier.bucketed_tables(res, grid.device), res.M, normalize)
+    with hook("fourier"):
+        if layer == "rows":
+            return fourier.analysis(grid, res)
+        return fourier.analysis_bucketed(
+            grid, fourier.bucketed_tables(res, grid.device), res.M, normalize)
 
 
 def _device_of(*arrays) -> torch.device:
@@ -253,52 +260,62 @@ def inv_trans(res: Resolution, spvor=None, spdiv=None, spscalar=None, *,
     tensor (nfld_out, 2, M, ndgl) before synthesis (reference FSPGL_PROC,
     ``fspgl_int_mod.F90:13-110``).
     """
-    if (spvor is None) != (spdiv is None):
-        raise ValueError("spvor and spdiv must be supplied together")
-    if spvor is not None and spvor.shape != spdiv.shape:
-        raise ValueError(f"spvor/spdiv shape mismatch: {tuple(spvor.shape)} "
-                         f"vs {tuple(spdiv.shape)}")
-    if spvor is None and spscalar is None:
-        raise ValueError("nothing to transform: pass spvor/spdiv and/or spscalar")
-    for nm, arr in (("spvor", spvor), ("spdiv", spdiv), ("spscalar", spscalar)):
-        _check_spec(nm, arr, res)
-    nfld_uv = 0 if spvor is None else spvor.shape[0]
-    nfld_sc = 0 if spscalar is None else spscalar.shape[0]
-    if npromatr and 2 * nfld_uv + nfld_sc > npromatr:
-        return _inv_packets(res, spvor, spdiv, spscalar, flags, dtype,
-                            fspgl_proc, npromatr, precision,
-                            dict(_normalize=_normalize, _engine=_engine,
-                                 _fourier=_fourier))
-    dtype = check_dtype(dtype)
-    _check_fourier(_fourier)
-    eng = _resolve_engine(_engine, dtype)
-    pack2 = legendre_matmul.dense_pack()
-    _check_precision(precision)
-    device = _device_of(spvor, spdiv, spscalar)
-    tables = res.device_tables(dtype, device)
-    gl = _leg_tables(res, eng, dtype, precision, device, leg_groups(res.M),
-                     table_source(device))
+    with hook("api.inv_trans"):
+        if (spvor is None) != (spdiv is None):
+            raise ValueError("spvor and spdiv must be supplied together")
+        if spvor is not None and spvor.shape != spdiv.shape:
+            raise ValueError(f"spvor/spdiv shape mismatch: "
+                             f"{tuple(spvor.shape)} vs {tuple(spdiv.shape)}")
+        if spvor is None and spscalar is None:
+            raise ValueError("nothing to transform: pass spvor/spdiv "
+                             "and/or spscalar")
+        for nm, arr in (("spvor", spvor), ("spdiv", spdiv),
+                        ("spscalar", spscalar)):
+            _check_spec(nm, arr, res)
+        nfld_uv = 0 if spvor is None else spvor.shape[0]
+        nfld_sc = 0 if spscalar is None else spscalar.shape[0]
+        if npromatr and 2 * nfld_uv + nfld_sc > npromatr:
+            return _inv_packets(res, spvor, spdiv, spscalar, flags, dtype,
+                                fspgl_proc, npromatr, precision,
+                                dict(_normalize=_normalize, _engine=_engine,
+                                     _fourier=_fourier))
+        dtype = check_dtype(dtype)
+        _check_fourier(_fourier)
+        eng = _resolve_engine(_engine, dtype)
+        pack2 = legendre_matmul.dense_pack()
+        _check_precision(precision)
+        device = _device_of(spvor, spdiv, spscalar)
+        tables = res.device_tables(dtype, device)
+        gl = _leg_tables(res, eng, dtype, precision, device,
+                         leg_groups(res.M), table_source(device))
 
-    def dense(x):
-        return (None if x is None
-                else layout.packed_to_dense(x.to(dtype), tables))
+        def dense(x):
+            return (None if x is None
+                    else layout.packed_to_dense(x.to(dtype), tables))
 
-    # all fields go through ONE Legendre call: the tables are streamed once
-    dense_all = torch.cat(legendre_inputs(
-        dense(spvor), dense(spdiv), dense(spscalar), flags, tables.vd,
-        tables.nsd))
-    if eng == "dense":
-        four_all = legendre_dense.legendre_inv_dense(dense_all, gl, pack2)
-    elif eng == "planes":
-        four_all = legendre_matmul.inv_planes(dense_all, gl, precision)
-    else:
-        sym, asym = layout.dense_to_parity(dense_all, res.kmax)
-        four_all = legendre_matmul.inv_grouped(sym, asym, gl, eng)
+        # all fields go through ONE Legendre call: the tables are streamed
+        # once
+        with hook("spectral"):
+            dense_all = torch.cat(legendre_inputs(
+                dense(spvor), dense(spdiv), dense(spscalar), flags, tables.vd,
+                tables.nsd))
+            if eng not in ("dense", "planes"):
+                sym, asym = layout.dense_to_parity(dense_all, res.kmax)
+        with hook("legendre"):
+            if eng == "dense":
+                four_all = legendre_dense.legendre_inv_dense(dense_all, gl,
+                                                             pack2)
+            elif eng == "planes":
+                four_all = legendre_matmul.inv_planes(dense_all, gl,
+                                                      precision)
+            else:
+                four_all = legendre_matmul.inv_grouped(sym, asym, gl, eng)
 
-    four = fsc(four_all, nfld_uv, nfld_sc, flags, tables.racthe)
-    if fspgl_proc is not None:
-        four = fspgl_proc(four)
-    return synthesis(four, res, _normalize, _fourier)
+        with hook("spectral"):
+            four = fsc(four_all, nfld_uv, nfld_sc, flags, tables.racthe)
+        if fspgl_proc is not None:
+            four = fspgl_proc(four)
+        return synthesis(four, res, _normalize, _fourier)
 
 
 def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
@@ -311,50 +328,54 @@ def dir_trans(res: Resolution, u=None, v=None, scalars=None, *,
     Returns (spvor, spdiv, spscalar), each (nfld, nspec2) or None where
     there was no input.
     """
-    if (u is None) != (v is None):
-        raise ValueError("u and v must be supplied together")
-    if u is not None and u.shape != v.shape:
-        raise ValueError(f"u/v shape mismatch: {tuple(u.shape)} vs "
-                         f"{tuple(v.shape)}")
-    if u is None and scalars is None:
-        raise ValueError("nothing to transform: pass u/v and/or scalars")
-    for nm, arr in (("u", u), ("v", v), ("scalars", scalars)):
-        _check_grid_arg(nm, arr, res)
-    nfld_uv = 0 if u is None else u.shape[0]
-    nfld_sc = 0 if scalars is None else scalars.shape[0]
-    if npromatr and 2 * nfld_uv + nfld_sc > npromatr:
-        return _dir_packets(res, u, v, scalars, dtype, npromatr, precision,
-                            dict(_normalize=_normalize, _engine=_engine,
-                                 _fourier=_fourier))
-    dtype = check_dtype(dtype)
-    _check_fourier(_fourier)
-    eng = _resolve_engine(_engine, dtype)
-    pack2 = legendre_matmul.dense_pack()
-    packing = pack.pack_kernel()
-    _check_precision(precision)
-    device = _device_of(u, v, scalars)
-    tables = res.device_tables(dtype, device)
-    ngroups = leg_groups(res.M)
-    gl = _leg_tables(res, eng, dtype, precision, device, ngroups,
-                     table_source(device))
-    grids = [x.to(dtype) for x in (u, v, scalars) if x is not None]
+    with hook("api.dir_trans"):
+        if (u is None) != (v is None):
+            raise ValueError("u and v must be supplied together")
+        if u is not None and u.shape != v.shape:
+            raise ValueError(f"u/v shape mismatch: {tuple(u.shape)} vs "
+                             f"{tuple(v.shape)}")
+        if u is None and scalars is None:
+            raise ValueError("nothing to transform: pass u/v and/or scalars")
+        for nm, arr in (("u", u), ("v", v), ("scalars", scalars)):
+            _check_grid_arg(nm, arr, res)
+        nfld_uv = 0 if u is None else u.shape[0]
+        nfld_sc = 0 if scalars is None else scalars.shape[0]
+        if npromatr and 2 * nfld_uv + nfld_sc > npromatr:
+            return _dir_packets(res, u, v, scalars, dtype, npromatr,
+                                precision,
+                                dict(_normalize=_normalize, _engine=_engine,
+                                     _fourier=_fourier))
+        dtype = check_dtype(dtype)
+        _check_fourier(_fourier)
+        eng = _resolve_engine(_engine, dtype)
+        pack2 = legendre_matmul.dense_pack()
+        packing = pack.pack_kernel()
+        _check_precision(precision)
+        device = _device_of(u, v, scalars)
+        tables = res.device_tables(dtype, device)
+        ngroups = leg_groups(res.M)
+        gl = _leg_tables(res, eng, dtype, precision, device, ngroups,
+                         table_source(device))
+        grids = [x.to(dtype) for x in (u, v, scalars) if x is not None]
 
-    four = analysis(torch.cat(grids), res, _normalize, _fourier)
-    if nfld_uv:
-        # LDFOU2: u, v Fourier coefficients times 1/(a cos(theta)); four is
-        # this function's own tensor, so it is scaled in place
-        four[: 2 * nfld_uv] *= tables.racthe
-    w = tables.w[: res.ndgnh]
-    if eng in ("dense", "planes") and packing == "kernel":
-        packed = _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng,
-                                  precision, pack2, ngroups)
-    else:
-        packed = _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng,
-                                   precision, pack2, packing, ngroups)
-    spvor = packed[:nfld_uv] if nfld_uv else None
-    spdiv = packed[nfld_uv: 2 * nfld_uv] if nfld_uv else None
-    spsc = packed[2 * nfld_uv:] if nfld_sc else None
-    return spvor, spdiv, spsc
+        four = analysis(torch.cat(grids), res, _normalize, _fourier)
+        if nfld_uv:
+            # LDFOU2: u, v Fourier coefficients times 1/(a cos(theta)); four
+            # is this function's own tensor, so it is scaled in place
+            with hook("spectral"):
+                four[: 2 * nfld_uv] *= tables.racthe
+        w = tables.w[: res.ndgnh]
+        if eng in ("dense", "planes") and packing == "kernel":
+            packed = _dir_rows_packed(res, tables, gl, four, w, nfld_uv,
+                                      eng, precision, pack2, ngroups)
+        else:
+            packed = _dir_dense_packed(res, tables, gl, four, w, nfld_uv,
+                                       eng, precision, pack2, packing,
+                                       ngroups)
+        spvor = packed[:nfld_uv] if nfld_uv else None
+        spdiv = packed[nfld_uv: 2 * nfld_uv] if nfld_uv else None
+        spsc = packed[2 * nfld_uv:] if nfld_sc else None
+        return spvor, spdiv, spsc
 
 
 def _chunk_pad(x: torch.Tensor, size: int):
@@ -419,34 +440,41 @@ def _dir_rows_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
                      pack2, ngroups):
     """"dense"/"planes" direct LT in the kernels' m-major rows -> per-group
     UVTVD -> K3.  Returns packed [vor, div, scalars] (nfld, nspec2)."""
-    if eng == "dense":
-        rows_list = legendre_dense.legendre_dir_rows(four, gl, w, pack2)
-    else:
-        rows_list = legendre_matmul.dir_rows_planes(four, gl, w, precision)
-    if nfld_uv:
-        # UVTVD per group on the kernel's rows, channels to c-major
-        # [vor, div, scalars]
-        rows_list = spectral.vordiv_rows(rows_list, gl.groups, nfld_uv,
-                                         four.shape[0], tables.uvtvd_mm)
-    return pack.packed_from_group_rows(rows_list, res, ngroups)
+    with hook("legendre"):
+        if eng == "dense":
+            rows_list = legendre_dense.legendre_dir_rows(four, gl, w, pack2)
+        else:
+            rows_list = legendre_matmul.dir_rows_planes(four, gl, w,
+                                                        precision)
+    with hook("spectral"):
+        if nfld_uv:
+            # UVTVD per group on the kernel's rows, channels to c-major
+            # [vor, div, scalars]
+            rows_list = spectral.vordiv_rows(rows_list, gl.groups, nfld_uv,
+                                             four.shape[0], tables.uvtvd_mm)
+        return pack.packed_from_group_rows(rows_list, res, ngroups)
 
 
 def _dir_dense_packed(res, tables, gl, four, w, nfld_uv, eng, precision,
                       pack2, packing, ngroups):
     """Direct LT to the dense layout -> dense UVTVD -> K3 ("pallas") or the
     index gather ("xla", and every engine when ``packing`` is "xla")."""
-    if eng == "dense":
-        dense = legendre_dense.legendre_dir_dense(four, gl, w, res.NP, pack2)
-    elif eng == "planes":
-        dense = legendre_matmul.dir_planes(four, gl, w, res.NP, precision)
-    else:
-        sym, asym = legendre_matmul.dir_grouped(four, gl, w, eng)
-        dense = layout.parity_to_dense(sym, asym, res.NP)
-    if nfld_uv:
-        dvor, ddiv = spectral.uv_to_vordiv(dense[:nfld_uv],
-                                           dense[nfld_uv: 2 * nfld_uv],
-                                           tables.uvtvd)
-        dense = torch.cat([dvor, ddiv, dense[2 * nfld_uv:]])
-    if eng == "xla" or packing == "xla":
-        return layout.dense_to_packed(dense, res)
-    return pack.dense_to_packed(dense, res, ngroups)
+    with hook("legendre"):
+        if eng == "dense":
+            dense = legendre_dense.legendre_dir_dense(four, gl, w, res.NP,
+                                                      pack2)
+        elif eng == "planes":
+            dense = legendre_matmul.dir_planes(four, gl, w, res.NP, precision)
+        else:
+            sym, asym = legendre_matmul.dir_grouped(four, gl, w, eng)
+    with hook("spectral"):
+        if eng not in ("dense", "planes"):
+            dense = layout.parity_to_dense(sym, asym, res.NP)
+        if nfld_uv:
+            dvor, ddiv = spectral.uv_to_vordiv(dense[:nfld_uv],
+                                               dense[nfld_uv: 2 * nfld_uv],
+                                               tables.uvtvd)
+            dense = torch.cat([dvor, ddiv, dense[2 * nfld_uv:]])
+        if eng == "xla" or packing == "xla":
+            return layout.dense_to_packed(dense, res)
+        return pack.dense_to_packed(dense, res, ngroups)

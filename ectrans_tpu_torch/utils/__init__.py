@@ -3,15 +3,18 @@ blocking (NPROMA layout), checksums.  Counterpart of ``ectrans_tpu/utils``."""
 
 from .blocking import blocked_to_fields, fields_to_blocked
 from .checksum import field_checksum
-from .timing import gstats, gstats_report, hook, reset_gstats, timed
+from .timing import (disable, enable, gstats, gstats_report, hook,
+                     reset_gstats, spans)
 
 __all__ = [
     "blocked_to_fields",
+    "disable",
+    "enable",
     "field_checksum",
     "fields_to_blocked",
     "gstats",
     "gstats_report",
     "hook",
     "reset_gstats",
-    "timed",
+    "spans",
 ]

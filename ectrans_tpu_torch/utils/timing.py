@@ -1,102 +1,178 @@
-"""Tracing and phase timing: the DR_HOOK / GSTATS analogue.
+"""The port's span recorder: the DR_HOOK / GSTATS analogue.
 
 Counterpart of ``ectrans_tpu/utils/timing.py``.  The reference wraps every
 routine in DR_HOOK('NAME', 0/1) markers and every transform phase in
 numbered GSTATS counters (``ltinv_ctl_mod.F90:84,113``; NVTX ranges on GPU,
-``tpm_stats.F90``).  Here:
+``tpm_stats.F90``).  Here one recorder, off until ``enable()``:
 
-* ``hook("NAME")`` — context manager combining
-  ``torch.profiler.record_function`` (the name shows up in ``torch.profiler``
-  traces), an NVTX range when a CUDA card is present (the reference GPU's
-  own marker, seen by Nsight), and wall-clock accounting;
-* ``gstats("name")`` — pure wall-clock phase counters with a GSTATS-style
-  report (count / total / avg / min / max).
+* ``hook("NAME")`` — a span.  While the recorder is on it enters
+  ``torch.profiler.record_function("ectrans:NAME")`` (inside a
+  ``torch.profiler`` window the span then sits on the host clock to which
+  the profiler aligns the device's kernels, copies and sets), an NVTX range
+  named NAME on a CUDA card (the reference GPU's marker, which Nsight
+  reads), and keeps ``(NAME, parent index, t0_ns, t1_ns)`` on
+  ``time.perf_counter_ns`` in an in-memory list (``spans()``), so that the
+  spans outside a profiler window, such as set-up, are known too.  While
+  it is off, a span checks one module-level flag and does nothing else.
+* ``gstats("NAME")`` — the same record without the profiler and NVTX
+  ranges.
+* While the recorder is on, each collection of Python's garbage collector
+  is a ``gc`` span (with no parent).
+* ``gstats_report()`` — the GSTATS-style report of the list by name:
+  count, total, self time (the total less that of the spans nested in
+  them), average, min, max; ``reset_gstats()`` empties the list.
 
-CUDA work is asynchronous, so wall-clock numbers for code that merely
-*enqueues* work measure dispatch unless you block; ``timed(block=True)``
-synchronises the devices of the wrapped callable's output tensors so the
-measurement covers their work.
+The list grows by one record a span while the recorder is on: switch it on
+for the window to be read, and empty it between windows.  CUDA work is
+asynchronous, so a span around code that merely enqueues work measures the
+enqueue, unless the code waits for the device inside it.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
 import threading
 import time
-from collections import defaultdict
 
 import torch
 
-_lock = threading.Lock()
-_stats: dict[str, list[float]] = defaultdict(list)
+PREFIX = "ectrans:"
+
+_on = False
+_nvtx = False
+_clock = time.perf_counter_ns
+# [name, parent record or None, t0_ns, t1_ns (0 while open)]; appended
+# whole, so that no lock is needed, and parents held as records, so that
+# an index is only assigned when the list is read
+_records: list = []
+_local = threading.local()
+_gc_open = None                 # (record, profiler range) of a collection
+_OFF = contextlib.nullcontext()  # a span while the recorder is off
 
 
-@contextlib.contextmanager
-def gstats(name: str):
-    """Wall-clock phase counter (GSTATS equivalent)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        with _lock:
-            _stats[name].append(dt)
+def _stack() -> list:
+    """This thread's open spans, innermost last."""
+    s = getattr(_local, "stack", None)
+    if s is None:
+        s = _local.stack = []
+    return s
 
 
-@contextlib.contextmanager
+class _Span:
+    __slots__ = ("name", "marks", "rec", "rf")
+
+    def __init__(self, name: str, marks: bool):
+        self.name = name
+        self.marks = marks
+
+    def __enter__(self):
+        if self.marks:
+            self.rf = torch.profiler.record_function(PREFIX + self.name)
+            self.rf.__enter__()
+            if _nvtx:
+                torch.cuda.nvtx.range_push(self.name)
+        stack = _stack()
+        self.rec = [self.name, stack[-1] if stack else None, 0, 0]
+        _records.append(self.rec)
+        stack.append(self.rec)
+        self.rec[2] = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        self.rec[3] = _clock()
+        stack = _stack()
+        if stack and stack[-1] is self.rec:
+            stack.pop()
+        if self.marks:
+            if _nvtx:
+                torch.cuda.nvtx.range_pop()
+            self.rf.__exit__(*exc)
+        return False
+
+
 def hook(name: str):
-    """Profiler range + NVTX range + wall-clock region marker (DR_HOOK
+    """The span ``name`` (DR_HOOK equivalent); see the module's text."""
+    return _Span(name, True) if _on else _OFF
+
+
+def gstats(name: str):
+    """The span ``name`` without profiler or NVTX range (GSTATS
     equivalent)."""
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.profiler.record_function(name))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.cuda.nvtx.range(name))
-        stack.enter_context(gstats(name))
-        yield
+    return _Span(name, False) if _on else _OFF
 
 
-def _devices(out, found: set) -> set:
-    """The CUDA devices of the tensors in ``out`` (nested in tuples, lists
-    and dict values)."""
-    if isinstance(out, torch.Tensor):
-        if out.is_cuda:
-            found.add(out.device)
-    elif isinstance(out, (tuple, list)):
-        for x in out:
-            _devices(x, found)
-    elif isinstance(out, dict):
-        for x in out.values():
-            _devices(x, found)
-    return found
+def _on_gc(phase: str, info: dict) -> None:
+    global _gc_open
+    if phase == "start":
+        rf = torch.profiler.record_function(PREFIX + "gc")
+        rf.__enter__()
+        rec = ["gc", None, _clock(), 0]
+        _records.append(rec)
+        _gc_open = (rec, rf)
+    elif _gc_open is not None:
+        rec, rf = _gc_open
+        _gc_open = None
+        rec[3] = _clock()
+        rf.__exit__(None, None, None)
 
 
-def timed(name: str, fn, *args, block: bool = True, **kw):
-    """Run fn under gstats(name), optionally synchronising the CUDA devices
-    of its output tensors so the measurement covers their work."""
-    with gstats(name):
-        out = fn(*args, **kw)
-        if block:
-            for dev in _devices(out, set()):
-                torch.cuda.synchronize(dev)
-    return out
+def enable() -> None:
+    """Switch the recorder on."""
+    global _on, _nvtx
+    if not _on:
+        _nvtx = torch.cuda.is_available()
+        gc.callbacks.append(_on_gc)
+        _on = True
+
+
+def disable() -> None:
+    """Switch the recorder off; the list is kept."""
+    global _on
+    if _on:
+        _on = False
+        gc.callbacks.remove(_on_gc)
+
+
+def enabled() -> bool:
+    return _on
+
+
+def spans() -> list:
+    """The records, in the order the spans were entered: (name, index of
+    the parent in this list or -1, t0_ns, t1_ns), t1_ns 0 while open."""
+    recs = list(_records)
+    pos = {id(r): i for i, r in enumerate(recs)}
+    return [(r[0], -1 if r[1] is None else pos.get(id(r[1]), -1), r[2], r[3])
+            for r in recs]
 
 
 def reset_gstats() -> None:
-    with _lock:
-        _stats.clear()
+    """Empty the list."""
+    _records.clear()
+    _stack().clear()
 
 
 def gstats_report(out=None) -> str:
-    """GSTATS-style report: name, count, total, avg, min, max (seconds)."""
-    lines = [f"{'region':32s} {'count':>6s} {'total':>10s} {'avg':>10s} "
-             f"{'min':>10s} {'max':>10s}"]
-    with _lock:
-        for name in sorted(_stats):
-            ts = _stats[name]
-            lines.append(
-                f"{name:32s} {len(ts):6d} {sum(ts):10.4f} "
-                f"{sum(ts)/len(ts):10.4f} {min(ts):10.4f} {max(ts):10.4f}"
-            )
+    """GSTATS-style report of the closed spans by name: count, total, self
+    (total less the spans nested in them), avg, min, max (seconds)."""
+    recs = spans()
+    nested = [0] * len(recs)
+    for name, parent, t0, t1 in recs:
+        if parent >= 0 and t1:
+            nested[parent] += t1 - t0
+    by = collections.defaultdict(list)
+    for i, (name, _, t0, t1) in enumerate(recs):
+        if t1:
+            by[name].append((t1 - t0, t1 - t0 - nested[i]))
+    lines = [f"{'region':32s} {'count':>6s} {'total':>10s} {'self':>10s} "
+             f"{'avg':>10s} {'min':>10s} {'max':>10s}"]
+    for name in sorted(by):
+        d = [x * 1e-9 for x, _ in by[name]]
+        own = sum(s for _, s in by[name]) * 1e-9
+        lines.append(f"{name:32s} {len(d):6d} {sum(d):10.6f} {own:10.6f} "
+                     f"{sum(d) / len(d):10.6f} {min(d):10.6f} {max(d):10.6f}")
     rep = "\n".join(lines)
     if out is not None:
         print(rep, file=out)

@@ -14,9 +14,10 @@ import ectrans_tpu as et
 from ectrans_tpu import utils as jutils
 
 import ectrans_tpu_torch as ett
-from ectrans_tpu_torch.utils import (blocked_to_fields, field_checksum,
-                                     fields_to_blocked, gstats,
-                                     gstats_report, hook, reset_gstats, timed)
+from ectrans_tpu_torch.utils import (blocked_to_fields, disable, enable,
+                                     field_checksum, fields_to_blocked,
+                                     gstats, gstats_report, hook,
+                                     reset_gstats)
 
 
 def padded_fields(res, nfld, seed):
@@ -82,25 +83,36 @@ def test_transform_output_checksum_is_deterministic():
 
 def test_gstats_report():
     reset_gstats()
-    with gstats("phase_a"):
-        pass
-    with hook("phase_b"):
-        pass
-    out = timed("phase_c", lambda x: (x + 1, [x * 2]), torch.ones(3))
-    assert torch.equal(out[0], torch.full((3,), 2.0))
-    rep = gstats_report(io.StringIO())
-    assert "phase_a" in rep and "phase_b" in rep and "phase_c" in rep
-    lines = rep.splitlines()
-    assert lines[0].split() == ["region", "count", "total", "avg", "min",
-                                "max"]
-    assert [ln.split()[1] for ln in lines[1:]] == ["1", "1", "1"]
-    reset_gstats()
-    assert len(gstats_report().splitlines()) == 1
+    enable()
+    try:
+        with gstats("phase_a"):
+            with hook("phase_b"):
+                pass
+        rep = gstats_report(io.StringIO())
+        lines = rep.splitlines()
+        assert lines[0].split() == ["region", "count", "total", "self",
+                                    "avg", "min", "max"]
+        rows = {ln.split()[0]: ln.split()[1:] for ln in lines[1:]}
+        assert rows["phase_a"][0] == rows["phase_b"][0] == "1"
+        # phase_a's self time is its total less phase_b's
+        total_a, self_a = float(rows["phase_a"][1]), float(rows["phase_a"][2])
+        assert self_a == pytest.approx(total_a - float(rows["phase_b"][1]),
+                                       abs=2e-6)
+        reset_gstats()
+        assert not any(ln.startswith("phase")
+                       for ln in gstats_report().splitlines())
+    finally:
+        disable()
+        reset_gstats()
 
 
 def test_hook_marks_the_profiler_trace():
-    with torch.profiler.profile() as prof:
-        with hook("ectrans_region"):
-            torch.ones(4).sum()
-    assert any(e.name == "ectrans_region" for e in prof.events())
-
+    enable()
+    try:
+        with torch.profiler.profile() as prof:
+            with hook("ectrans_region"):
+                torch.ones(4).sum()
+    finally:
+        disable()
+        reset_gstats()
+    assert any(e.name == "ectrans:ectrans_region" for e in prof.events())
