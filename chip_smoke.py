@@ -207,7 +207,14 @@ After phase 7, three phases at full width:
    100``, fp32, in this process through ``main(argv)``: 18 packets a
    direction an iteration, of 8 vor/div pairs and 17 scalars, 8 and 16,
    and 1 and 2; its check OK, K1 and K2 16 times a transform, K3 once a
-   direct transform, K4 once (first call, median, throughput, peak).
+   direct transform, K4 once (first call, median, throughput, peak); (e)
+   (printed after (a)) the chirp-z kernels F1-F4 (``csrc/fourier_chirp.cu``)
+   at the step's largest calls, 83 fields through synthesis and 32 through
+   analysis: each against its plain stage (fp64 arrays within 1e-12 of
+   the largest |value|, outputs within 2 fp32 ulps of each field's), both
+   timed by CUDA events summed over the buckets, the FFTs beside them,
+   each kernel's bound (its bytes over 3.35 TB/s) and its launches in one
+   call of the layer, which must be 5 a bucket and one F4 launch.
 
 14. the ectrans4py and C surfaces (``compat4py``, ``capi_bridge`` and the
    port's shim ``capi/ectrans_tpu_torch_capi.c``), after ``trans_end``:
@@ -407,6 +414,49 @@ def launch_counters():
             "K10": legendre_planes.group_dir_planes,
             "K11": roofline.stream_copy,
             "K12": roofline.read_reduce}
+
+
+def chirp_counters() -> dict:
+    """The Fourier layer's counters, kept apart from ``KERNELS``' (its
+    kernels replace no Pallas kernel): the launches of F1, F3 and F4 by
+    direction (s: synthesis, a: analysis) and of F2, and the ``torch.fft``
+    calls (each may run several cuFFT kernels)."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    return {"F4s": fz.sums_synthesis, "F1s": fz.pre_synthesis,
+            "F3s": fz.post_synthesis, "F4a": fz.sums_analysis,
+            "F1a": fz.pre_analysis, "F3a": fz.post_analysis,
+            "F2": fz.chirp_product, "FFT": fz.chirp_fft}
+
+
+def _chirp_attr(key: str) -> str:
+    return "calls" if key == "FFT" else "launches"
+
+
+def chirp_zero(fc: dict) -> None:
+    for k, f in fc.items():
+        setattr(f, _chirp_attr(k), 0)
+
+
+def chirp_counts(fc: dict) -> dict:
+    return {k: getattr(f, _chirp_attr(k)) for k, f in fc.items()}
+
+
+def chirp_want(nb: int, syn_calls: int, ana_calls: int) -> dict:
+    """``chirp_counters``' counts after syn_calls synthesis and ana_calls
+    analysis calls of the layer on nb buckets, each normalized and each
+    bucket's pairs in one chunk: F4 once a call, F1, F2 and F3 once a
+    bucket, the FFT twice (5 a bucket + 1 a call)."""
+    both = syn_calls + ana_calls
+    return {"F4s": syn_calls, "F1s": nb * syn_calls, "F3s": nb * syn_calls,
+            "F4a": ana_calls, "F1a": nb * ana_calls, "F3a": nb * ana_calls,
+            "F2": nb * both, "FFT": 2 * nb * both}
+
+
+def _nbuckets(res, dev: torch.device) -> int:
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    return len(fz.bucketed_tables(res, dev).buckets)
 
 
 @contextlib.contextmanager
@@ -1300,10 +1350,16 @@ def phase_bench(dev: torch.device, counters: dict):
     sp = [x.to(dev) for x in bench_inputs(res.nspec2, res.nsmax)]
     torch.cuda.reset_peak_memory_stats()
     # the counts were set to 0 before the setup, whose tables K4 makes in
-    # one launch; K3 packs the direct transform in one
+    # one launch; K3 packs the direct transform in one; the Fourier
+    # layer's counts are set to 0 here and held to one call a direction
+    fc = chirp_counters()
+    chirp_zero(fc)
     grid, out, t_first, launches = drive(res, sp, counters,
                                          ("K1", "K2", "K3", "K4"),
                                          reset=False, once=("K3", "K4"))
+    fourier = chirp_counts(fc)
+    expect_launches(dev, fourier, chirp_want(_nbuckets(res, dev), 1, 1),
+                    "round trip's Fourier layer", 4)
     # phase 8 holds the handle's outputs to these, kept on the host
     outputs = (grid.cpu(), [x.cpu() for x in out])
     del grid
@@ -1321,7 +1377,7 @@ def phase_bench(dev: torch.device, counters: dict):
           f"setup {t_setup:.2f} s (tables on the card); first "
           f"round trip {t_first:.3f} s; median {med:.1f} ms (min {lo:.1f}, "
           f"max {hi:.1f}, n 5); peak {peak:.2f} GiB; launches {launches}; "
-          f"cuFFT plans cached {torch.backends.cuda.cufft_plan_cache[dev.index].size}")
+          f"Fourier layer {fourier}; cuFFT plans cached {torch.backends.cuda.cufft_plan_cache[dev.index].size}")
     return res, sp, launches, dict(ratio=err / gate, median=med,
                                    launches=dict(launches), outputs=outputs)
 
@@ -3194,6 +3250,27 @@ def device_profile(dev: torch.device, fn) -> dict:
                 busy_ms=union_ms(spans), n=len(spans))
 
 
+def device_activities(dev: torch.device, fn) -> list:
+    """The names of the device activities (kernels, copies, sets) of one
+    call of fn() under ``torch.profiler``; none where the build records no
+    device work."""
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    if ProfilerActivity.CUDA not in supported_activities():
+        fn()
+        return []
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(dev)
+    cuda = torch.autograd.DeviceType.CUDA
+    try:
+        return [e.name() for e in prof.profiler.kineto_results.events()
+                if e.device_type() == cuda]
+    except AttributeError:
+        return [e.name for e in prof.events() if e.device_type == cuda]
+
+
 def field_share(got, want, gate: float = FOURIER_GATE) -> float:
     """The largest error of a field against ``want`` as a share of gate *
     that field's largest |value| of want."""
@@ -3370,6 +3447,179 @@ def busy_shares(dev: torch.device, res, sp) -> list:
     return lines
 
 
+# phase 13 (e): the chirp-z kernels F1-F4 at the TCO1279 step's largest
+# calls: 83 fields through synthesis (42 pairs), 32 through analysis (16)
+CHIRP_STEP_FIELDS = dict(synthesis=83, analysis=32)
+CHIRP_TOL = 1e-12        # kernel vs plain stage, fp64 intermediates
+CHIRP_ULPS = 2           # kernel vs plain stage, outputs: fp32 ulps
+
+
+def ulp_share(got, want) -> float:
+    """The largest error of a field in units of one fp32 ulp of that
+    field's largest |value| (0 where both are 0)."""
+    d = (got.double() - want.double()).flatten(1).abs().amax(1).cpu()
+    s = want.double().flatten(1).abs().amax(1).cpu().numpy()
+    ulp = torch.from_numpy(np.spacing(s.astype(np.float32)).astype(
+        np.float64))
+    return float((d / torch.where(ulp > 0, ulp, 1.0)).max())
+
+
+def chirp_bytes(bt, bk, way: str, nfld: int, item: int, M: int) -> dict:
+    """Bytes each stage of bucket bk moves for nfld fields of ``item``
+    bytes: each input read once, each output written once (F1: the values
+    it reads, its table, the pass array; FFT: the forward and the inverse
+    FFT, each the array read and written; F2: the array twice and the
+    kernel FFT; F3: the points it reads of the array, its table, its
+    output rows)."""
+    npairs = (nfld + 1) // 2
+    nrows, nfft, mb = bk.rows.shape[1], bk.nfft, bk.mb
+    arr = npairs * nrows * nfft * 16
+    rows = bk.rows[0].cpu().numpy()
+    lens = bk.rows[1].cpu().numpy()
+    if way == "synthesis":
+        me = np.minimum(bt.mkeep.cpu().numpy()[rows], mb)
+        read = int(np.where(me >= 0, 2 * me + 1, 0).sum()) * nfld * item
+        pre = read + bk.syn_in.numel() * 16 + arr
+        post = (npairs * nrows * bk.ndlon * 16 + bk.syn_out.numel() * 16
+                + nfld * nrows * bt.ndlon * item)
+    else:
+        K = min(M, mb + 1)
+        pre = int(lens.sum()) * nfld * item + bk.ana_in.numel() * 16 + arr
+        post = (npairs * nrows * (2 * K - 1) * 16 + bk.ana_out.numel() * 16
+                + nfld * 2 * M * nrows * item)
+    return dict(F1=pre, FFT=4 * arr, F2=2 * arr + bk.syn_bh.numel() * 16,
+                F3=post)
+
+
+def chirp_kernels(dev: torch.device, name: str = "TCO1279",
+                  fields=CHIRP_STEP_FIELDS) -> list:
+    """Phase 13 (e): the chirp-z kernels F1-F4 at the step's shapes, each
+    direction: every kernel against its plain stage on the same inputs
+    (fp64 arrays within CHIRP_TOL of the largest |value|, outputs within
+    CHIRP_ULPS fp32 ulps of each field's), both timed by CUDA events (mean
+    of 3 a bucket, summed over the buckets; the two FFTs of each bucket
+    beside them), each kernel's bound (its bytes over 3.35 TB/s), and the
+    counts of one call of the layer, set to 0 just before it: one F4
+    launch, and F1, F2 and F3 launches and two ``torch.fft`` calls a
+    bucket; with the device activities (cuFFT's kernels among them) a
+    profiled call runs."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    res = ett.setup(name)
+    bt = fz.bucketed_tables(res, dev)
+    nb = len(bt.buckets)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    inputs = dict(
+        synthesis=torch.randn((fields["synthesis"], 2, res.M, res.ndgl),
+                              generator=gen, device=dev),
+        analysis=torch.randn((fields["analysis"], res.ndgl, res.grid.ndlon),
+                             generator=gen, device=dev))
+    stages = dict(
+        synthesis=(fz.sums_synthesis, fz.sums_synthesis_plain,
+                   fz.pre_synthesis, fz.pre_synthesis_plain,
+                   fz.post_synthesis, fz.post_synthesis_plain),
+        analysis=(fz.sums_analysis, fz.sums_analysis_plain, fz.pre_analysis,
+                  fz.pre_analysis_plain, fz.post_analysis,
+                  fz.post_analysis_plain))
+    lines = []
+    for way, x in inputs.items():
+        sums, sums_p, pre, pre_p, post, post_p = stages[way]
+        nfld, item = x.shape[0], x.element_size()
+        npairs = (nfld + 1) // 2
+        syn = way == "synthesis"
+        call = ((lambda: fz.synthesis_bucketed(x, bt)) if syn else
+                (lambda: fz.analysis_bucketed(x, bt, res.M)))
+        call()
+        fc = chirp_counters()
+        chirp_zero(fc)
+        call()
+        counts = chirp_counts(fc)
+        expect_launches(dev, counts, chirp_want(nb, int(syn), int(not syn)),
+                        f"(e) {way}", 13)
+        d = way[0]
+        launches = dict(F4=counts["F4" + d], F1=counts["F1" + d],
+                        FFT=counts["FFT"], F2=counts["F2"],
+                        F3=counts["F3" + d])
+        _sync(dev)
+        t_call = cuda_ms(call)
+        acts = device_activities(dev, call)
+        nfft_acts = sum("fft" in a.lower() for a in acts)
+        rep = {k: dict(ms=0.0, plain_ms=0.0, nbytes=0, err=0.0)
+               for k in launches}
+        ss = sums(x, bt)
+        if syn:
+            kept = int(bt.keep.sum()) * nfld * item
+        else:
+            kept = int(bt.nloen.sum()) * nfld * item
+        rep["F4"].update(
+            ms=cuda_ms(lambda: sums(x, bt)),
+            plain_ms=cuda_ms(lambda: sums_p(x, bt)), nbytes=kept,
+            err=compare("F4", ss.sum(-1), sums_p(x, bt).sum(-1))[0]
+            / sums_p(x, bt).abs().max().item())
+        out_k = x.new_empty((nfld, res.ndgl, res.grid.ndlon) if syn
+                            else (nfld, 2, res.M, res.ndgl))
+        out_p = torch.empty_like(out_k)
+        for ib, bk in enumerate(bt.buckets):
+            extra = () if syn else (ib,)
+            pre_args = (x, bt, bk, *extra, ss, 0, npairs)
+            post_args = (bt, bk, *extra, ss)
+            bh = bk.syn_bh if syn else bk.ana_bh
+            nbytes = chirp_bytes(bt, bk, way, nfld, item, res.M)
+            a = pre(*pre_args)
+            d, scale, _ = compare("F1", a, pre_p(*pre_args))
+            rep["F1"]["err"] = max(rep["F1"]["err"], d / scale)
+            rep["F1"]["ms"] += cuda_ms(lambda: pre(*pre_args))
+            rep["F1"]["plain_ms"] += cuda_ms(lambda: pre_p(*pre_args))
+            f = fz.chirp_fft(a)
+            rep["FFT"]["ms"] += cuda_ms(lambda: fz.chirp_fft(a))
+            del a
+            g = f.clone()
+            fz.chirp_product(g, bh)
+            d, scale, _ = compare("F2", g, f * bh)
+            rep["F2"]["err"] = max(rep["F2"]["err"], d / scale)
+            rep["F2"]["ms"] += cuda_ms(lambda: fz.chirp_product(g, bh))
+            rep["F2"]["plain_ms"] += cuda_ms(lambda: g.mul_(bh))
+            del f
+            b = fz.chirp_fft(g, inverse=True)
+            rep["FFT"]["ms"] += cuda_ms(lambda: fz.chirp_fft(g, True))
+            del g
+            rep["F3"]["ms"] += cuda_ms(lambda: post(b, *post_args, out_k, 0))
+            rep["F3"]["plain_ms"] += cuda_ms(
+                lambda: post_p(b, *post_args, out_p, 0))
+            del b
+            for k, n in nbytes.items():
+                rep[k]["nbytes"] += n
+        rep["F3"]["err"] = ulp_share(out_k, out_p)
+        check(all(rep[k]["err"] <= CHIRP_TOL for k in ("F4", "F1", "F2"))
+              and rep["F3"]["err"] <= CHIRP_ULPS,
+              f"phase 13 (e) {way}: kernels vs plain stages "
+              f"{ {k: r['err'] for k, r in rep.items()} }")
+        del out_k, out_p, ss
+        for k, r in rep.items():
+            b = bound(0, r["nbytes"])
+            plain = (f"plain {r['plain_ms']:.3f} ms" if r["plain_ms"]
+                     else "cuFFT (no plain stage)")
+            err = (f"{r['err']:.2f} fp32 ulps of each field's max" if k == "F3"
+                   else f"{r['err']:.2e} of the largest |value|")
+            count = (f"{launches[k]} torch.fft calls a call" if k == "FFT"
+                     else f"launches {launches[k]} a call")
+            lines.append(
+                f"phase 13 (e) {way} {k} ({nfld} fields, {npairs} pairs, "
+                f"{nb} buckets): kernel {r['ms']:.3f} ms (CUDA events, mean "
+                f"of 3 a bucket, summed); bound {b['bound_ms']:.3f} ms "
+                f"({r['nbytes'] / 1e9:.3f} GB at 3.35 TB/s, "
+                f"{b['bound_ms'] / max(r['ms'], 1e-9):.1%} of it); {plain}; "
+                f"{count}; kernel vs plain {err}")
+        nk = sum(v for k, v in launches.items() if k != "FFT")
+        lines.append(f"phase 13 (e) {way} layer: {t_call:.3f} ms a call "
+                     f"(CUDA events, mean of 3); {nk} launches and "
+                     f"{launches['FFT']} torch.fft calls a call (5 a bucket "
+                     f"+ 1); a profiled call ran {len(acts)} device "
+                     f"activities, {nfft_acts} of them cuFFT's")
+    return lines
+
+
 def phase_fourier(dev: torch.device, counters: dict, name: str = "TCO1279",
                   ifs=PROGRAM_IFS) -> dict:
     """Phase 13: (a) the Fourier layers' A/B on phase 4's tensors, (b) the
@@ -3388,12 +3638,17 @@ def phase_fourier(dev: torch.device, counters: dict, name: str = "TCO1279",
     for line in fourier_ab(dev, res, four, grid):
         print(line)
     del four, grid
+    for line in chirp_kernels(dev, name):
+        print(line)
     for line in busy_shares(dev, res, sp) + error_tail(dev, res, sp):
         print(line)
     del res, sp
     _fresh(counters)
+    fc = chirp_counters()
+    chirp_zero(fc)
     args = benchmark_ifs.parse_args(list(ifs))
-    groups = len(ett.setup(args.grid, args.truncation).legendre_groups())
+    ifs_res = ett.setup(args.grid, args.truncation)
+    groups = len(ifs_res.legendre_groups())
     t0 = time.perf_counter()
     rep, out = run_program(benchmark_ifs.main,
                            tuple(ifs) + ("--device", dev.type), "13(c)")
@@ -3401,11 +3656,14 @@ def phase_fourier(dev: torch.device, counters: dict, name: str = "TCO1279",
     calls = len(benchmark_ifs.packets(args.nlev, args.npromatr)) * (
         args.niter + 1)
     launches = {k: c.launches for k, c in counters.items() if c.launches}
+    fourier = chirp_counts(fc)
     want = {"K1": groups * calls, "K2": groups * calls, "K3": calls,
             "K4": 1}
     check("-> OK" in out, "phase 13 (c): the IFS driver's check failed")
     check(launches == want, f"phase 13 (c) launched {launches}; expected "
                             f"{want}")
+    expect_launches(dev, fourier, chirp_want(_nbuckets(ifs_res, dev), calls,
+                                             calls), "(c) Fourier layer", 13)
     med = statistics.median(rep["t_rt"]) * 1e3
     print(f"phase 13 (c) benchmark_ifs {args.grid} L{args.nlev} npromatr "
           f"{args.npromatr} fp32: check OK (drift {rep['drift']:.3e}); "
@@ -3413,7 +3671,8 @@ def phase_fourier(dev: torch.device, counters: dict, name: str = "TCO1279",
           f"first call (the warm-up iteration) {rep['first']:.2f} s; "
           f"round trip median {med:.1f} ms (n {len(rep['t_rt'])}); "
           f"throughput {rep['throughput']:.3e} gridpoints*fields/s; peak "
-          f"{_peak(dev):.2f} GiB; launches {launches}; {secs:.1f} s")
+          f"{_peak(dev):.2f} GiB; launches {launches}; Fourier layer "
+          f"{fourier}; {secs:.1f} s")
     _fresh(counters)
     print(f"phase 13 done in {time.perf_counter() - t_phase:.1f} s")
     return launches

@@ -36,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 _WORKING = (torch.float32, torch.float64)
 # variant suffix by dtype: the working dtype, or bfloat16 for the kernels
 # that take fp32 operands on a bf16 table
@@ -76,6 +77,17 @@ _ENTRIES = {
     "ect_reduce8": ([_P, _P, _P, _L, _I, _L, _I, _I, _P], ("_f32",)),
     "ect_copy_shape": ([_I, _P], _SINGLE),
     "ect_reduce8_shape": ([_I, _P], _SINGLE),
+    "ect_fourier_syn_ss": ([_P, _P, _P, _I, _I, _I, _P], _FLOAT),
+    "ect_fourier_ana_ss": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _FLOAT),
+    "ect_fourier_syn_pre": ([_P, _P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P], _FLOAT),
+    "ect_fourier_ana_pre": ([_P, _P, _P, _P, _L, _D, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P], _FLOAT),
+    "ect_fourier_product": ([_P, _P, _I, _I, _I, _P], _SINGLE),
+    "ect_fourier_syn_post": ([_P, _P, _P, _P, _D, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P], _FLOAT),
+    "ect_fourier_ana_post": ([_P, _P, _P, _P, _L, _D, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P], _FLOAT),
 }
 
 _lock = threading.Lock()

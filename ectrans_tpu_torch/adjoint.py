@@ -10,13 +10,14 @@ satisfy the inner-product identity <F x, y> = <x, F^T y> to rounding error
 ``tests/trans/test_adjoint.F90``).
 
 Both run the forward on the "xla" engine, as the JAX package does: the
-kernels are ctypes launches with no autograd rule, so a graph through them
-would be cut.  That engine sums fp32 contractions in fp64
+Legendre and packing kernels are ctypes launches with no autograd rule, so
+a graph through them would be cut.  That engine sums fp32 contractions in fp64
 (``legendre_matmul.group_einsum``), and so do their transposes.  The
 forward runs with ``_normalize=False``, as the JAX package's does: the
-Fourier layer's RMS pair scaling is not linear, and its derivative at the
-zero fields differentiated here is NaN (sqrt at 0), while without it the
-layer is linear and autograd transposes its FFTs, products and slices.
+Fourier layer's RMS pair scaling is not linear in floating point, while
+without it the layer is linear; its ``autograd.Function``s
+(``ops/fourier.py``) transpose it as the other direction's pass scaled row
+by row, on the chirp-z kernels on a card.
 """
 
 from __future__ import annotations

@@ -34,8 +34,13 @@ Two layers keep this contract:
   not depend on how fields are paired, bucketed or cut into packets: with
   fp32 passes the TCO1279 round trip read 0.551 of the 100 eps gate and
   the same fields in NPROMATR packets 0.682, over the 0.65 that K1's and
-  K2's summation order must keep (``PERF.md``).  The mesh runs the
-  same layer on each rank's length-sorted slots
+  K2's summation order must keep (``PERF.md``).  A bucket's pass is
+  five stages: F1 (mask, gather, widening, RMS division, pair pack, chirp,
+  zero pad), the FFT, F2 (the kernel FFT's product), the inverse FFT and
+  F3 (crop, chirp, unpack, RMS, one rounding into the output), with F4
+  (the RMS sums) once a call: on a card the kernels of
+  ``csrc/fourier_chirp.cu`` around ``torch.fft``, on the CPU their plain
+  stages.  The mesh runs the same layer on each rank's length-sorted slots
   (``parallel.distribution.rank_fourier``);
 * **the per-NLOEN layer** (``synthesis``, ``analysis``): one real FFT per
   distinct NLOEN, the tests' exact reference, reached in a transform only
@@ -57,10 +62,11 @@ of one length with a free top mode kmax (the lat-lon output rows and the
 two directions of the LAM bi-Fourier transform).
 
 The chirp-z layer is linear when ``normalize=False`` (the adjoints,
-``adjoint.py``): autograd runs through ``torch.fft``, complex products and
-slices, and the cotangents of the ignored inputs are exactly 0, as
-``jax.linear_transpose`` gives them.  With ``normalize=True`` the RMS
-scaling cancels in exact arithmetic.  Not carried over from the JAX
+``adjoint.py``), and with ``normalize=True`` the RMS scaling cancels in
+exact arithmetic: each direction is an ``autograd.Function`` whose backward
+is the other direction's pass scaled row by row (``_adjoint_weights``), so
+the cotangents of the ignored inputs are exactly 0, as
+``jax.linear_transpose`` gives them.  Not carried over from the JAX
 package: the four-step matmul FFT and its ORD pre-permutation (the TPU has
 no FFT op), and the ``optimization_barrier`` guards.
 """
@@ -73,6 +79,7 @@ import os
 import numpy as np
 import torch
 
+from .. import _build
 from ..utils.timing import hook
 
 
@@ -397,8 +404,10 @@ class Bucket:
     of the layer's row axis, taken in order), the largest mode ``mb`` and
     row length ``ndlon`` over them, the convolution length ``nfft`` and
     the chirp tables of ``host_bluestein_tables`` on the device
-    (complex128: the passes run in fp64), with ``valid`` (rows, ndlon):
-    the points j < NLOEN that analysis reads."""
+    (complex128: the passes run in fp64), the kernel FFTs ``syn_bh`` and
+    ``ana_bh`` divided by nfft (the inverse FFT runs unnormalized), with
+    ``rows`` (2, rows) int32: each row's index in the layer and its NLOEN
+    (analysis reads the points j < NLOEN), a view of the tables' ``rows``."""
 
     spans: tuple
     mb: int
@@ -410,35 +419,61 @@ class Bucket:
     ana_in: torch.Tensor
     ana_bh: torch.Tensor
     ana_out: torch.Tensor
-    valid: torch.Tensor
+    rows: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class BucketedTables:
-    """The buckets of ``nrows`` rows of at most ``ndlon`` points, with the
-    mask (2, M, nrows) of the Fourier inputs synthesis reads: m <= the
-    row's nmen, no m = 0 imaginary part, nothing on pad rows."""
+    """The buckets of ``nrows`` rows of at most ``ndlon`` points, with
+    ``mkeep`` (nrows,) int32, the largest m of the Fourier inputs synthesis
+    reads on each row (-1 on a pad row), and ``rows`` (2 nrows,) int32,
+    each bucket's (2, rows) table (``Bucket.rows``) in bucket order, bucket
+    b's from 2 ``starts[b]`` on ((nbuckets + 1,) int32)."""
 
     buckets: tuple
     nrows: int
     ndlon: int
     M: int
-    keep: torch.Tensor
+    mkeep: torch.Tensor
+    rows: torch.Tensor
+    starts: torch.Tensor
+
+    @property
+    def keep(self) -> torch.Tensor:
+        """(2, M, nrows): the Fourier inputs synthesis reads: m <= the
+        row's nmen, no m = 0 imaginary part, nothing on pad rows."""
+        m = torch.arange(self.M, device=self.mkeep.device)[:, None]
+        keep = (m <= self.mkeep[None, :]).expand(2, -1, -1).clone()
+        keep[1, 0] = False
+        return keep
+
+    @property
+    def nloen(self) -> torch.Tensor:
+        """(nrows,) int32: each row's length (0 on a pad row)."""
+        out = torch.zeros(self.nrows, dtype=torch.int32,
+                          device=self.rows.device)
+        for bk in self.buckets:
+            out[bk.rows[0].long()] = bk.rows[1]
+        return out
 
 
 def bucket_tables(nloen, nmen, nsmax: int, spans_list, ndlon: int, device,
                   shapes=None) -> BucketedTables:
-    """The tables of buckets ``spans_list`` (one tuple of row spans each)
-    over rows of lengths ``nloen`` (0: a pad row) truncated at ``nmen``;
-    ``shapes`` gives each bucket's (mb, ndlon, nfft) where they are shared
-    with other rows (the w-ranks of a mesh), else they are the bucket's
-    own."""
+    """The tables of buckets ``spans_list`` (one tuple of row spans each,
+    every row in exactly one) over rows of lengths ``nloen`` (0: a pad
+    row) truncated at ``nmen``; ``shapes`` gives each bucket's (mb, ndlon,
+    nfft) where they are shared with other rows (the w-ranks of a mesh),
+    else they are the bucket's own."""
     nloen = np.asarray(nloen, np.int64)
     nmen = np.minimum(np.asarray(nmen, np.int64), nsmax)
     M = nsmax + 1
-    buckets = []
+    seen = np.zeros(len(nloen), np.int64)
+    parts, starts, shape = [], [0], []
     for bi, spans in enumerate(spans_list):
         rows = np.concatenate([np.arange(a, b) for a, b in spans])
+        seen[rows] += 1
+        parts.append(np.stack([rows, nloen[rows]]))
+        starts.append(starts[-1] + len(rows))
         real = nloen[rows] > 0
         if shapes is None:
             mb = int(min(nsmax, nmen[rows][real].max(initial=0)))
@@ -446,8 +481,18 @@ def bucket_tables(nloen, nmen, nsmax: int, spans_list, ndlon: int, device,
             nfft = good_size(nd + 2 * mb + 1)
         else:
             mb, nd, nfft = shapes[bi]
+        shape.append((spans, rows, mb, nd, nfft))
+    if not np.all(seen == 1):
+        raise ValueError("the bucket spans must hold every row once")
+    table = torch.as_tensor(np.concatenate([p.ravel() for p in parts])
+                            .astype(np.int32), device=device)
+    buckets = []
+    for (spans, rows, mb, nd, nfft), s0, s1 in zip(shape, starts,
+                                                   starts[1:]):
         h = host_bluestein_tables(nloen[rows], np.minimum(nmen[rows], mb),
                                   mb, nd, nfft)
+        h["syn_bh"] /= nfft
+        h["ana_bh"] /= nfft
 
         def dev(name):
             return torch.as_tensor(h[name], device=device)
@@ -456,14 +501,13 @@ def bucket_tables(nloen, nmen, nsmax: int, spans_list, ndlon: int, device,
             spans=tuple(spans), mb=mb, ndlon=nd, nfft=nfft,
             **{k: dev(k) for k in ("syn_in", "syn_bh", "syn_out", "ana_in",
                                    "ana_bh", "ana_out")},
-            valid=torch.as_tensor(np.arange(nd)[None, :]
-                                  < nloen[rows][:, None], device=device)))
-    keep = np.arange(M)[:, None] <= np.where(nloen > 0, nmen, -1)[None, :]
-    keep = np.stack([keep, keep])
-    keep[1, 0] = False
-    return BucketedTables(buckets=tuple(buckets), nrows=len(nloen),
-                          ndlon=ndlon, M=M,
-                          keep=torch.as_tensor(keep, device=device))
+            rows=table[2 * s0: 2 * s1].view(2, s1 - s0)))
+    mkeep = np.where(nloen > 0, nmen, -1)
+    return BucketedTables(
+        buckets=tuple(buckets), nrows=len(nloen), ndlon=ndlon, M=M,
+        mkeep=torch.as_tensor(mkeep.astype(np.int32), device=device),
+        rows=table,
+        starts=torch.as_tensor(np.asarray(starts, np.int32), device=device))
 
 
 def bucket_spans(ndgl: int, nbuckets: int) -> list:
@@ -500,17 +544,37 @@ def bucketed_tables(res, device,
     return res.cached(("fourier_buckets", str(device), nb), build)
 
 
-def _even(x: torch.Tensor) -> torch.Tensor:
-    """x with a zero field appended when the field count is odd."""
-    if x.shape[0] % 2:
-        x = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
-    return x
+# ----------------------------------------------------------------------
+# A bucket's pass, in five stages on both devices: F1 (pre), the FFT, F2
+# (product), the inverse FFT, F3 (post); F4 (the RMS sums) once a call.
+# A CPU tensor runs each stage's plain version (``*_plain``), a CUDA tensor
+# its kernel (``csrc/fourier_chirp.cu``); the plain versions take CUDA
+# tensors too (the card's tests and ``chip_smoke.py`` hold each kernel
+# against them).  The passes run in fp64 on complex128 (pairs, rows, nfft)
+# arrays; fields 2p and 2p + 1 make pair p, a field past nfld (odd counts)
+# a zero partner.  The sums of squares ``ss`` are (nfld, P) fp64 in
+# synthesis, (nfld, nbuckets, P) in analysis (P = NP partial sums from the
+# kernels, 1 from the plain versions); None (normalize=False) scales by 1.
+# ----------------------------------------------------------------------
+
+NP = 32                      # F4's partial sums a field (a bucket)
 
 
-def _rms(x: torch.Tensor, dims) -> torch.Tensor:
-    """Each field's RMS over ``dims``, 1 for a zero field."""
-    r = x.square().mean(dims, keepdim=True).sqrt()
-    return torch.where(r > 0, r, torch.ones_like(r))
+def _pairs(x: torch.Tensor, p0: int, p1: int) -> torch.Tensor:
+    """Fields 2 p0 .. 2 p1 - 1 of x, zero fields past x's."""
+    f = x[2 * p0: 2 * p1]
+    if f.shape[0] < 2 * (p1 - p0):
+        f = torch.cat([f, f.new_zeros((2 * (p1 - p0) - f.shape[0],)
+                                      + f.shape[1:])])
+    return f
+
+
+def _scales(ss, count: float, f0: int, f1: int):
+    """The RMS of fields f0 .. f1 - 1 from their sums of squares ss over
+    ``count`` values, 1 for a zero field and past ss's fields."""
+    r = (ss[f0:f1].sum(-1) / count).sqrt()
+    r = torch.where(r > 0, r, torch.ones_like(r))
+    return torch.nn.functional.pad(r, (0, f1 - f0 - r.shape[0]), value=1.0)
 
 
 def _rows(x: torch.Tensor, spans, dim: int) -> torch.Tensor:
@@ -519,65 +583,399 @@ def _rows(x: torch.Tensor, spans, dim: int) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
-def _conv(a: torch.Tensor, bh: torch.Tensor, n_out: int) -> torch.Tensor:
-    """The circular convolution of a (pairs, rows, n) with the kernels
-    whose FFTs are bh (rows, nfft), zero-padded to nfft, first ``n_out``
-    points; chunked over pairs under ``_CHUNK_BYTES``."""
-    nfft = bh.shape[-1]
-    per_pair = 3 * a.shape[1] * nfft * a.element_size()
-    chunk = max(1, _CHUNK_BYTES // max(1, per_pair))
-    outs = [torch.fft.ifft(torch.fft.fft(c, n=nfft, dim=-1) * bh,
-                           dim=-1)[..., :n_out]
-            for c in a.split(chunk)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs)
+def _valid(bk: Bucket) -> torch.Tensor:
+    """(rows, ndlon_b): the points j < NLOEN of the bucket's rows."""
+    return (torch.arange(bk.ndlon, device=bk.rows.device)[None, :]
+            < bk.rows[1][:, None])
 
 
-def _bucket_synthesis(x: torch.Tensor, bk: Bucket) -> torch.Tensor:
-    """(F2, 2, M, nrows) masked fp64 Fourier rows, F2 even -> the bucket's
-    grid rows (F2, rows, ndlon_b) in fp64: fields 2p and 2p + 1 as the real
-    and the imaginary part of one chirp-z transform of the Hermitian pack
-    w_m = F_a,m + i F_b,m, w_{-m} = conj(F_a,m) + i conj(F_b,m)."""
-    f = _rows(x[:, :, : bk.mb + 1], bk.spans, 3).transpose(2, 3)
-    a, b = f[0::2], f[1::2]                       # (P2, 2, rows, mb + 1)
+def _place(out: torch.Tensor, piece: torch.Tensor, spans, dim: int) -> None:
+    """Write the bucket's rows ``piece`` (along ``dim``, in span order)
+    into ``out`` at the start of its other axes, zeros past piece's extent
+    there, rounded to ``out``'s dtype."""
+    off = 0
+    for a, b in spans:
+        dst = out.narrow(dim, a, b - a)
+        src = piece.narrow(dim, off, b - a)
+        dst.zero_()
+        dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+        off += b - a
+
+
+def _syn_count(bt: BucketedTables) -> float:
+    return 2.0 * bt.M * bt.nrows
+
+
+def _ana_count(bk: Bucket) -> float:
+    return float(bk.rows.shape[1] * bk.ndlon)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _check_sums(ss, shape: tuple) -> None:
+    if ss is not None and (tuple(ss.shape) != shape
+                           or ss.dtype != PASS_DTYPE):
+        raise ValueError(f"sums of squares must be {PASS_DTYPE} {shape}, got "
+                         f"{ss.dtype} {tuple(ss.shape)}")
+
+
+def _check_pass(a: torch.Tensor, bh: torch.Tensor) -> None:
+    """a must be a contiguous complex128 (pairs, rows, nfft) on bh's card."""
+    if not (a.is_contiguous() and a.dtype == torch.complex128
+            and a.shape[1:] == bh.shape and a.device == bh.device):
+        raise ValueError(f"the passes take a contiguous complex128 (pairs, "
+                         f"{tuple(bh.shape)}) on {bh.device}, got {a.dtype} "
+                         f"{tuple(a.shape)} on {a.device}")
+
+
+def _check_out(out: torch.Tensor, bt: BucketedTables, shape: tuple) -> None:
+    """out must be contiguous fp32 or fp64 on the tables' card, of
+    ``shape`` (None: any length)."""
+    if not (out.is_contiguous() and out.dtype in (torch.float32,
+                                                  torch.float64)
+            and out.device == bt.mkeep.device and out.dim() == len(shape)
+            and all(n is None or n == k for n, k in zip(shape, out.shape))):
+        raise ValueError(f"the output must be a contiguous float32 or "
+                         f"float64 {shape} on {bt.mkeep.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+
+
+def _pass_buffer(like: torch.Tensor, bk: Bucket, npairs: int):
+    return torch.empty((npairs, bk.rows.shape[1], bk.nfft),
+                       dtype=torch.complex128, device=like.device)
+
+
+def sums_synthesis_plain(x: torch.Tensor, bt: BucketedTables):
+    return (torch.where(bt.keep, x, 0.0).to(PASS_DTYPE).square()
+            .sum((1, 2, 3))[:, None])
+
+
+def sums_synthesis(x: torch.Tensor, bt: BucketedTables) -> torch.Tensor:
+    """F4, synthesis: each field's sum of squares over the inputs it reads
+    (``bt.keep``), (nfld, P) fp64."""
+    if _build.on_cpu(x):
+        return sums_synthesis_plain(x, bt)
+    x = _operand(x, bt)
+    nfld, _, M, nrows = x.shape
+    ss = torch.empty((nfld, NP), dtype=PASS_DTYPE, device=x.device)
+    with _build.on_device(x):
+        _build.launch("ect_fourier_syn_ss", x.dtype, x.data_ptr(),
+                      bt.mkeep.data_ptr(), ss.data_ptr(), nfld, M, nrows)
+    sums_synthesis.launches += 1
+    return ss
+
+
+def sums_analysis_plain(g: torch.Tensor, bt: BucketedTables):
+    return torch.stack([
+        torch.where(_valid(bk), _rows(g[..., : bk.ndlon], bk.spans, 1), 0.0)
+        .to(PASS_DTYPE).square().sum((1, 2)) for bk in bt.buckets],
+        1)[..., None]
+
+
+def sums_analysis(g: torch.Tensor, bt: BucketedTables) -> torch.Tensor:
+    """F4, analysis: each field's sum of squares over each bucket's points
+    j < NLOEN, (nfld, nbuckets, P) fp64."""
+    if _build.on_cpu(g):
+        return sums_analysis_plain(g, bt)
+    g = _operand(g, bt)
+    nfld, nrows, ndlon = g.shape
+    nb = len(bt.buckets)
+    ss = torch.empty((nfld, nb, NP), dtype=PASS_DTYPE, device=g.device)
+    with _build.on_device(g):
+        _build.launch("ect_fourier_ana_ss", g.dtype, g.data_ptr(),
+                      bt.rows.data_ptr(), bt.starts.data_ptr(),
+                      ss.data_ptr(), nfld, nb, nrows, ndlon)
+    sums_analysis.launches += 1
+    return ss
+
+
+def pre_synthesis_plain(x, bt: BucketedTables, bk: Bucket, ss, p0: int,
+                        p1: int) -> torch.Tensor:
+    mb = bk.mb
+    keep = _rows(bt.keep[:, : mb + 1], bk.spans, 2)
+    f = _rows(_pairs(x, p0, p1)[:, :, : mb + 1], bk.spans, 3)
+    f = torch.where(keep, f, 0.0).to(PASS_DTYPE)
+    if ss is not None:
+        f = f * _scales(ss, _syn_count(bt), 2 * p0,
+                        2 * p1).reciprocal()[:, None, None, None]
+    f = f.transpose(2, 3)                         # (2n, 2, rows, mb + 1)
+    a, b = f[0::2], f[1::2]
     ar, ai, br, bi = a[:, 0], a[:, 1], b[:, 0], b[:, 1]
     w_pos = torch.complex(ar - bi, ai + br)       # slots mb .. 2 mb
     w_neg = torch.complex(ar + bi, br - ai)[..., 1:].flip(-1)
     w = torch.cat([w_neg, w_pos], -1) * bk.syn_in
-    g = _conv(w, bk.syn_bh, bk.ndlon) * bk.syn_out
-    # (P2, rows, ndlon_b) complex -> (2 P2, rows, ndlon_b): Re, Im
-    return torch.view_as_real(g).permute(0, 3, 1, 2).reshape(
-        -1, g.shape[1], g.shape[2])
+    return torch.nn.functional.pad(w, (0, bk.nfft - w.shape[-1]))
 
 
-def _bucket_analysis(g: torch.Tensor, bk: Bucket, K: int) -> torch.Tensor:
-    """The bucket's fp64 grid rows (F2, rows, ndlon_b), F2 even and zero
-    past each NLOEN -> (F2, 2, K, rows) in fp64, K <= mb + 1: z = f_a +
-    i f_b through one chirp-z transform, F_a,m = (Z_m + conj Z_{-m}) / 2
-    and F_b,m = (Z_m - conj Z_{-m}) / 2i."""
-    mb = bk.mb
-    z = torch.complex(g[0::2], g[1::2]) * bk.ana_in
-    v = _conv(z, bk.ana_bh, 2 * mb + 1) * bk.ana_out    # slots m + mb
+def pre_synthesis(x: torch.Tensor, bt: BucketedTables, bk: Bucket, ss,
+                  p0: int, p1: int) -> torch.Tensor:
+    """F1, synthesis: pairs p0 .. p1 - 1 of the Fourier input x (nfld, 2,
+    M, nrows), masked by ``bt.keep``, in fp64, times the reciprocals of
+    their RMS, as the bucket's Hermitian pair packs w_m = F_a,m + i F_b,m
+    at slot mb + m and w_{-m} = conj F_a,m + i conj F_b,m at slot mb - m,
+    times syn_in, zero up to nfft: (p1 - p0, rows, nfft) complex128."""
+    if _build.on_cpu(x):
+        return pre_synthesis_plain(x, bt, bk, ss, p0, p1)
+    x = _operand(x, bt)
+    nfld, _, M, nrows = x.shape
+    _check_sums(ss, (nfld, NP))
+    a = _pass_buffer(x, bk, p1 - p0)
+    with _build.on_device(x):
+        _build.launch("ect_fourier_syn_pre", x.dtype, x.data_ptr(),
+                      bt.mkeep.data_ptr(), bk.rows.data_ptr(),
+                      bk.syn_in.data_ptr(), _ptr(ss), _syn_count(bt),
+                      a.data_ptr(), nfld, M, nrows, a.shape[1], bk.mb,
+                      bk.nfft, p0, p1 - p0)
+    pre_synthesis.launches += 1
+    return a
+
+
+def pre_analysis_plain(g, bt: BucketedTables, bk: Bucket, ib: int, ss,
+                       p0: int, p1: int) -> torch.Tensor:
+    x = _rows(_pairs(g, p0, p1)[..., : bk.ndlon], bk.spans, 1)
+    x = torch.where(_valid(bk), x, 0.0).to(PASS_DTYPE)
+    if ss is not None:
+        x = x * _scales(ss[:, ib], _ana_count(bk), 2 * p0,
+                        2 * p1).reciprocal()[:, None, None]
+    z = torch.complex(x[0::2], x[1::2]) * bk.ana_in
+    return torch.nn.functional.pad(z, (0, bk.nfft - bk.ndlon))
+
+
+def pre_analysis(g: torch.Tensor, bt: BucketedTables, bk: Bucket, ib: int,
+                 ss, p0: int, p1: int) -> torch.Tensor:
+    """F1, analysis: pairs p0 .. p1 - 1 of the grid g (nfld, nrows, ndlon)
+    on bucket ``ib``'s rows, the points j < NLOEN in fp64 times the
+    reciprocals of their RMS over the bucket, as z = f_a + i f_b times
+    ana_in, zero up to nfft: (p1 - p0, rows, nfft) complex128."""
+    if _build.on_cpu(g):
+        return pre_analysis_plain(g, bt, bk, ib, ss, p0, p1)
+    g = _operand(g, bt)
+    nfld, nrows, ndlon = g.shape
+    nb = len(bt.buckets)
+    _check_sums(ss, (nfld, nb, NP))
+    a = _pass_buffer(g, bk, p1 - p0)
+    with _build.on_device(g):
+        _build.launch("ect_fourier_ana_pre", g.dtype, g.data_ptr(),
+                      bk.rows.data_ptr(), bk.ana_in.data_ptr(),
+                      None if ss is None else ss[:, ib].data_ptr(), nb * NP,
+                      _ana_count(bk), a.data_ptr(), nfld, nrows, ndlon,
+                      a.shape[1], bk.ndlon, bk.nfft, p0, p1 - p0)
+    pre_analysis.launches += 1
+    return a
+
+
+def chirp_fft(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """The unnormalized FFT of a's rows (``inverse``: the unnormalized
+    inverse FFT; its 1/nfft is in the kernel FFTs of ``bucket_tables``):
+    one ``torch.fft`` call, counted in ``calls`` on a card (cuFFT may run
+    it as several kernels)."""
+    if inverse:
+        out = torch.fft.ifft(a, norm="forward")
+    else:
+        out = torch.fft.fft(a)
+    if not _build.on_cpu(a):
+        chirp_fft.calls += 1
+    return out
+
+
+def chirp_product(a: torch.Tensor, bh: torch.Tensor) -> None:
+    """F2: a (pairs, rows, nfft) times the kernel FFTs bh (rows, nfft), in
+    place."""
+    if _build.on_cpu(a):
+        a.mul_(bh)
+        return
+    _check_pass(a, bh)
+    with _build.on_device(a):
+        _build.launch("ect_fourier_product", None, a.data_ptr(),
+                      bh.data_ptr(), a.shape[1], a.shape[2], a.shape[0])
+    chirp_product.launches += 1
+
+
+def post_synthesis_plain(b, bt: BucketedTables, bk: Bucket, ss,
+                         out: torch.Tensor, p0: int) -> None:
+    n = b.shape[0]
+    g = b[..., : bk.ndlon] * bk.syn_out
+    # (n, rows, ndlon_b) complex -> (2 n, rows, ndlon_b): Re, Im
+    piece = torch.view_as_real(g).permute(0, 3, 1, 2).reshape(
+        2 * n, g.shape[1], g.shape[2])
+    if ss is not None:
+        piece = piece * _scales(ss, _syn_count(bt), 2 * p0,
+                                2 * (p0 + n))[:, None, None]
+    nf = min(2 * n, out.shape[0] - 2 * p0)
+    _place(out[2 * p0: 2 * p0 + nf], piece[:nf], bk.spans, 1)
+
+
+def post_synthesis(b: torch.Tensor, bt: BucketedTables, bk: Bucket, ss,
+                   out: torch.Tensor, p0: int) -> None:
+    """F3, synthesis: the first ndlon_b points of b (pairs, rows, nfft),
+    the inverse FFT's output, times syn_out: the real parts to fields 2p,
+    the imaginary parts to fields 2p + 1 (p from p0), times their RMS,
+    rounded once into their rows of out (nfld, nrows, ndlon), zeros past
+    ndlon_b."""
+    if _build.on_cpu(b):
+        post_synthesis_plain(b, bt, bk, ss, out, p0)
+        return
+    _check_pass(b, bk.syn_bh)
+    _check_out(out, bt, (None, bt.nrows, bt.ndlon))
+    nfld, nrows, ndlon = out.shape
+    _check_sums(ss, (nfld, NP))
+    with _build.on_device(b):
+        _build.launch("ect_fourier_syn_post", out.dtype, b.data_ptr(),
+                      bk.syn_out.data_ptr(), bk.rows.data_ptr(), _ptr(ss),
+                      _syn_count(bt), out.data_ptr(), nfld, nrows, ndlon,
+                      b.shape[1], bk.ndlon, bk.nfft, p0, b.shape[0])
+    post_synthesis.launches += 1
+
+
+def post_analysis_plain(b, bt: BucketedTables, bk: Bucket, ib: int, ss,
+                        out: torch.Tensor, p0: int) -> None:
+    mb, n = bk.mb, b.shape[0]
+    K = min(out.shape[2], mb + 1)
+    v = b[..., : 2 * mb + 1] * bk.ana_out            # slots m + mb
     zp = v[..., mb: mb + K]
-    zn = v[..., : mb + 1].flip(-1)[..., :K]            # Z_{-m}
+    zn = v[..., : mb + 1].flip(-1)[..., :K]          # Z_{-m}
     zpr, zpi, znr, zni = zp.real, zp.imag, zn.real, zn.imag
     fa = torch.stack([(zpr + znr) * 0.5, (zpi - zni) * 0.5], 1)
     fb = torch.stack([(zpi + zni) * 0.5, (znr - zpr) * 0.5], 1)
-    out = torch.stack([fa, fb], 1)                  # (P2, 2, 2, rows, K)
-    return out.reshape(-1, 2, out.shape[3], K).transpose(2, 3)
+    piece = torch.stack([fa, fb], 1)                 # (n, 2, 2, rows, K)
+    piece = piece.reshape(2 * n, 2, piece.shape[3], K).transpose(2, 3)
+    if ss is not None:
+        piece = piece * _scales(ss[:, ib], _ana_count(bk), 2 * p0,
+                                2 * (p0 + n))[:, None, None, None]
+    nf = min(2 * n, out.shape[0] - 2 * p0)
+    _place(out[2 * p0: 2 * p0 + nf], piece[:nf], bk.spans, 3)
 
 
-def _place(out: torch.Tensor, piece: torch.Tensor, spans, dim: int,
-           width=None) -> None:
-    """Write the bucket's rows ``piece`` (along ``dim``, in span order)
-    into ``out``, into its first ``width`` points of the last axis,
-    rounded to ``out``'s dtype."""
-    off = 0
-    for a, b in spans:
-        dst = out.narrow(dim, a, b - a)
-        if width is not None:
-            dst = dst[..., :width]
-        dst.copy_(piece.narrow(dim, off, b - a))
-        off += b - a
+def post_analysis(b: torch.Tensor, bt: BucketedTables, bk: Bucket, ib: int,
+                  ss, out: torch.Tensor, p0: int) -> None:
+    """F3, analysis: slots mb -+ m of b (pairs, rows, nfft), the inverse
+    FFT's output, times ana_out, as F_a,m = (Z_m + conj Z_{-m}) / 2 and
+    F_b,m = (Z_m - conj Z_{-m}) / 2i of fields 2p and 2p + 1 (p from p0),
+    times their RMS over bucket ``ib``, rounded once into its rows of out
+    (nfld, 2, M, nrows), zeros from m = min(M, mb + 1) up."""
+    if _build.on_cpu(b):
+        post_analysis_plain(b, bt, bk, ib, ss, out, p0)
+        return
+    _check_pass(b, bk.ana_bh)
+    _check_out(out, bt, (None, 2, None, bt.nrows))
+    nfld, _, M, nrows = out.shape
+    nb = len(bt.buckets)
+    _check_sums(ss, (nfld, nb, NP))
+    with _build.on_device(b):
+        _build.launch("ect_fourier_ana_post", out.dtype, b.data_ptr(),
+                      bk.ana_out.data_ptr(), bk.rows.data_ptr(),
+                      None if ss is None else ss[:, ib].data_ptr(), nb * NP,
+                      _ana_count(bk), out.data_ptr(), nfld, M, nrows,
+                      b.shape[1], bk.mb, min(M, bk.mb + 1), bk.nfft, p0,
+                      b.shape[0])
+    post_analysis.launches += 1
+
+
+for _stage in (sums_synthesis, sums_analysis, pre_synthesis, pre_analysis,
+               chirp_product, post_synthesis, post_analysis):
+    _stage.launches = 0
+chirp_fft.calls = 0
+
+
+def _pair_chunks(npairs: int, bk: Bucket):
+    """(p0, p1) ranges of pairs whose three (pairs, rows, nfft) complex128
+    arrays fit in ``_CHUNK_BYTES``."""
+    per_pair = 3 * bk.rows.shape[1] * bk.nfft * 16
+    chunk = max(1, _CHUNK_BYTES // per_pair)
+    return [(p, min(npairs, p + chunk)) for p in range(0, npairs, chunk)]
+
+
+def _operand(x: torch.Tensor, bt: BucketedTables) -> torch.Tensor:
+    """x as the stages take it: as it is on the CPU; contiguous, fp32 or
+    fp64, on the tables' card on a card."""
+    if _build.on_cpu(x):
+        return x
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the Fourier layer takes float32 or float64, got "
+                        f"{x.dtype}")
+    if x.device != bt.mkeep.device:
+        raise ValueError(f"input on {x.device}, tables on {bt.mkeep.device}")
+    return x.contiguous()
+
+
+def _synthesize(fourier: torch.Tensor, bt: BucketedTables,
+                normalize: bool) -> torch.Tensor:
+    x = _operand(fourier, bt)
+    nfld = x.shape[0]
+    ss = sums_synthesis(x, bt) if normalize else None
+    out = x.new_empty((nfld, bt.nrows, bt.ndlon))
+    for bk in bt.buckets:
+        with hook("fourier.bucket"):
+            for p0, p1 in _pair_chunks((nfld + 1) // 2, bk):
+                a = chirp_fft(pre_synthesis(x, bt, bk, ss, p0, p1))
+                chirp_product(a, bk.syn_bh)
+                a = chirp_fft(a, inverse=True)
+                post_synthesis(a, bt, bk, ss, out, p0)
+    return out
+
+
+def _analyze(grid: torch.Tensor, bt: BucketedTables, M: int,
+             normalize: bool) -> torch.Tensor:
+    x = _operand(grid, bt)
+    nfld = x.shape[0]
+    ss = sums_analysis(x, bt) if normalize else None
+    out = x.new_empty((nfld, 2, M, bt.nrows))
+    for ib, bk in enumerate(bt.buckets):
+        with hook("fourier.bucket"):
+            for p0, p1 in _pair_chunks((nfld + 1) // 2, bk):
+                a = chirp_fft(pre_analysis(x, bt, bk, ib, ss, p0, p1))
+                chirp_product(a, bk.ana_bh)
+                a = chirp_fft(a, inverse=True)
+                post_analysis(a, bt, bk, ib, ss, out, p0)
+    return out
+
+
+def _adjoint_weights(bt: BucketedTables, dtype: torch.dtype,
+                     M: int) -> torch.Tensor:
+    """(2, M, nrows) c_m * NLOEN(row) (c_0 = 1, c_m = 2 above) where
+    synthesis reads its input (``bt.keep``), else 0: synthesis^T = this *
+    analysis, and analysis^T = synthesis of the cotangent divided by it."""
+    c = torch.where(torch.arange(M, device=bt.mkeep.device) == 0, 1.0, 2.0)
+    w = c.to(dtype)[:, None] * bt.nloen.to(dtype)[None, :]
+    return torch.where(bt.keep[:, :M], w, 0.0)
+
+
+class _BucketSynthesis(torch.autograd.Function):
+    """synthesis_bucketed with its transpose: the grid cotangent's
+    analysis times c_m * NLOEN (``_adjoint_weights``)."""
+
+    @staticmethod
+    def forward(ctx, fourier, bt, normalize):
+        ctx.bt, ctx.normalize = bt, normalize
+        return _synthesize(fourier, bt, normalize)
+
+    @staticmethod
+    def backward(ctx, grad):
+        bt = ctx.bt
+        back = _analyze(grad, bt, bt.M, ctx.normalize)
+        return back * _adjoint_weights(bt, back.dtype, bt.M), None, None
+
+
+class _BucketAnalysis(torch.autograd.Function):
+    """analysis_bucketed with its transpose: the synthesis of the Fourier
+    cotangent divided by c_m * NLOEN where synthesis reads it (0 elsewhere:
+    those outputs of analysis are 0 whatever the grid)."""
+
+    @staticmethod
+    def forward(ctx, grid, bt, M, normalize):
+        ctx.bt, ctx.normalize = bt, normalize
+        return _analyze(grid, bt, M, normalize)
+
+    @staticmethod
+    def backward(ctx, grad):
+        bt = ctx.bt
+        M = grad.shape[2]
+        w = _adjoint_weights(bt, grad.dtype, M)
+        h = torch.where(w > 0, grad / torch.where(w > 0, w, 1.0), 0.0)
+        h = torch.nn.functional.pad(h, (0, 0, 0, bt.M - M))
+        return _synthesize(h, bt, ctx.normalize), None, None, None
 
 
 def synthesis_bucketed(fourier: torch.Tensor, bt: BucketedTables,
@@ -587,23 +985,12 @@ def synthesis_bucketed(fourier: torch.Tensor, bt: BucketedTables,
     the input's dtype.  ``normalize`` divides each field by its RMS over
     the inputs it reads (``bt.keep``) before the pair pack and multiplies
     the output back; ``normalize=False`` keeps the function linear (the
-    adjoints)."""
+    adjoints).  Differentiable: its transpose is the scaled analysis."""
     nfld, two, M, nrow = fourier.shape
     if two != 2 or M != bt.M or nrow != bt.nrows:
         raise ValueError(f"synthesis_bucketed expects (nfld, 2, {bt.M}, "
                          f"{bt.nrows}), got {tuple(fourier.shape)}")
-    x = _even(torch.where(bt.keep, fourier, 0.0)).to(PASS_DTYPE)
-    if normalize:
-        scale = _rms(x, (1, 2, 3))
-        x = x / scale
-    out = fourier.new_zeros((x.shape[0], nrow, bt.ndlon))
-    for bk in bt.buckets:
-        with hook("fourier.bucket"):
-            piece = _bucket_synthesis(x, bk)
-            if normalize:
-                piece = piece * scale[:, 0]
-            _place(out, piece, bk.spans, 1, bk.ndlon)
-    return out[:nfld]
+    return _BucketSynthesis.apply(fourier, bt, normalize)
 
 
 def analysis_bucketed(grid: torch.Tensor, bt: BucketedTables, M: int,
@@ -613,24 +1000,11 @@ def analysis_bucketed(grid: torch.Tensor, bt: BucketedTables, M: int,
     bucket's mb, in fp64, rounded once to the grid's dtype.  ``normalize``
     divides each field by its RMS over the bucket's points j < NLOEN,
     bucket by bucket, as ``ectrans_tpu`` does, and multiplies the
-    coefficients back."""
+    coefficients back.  Differentiable: its transpose is the scaled
+    synthesis."""
     nfld, nrow, ndlon = grid.shape
     if nrow != bt.nrows or ndlon != bt.ndlon or M > bt.M:
         raise ValueError(f"analysis_bucketed expects (nfld, {bt.nrows}, "
                          f"{bt.ndlon}) and M <= {bt.M}, got "
                          f"{tuple(grid.shape)}, M {M}")
-    x = _even(grid)
-    out = x.new_zeros((x.shape[0], 2, M, nrow))
-    for bk in bt.buckets:
-        with hook("fourier.bucket"):
-            g = torch.where(bk.valid, _rows(x[..., : bk.ndlon], bk.spans, 1),
-                            0.0).to(PASS_DTYPE)
-            if normalize:
-                scale = _rms(g, (1, 2))
-                g = g / scale
-            K = min(M, bk.mb + 1)
-            piece = _bucket_analysis(g, bk, K)
-            if normalize:
-                piece = piece * scale[..., None]
-            _place(out[:, :, :K], piece, bk.spans, 3)
-    return out[:nfld]
+    return _BucketAnalysis.apply(grid, bt, M, normalize)

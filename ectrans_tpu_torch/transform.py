@@ -59,7 +59,9 @@ reference and ``chip_smoke.py``'s A/B).
 
 Both transforms are linear in their fields and differentiable through
 every layer on the "xla" engine with ``_normalize=False`` (the adjoints of
-``adjoint.py``); the kernels of the other engines have no autograd rule.
+``adjoint.py``; the Fourier layer's kernels through its
+``autograd.Function``s); the kernels of the other engines have no autograd
+rule.
 
 The layers are spans of ``utils.timing`` (nothing while its recorder is
 off): ``api.inv_trans``/``api.dir_trans`` around each call (and each

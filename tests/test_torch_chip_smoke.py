@@ -1185,3 +1185,47 @@ def test_phase15_on_the_cpu(smoke, capsys):
              if line.startswith("phase 15 (")]
     assert heads == ["(a)", "(b)", "(c)", "(c)", "(d)"]
     assert "ECTRANS_TPU_LEG_GROUPS 24 (24 groups)" in lines[3]
+
+
+def test_phase13_chirp_lines_on_the_cpu(smoke, cpu_card):
+    """Phase 13 (e) at O48 on the CPU (5 fields through synthesis, 3
+    through analysis): each stage's line with its bytes and bound, and the
+    layer's; the plain stages run for the kernels there, so they agree
+    exactly and count no launch."""
+    lines = smoke.chirp_kernels(cpu_card, "O48",
+                                dict(synthesis=5, analysis=3))
+    assert len(lines) == 12
+    for way, n in (("synthesis", 5), ("analysis", 3)):
+        got = [line for line in lines if line.startswith(
+            f"phase 13 (e) {way} ")]
+        assert [line.split()[4] for line in got[:5]] == [
+            "F4", "F1", "FFT", "F2", "F3"]
+        assert all(f"({n} fields, {(n + 1) // 2} pairs, 1 buckets)" in line
+                   for line in got[:5])
+        assert "0 launches and 0 torch.fft calls a call" in got[5]
+        assert "0 device activities" in got[5]
+        assert "cuFFT (no plain stage)" in got[2]
+        assert "0 torch.fft calls a call" in got[2]
+
+
+def test_chirp_bytes_count_each_value_once(smoke):
+    """Phase 13 (e)'s bytes at O48 (one bucket): F1 synthesis reads each
+    kept input once, writes the pass array once; F3 analysis writes every
+    (field, part, m, row) once; F2 and each of the two FFTs read and write
+    the array."""
+    import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    res = ett.setup("O48", 47)
+    bt = fz.bucketed_tables(res, "cpu")
+    (bk,) = bt.buckets
+    arr = 2 * bk.rows.shape[1] * bk.nfft * 16
+    syn = smoke.chirp_bytes(bt, bk, "synthesis", 3, 4, res.M)
+    kept = int(bt.keep.sum()) * 3 * 4
+    assert syn["F1"] == kept + bk.syn_in.numel() * 16 + arr
+    assert syn["FFT"] == 4 * arr
+    assert syn["F2"] == 2 * arr + bk.syn_bh.numel() * 16
+    ana = smoke.chirp_bytes(bt, bk, "analysis", 4, 8, res.M)
+    assert ana["F3"] == (2 * bk.rows.shape[1] * (2 * bk.mb + 1) * 16
+                         + bk.ana_out.numel() * 16
+                         + 4 * 2 * res.M * res.ndgl * 8)

@@ -1258,3 +1258,210 @@ def test_entry_on_card_matches_cpu(dev):
     eps = float(np.finfo(np.float32).eps)
     for a, b in zip(got["out"], want):
         assert (a.cpu() - b).abs().max() <= 100 * eps * b.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The Fourier layer's chirp-z kernels F1-F4 (csrc/fourier_chirp.cu) against
+# their plain stages, and the layer against the plain pipeline (the same
+# stages with every kernel replaced by its plain version, on the card):
+# within 2 fp32 ulps of each output field's largest |value| (fp64: 1e-13
+# relative); the fp64 intermediates within 1e-13 of their largest |value|
+# (the two differ by FMA contractions alone).
+
+CHIRP_FIELDS = 17       # odd, and 9 pairs: a full group of 8 and one more
+
+
+def _chirp_inputs(M, nrows, ndlon, nfld, dtype, dev, seed):
+    """Fourier inputs (nfld, 2, M, nrows) and grids (nfld, nrows, ndlon),
+    fields 4k + 1, 4k + 2 and 4k + 3 1e3, 1e-4 and 0 times the rest (pairs
+    far apart and a zero field)."""
+    rng = np.random.default_rng(seed)
+    s = np.array([1.0, 1e3, 1e-4, 0.0])[np.arange(nfld) % 4]
+    four = rng.standard_normal((nfld, 2, M, nrows)) * s[:, None, None, None]
+    grid = rng.standard_normal((nfld, nrows, ndlon)) * s[:, None, None]
+    return (torch.as_tensor(four, dtype=dtype, device=dev),
+            torch.as_tensor(grid, dtype=dtype, device=dev))
+
+
+def _close(got, want, rtol, what):
+    err = (got - want).abs().max().item()
+    assert err <= rtol * want.abs().max().item(), (what, err)
+
+
+# a zero field paired with a nonzero one reads the pair pack's rounding
+# noise (its RMS scale is 1): about 1e-13 of the partner's normalized
+# values, in both versions, which need not agree on it
+ZERO_FIELD_ATOL = 1e-11
+
+
+def _within_ulps(got, want, what):
+    """Each field within 2 fp32 ulps of its largest |value| (fp32), or
+    1e-13 of it (fp64); fields 3, 7, ... (zero inputs) within
+    ZERO_FIELD_ATOL."""
+    for f in range(want.shape[0]):
+        s = want[f].abs().max().item()
+        err = (got[f] - want[f]).abs().max().item()
+        tol = (2 * float(np.spacing(np.float32(s)))
+               if want.dtype == torch.float32 else 1e-13 * s)
+        if f % 4 == 3:
+            tol = ZERO_FIELD_ATOL
+        assert err <= tol, (what, f, err, s)
+
+
+def _plain_layer(monkeypatch, fn):
+    """fn() with every stage of the Fourier layer on its plain version."""
+    from ectrans_tpu_torch import _build
+
+    with monkeypatch.context() as m:
+        m.setattr(_build, "on_cpu", lambda t: True)
+        return fn()
+
+
+def _chirp_counts():
+    """The Fourier layer's kernel launches by stage and its torch.fft
+    calls."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    counts = {f.__name__: f.launches for f in (
+        fz.sums_synthesis, fz.sums_analysis, fz.pre_synthesis,
+        fz.pre_analysis, fz.chirp_product, fz.post_synthesis,
+        fz.post_analysis)}
+    counts["fft"] = fz.chirp_fft.calls
+    return counts
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["TCO639", "TCO1279"])
+def test_chirp_kernels_match_plain_stages(dev, name, dtype, normalize):
+    """Each of F1-F4 against its plain stage on every bucket at the bench
+    widths, 17 fields (odd: the last pair's partner is zero), pairs 0-8 in
+    one launch and pairs 5-8 as a chunk of their own (p0 = 5)."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    res = ett.setup(name)
+    bt = fz.bucketed_tables(res, dev)
+    nfld, npairs = CHIRP_FIELDS, (CHIRP_FIELDS + 1) // 2
+    four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, nfld, dtype, dev,
+                               31)
+    ss = sp = None
+    if normalize:
+        ss, sp = fz.sums_synthesis(four, bt), fz.sums_analysis(grid, bt)
+        assert ss.shape == (nfld, fz.NP) and sp.shape[-1] == fz.NP
+        _close(ss.sum(-1), fz.sums_synthesis_plain(four, bt)[:, 0], 1e-13,
+               "F4 synthesis")
+        _close(sp.sum(-1), fz.sums_analysis_plain(grid, bt)[..., 0], 1e-13,
+               "F4 analysis")
+    got_s, want_s = torch.empty_like(grid), torch.empty_like(grid)
+    got_a = four.new_empty(four.shape)
+    want_a = four.new_empty(four.shape)
+    for ib, bk in enumerate(bt.buckets):
+        for way in ("synthesis", "analysis"):
+            if way == "synthesis":
+                pre = lambda p0, p1, f: f(four, bt, bk, ss, p0, p1)
+                pres = (fz.pre_synthesis, fz.pre_synthesis_plain)
+                bh = bk.syn_bh
+            else:
+                pre = lambda p0, p1, f: f(grid, bt, bk, ib, sp, p0, p1)
+                pres = (fz.pre_analysis, fz.pre_analysis_plain)
+                bh = bk.ana_bh
+            a = pre(0, npairs, pres[0])
+            _close(a, pre(0, npairs, pres[1]), 1e-13, f"F1 {way} {ib}")
+            _close(pre(5, npairs, pres[0]), a[5:], 0.0, f"F1 {way} p0")
+            f = fz.chirp_fft(a)
+            g = f.clone()
+            fz.chirp_product(g, bh)
+            _close(g, f * bh, 1e-13, f"F2 {way} {ib}")
+            b = fz.chirp_fft(g, inverse=True)
+            if way == "synthesis":
+                fz.post_synthesis(b, bt, bk, ss, got_s, 0)
+                fz.post_synthesis_plain(b, bt, bk, ss, want_s, 0)
+            else:
+                fz.post_analysis(b, bt, bk, ib, sp, got_a, 0)
+                fz.post_analysis_plain(b, bt, bk, ib, sp, want_a, 0)
+    _within_ulps(got_s, want_s, "F3 synthesis")
+    _within_ulps(got_a, want_a, "F3 analysis")
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["TCO639", "TCO1279"])
+def test_chirp_layer_matches_plain_pipeline(dev, name, dtype, normalize,
+                                            monkeypatch):
+    """synthesis_bucketed and analysis_bucketed on the kernels against the
+    same pipeline on the plain stages, 5 fields; each call, its counts set
+    to 0 just before it, makes 5 calls a bucket (the F1, F2 and F3
+    launches, the FFT and the inverse FFT) and one F4 launch when it
+    normalizes."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    res = ett.setup(name)
+    bt = fz.bucketed_tables(res, dev)
+    four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, 5, dtype, dev, 32)
+    nb = len(bt.buckets)
+    for way, call in (
+            ("synthesis",
+             lambda: fz.synthesis_bucketed(four, bt, normalize)),
+            ("analysis",
+             lambda: fz.analysis_bucketed(grid, bt, res.M, normalize))):
+        for f in (fz.sums_synthesis, fz.sums_analysis, fz.pre_synthesis,
+                  fz.pre_analysis, fz.chirp_product, fz.post_synthesis,
+                  fz.post_analysis):
+            f.launches = 0
+        fz.chirp_fft.calls = 0
+        got = call()
+        want = dict.fromkeys(_chirp_counts(), 0)
+        want.update({f"sums_{way}": int(normalize), f"pre_{way}": nb,
+                     "chirp_product": nb, f"post_{way}": nb, "fft": 2 * nb})
+        assert _chirp_counts() == want
+        assert sum(want.values()) == 5 * nb + normalize
+        _within_ulps(got, _plain_layer(monkeypatch, call), "layer")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chirp_layer_on_mesh_tables(dev, dtype, monkeypatch):
+    """The layer on a (3, 1) mesh's rank tables at TCO639 (1,280 rows in
+    3 x 427 slots: pad rows of length 0; shapes shared across the w-ranks)
+    against the plain pipeline; exact zeros on the pad rows."""
+    from ectrans_tpu_torch.ops import fourier as fz
+    from ectrans_tpu_torch.parallel import distribution as tdist
+
+    res = ett.setup("TCO639")
+    dist = tdist.build_distribution(res, 3, 1)
+    npad = 0
+    for iw in range(3):
+        bt = tdist.rank_fourier(dist, iw, dev)
+        pad = (bt.nloen == 0).cpu()
+        npad += int(pad.sum())
+        four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, 5, dtype, dev,
+                                   33 + iw)
+        for call in (lambda: fz.synthesis_bucketed(four, bt),
+                     lambda: fz.analysis_bucketed(grid, bt, res.M)):
+            got = call()
+            _within_ulps(got, _plain_layer(monkeypatch, call), "mesh")
+            rows = got[:, pad] if got.dim() == 3 else got[..., pad]
+            assert torch.all(rows.cpu() == 0)
+    assert npad == 3 * dist.LL - res.ndgl > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chirp_layer_adjoint_identity_on_card(dev, dtype):
+    """<S x, y> = <x, S^T y> and <A g, h> = <g, A^T h> within 2000 eps
+    through the layer's autograd Functions on the kernels (TCO639,
+    normalize=False, 5 fields, inner products in fp64)."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    res = ett.setup("TCO639")
+    bt = fz.bucketed_tables(res, dev)
+    four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, 5, dtype, dev, 34)
+    y, h = _chirp_inputs(res.M, bt.nrows, bt.ndlon, 5, dtype, dev, 35)
+    eps = float(torch.finfo(dtype).eps)
+    dot = lambda a, b: float((a.double() * b.double()).sum())
+    for fwd, x, cot in (
+            (lambda x: fz.synthesis_bucketed(x, bt, False), four, h),
+            (lambda x: fz.analysis_bucketed(x, bt, res.M, False), grid, y)):
+        x = x.clone().requires_grad_(True)
+        out = fwd(x)
+        (xt,) = torch.autograd.grad(out, x, cot)
+        lhs, rhs = dot(out.detach(), cot), dot(x.detach(), xt)
+        assert abs(lhs - rhs) <= 2000 * eps * abs(lhs), (lhs, rhs)
