@@ -288,27 +288,40 @@ class SpectralTransform:
     # the handle's device, gath_* bring it back to a host numpy array.  On
     # a mesh dist_* take this rank's shard of a global array that every
     # rank holds, and gath_* (collectives) assemble the global array on
-    # every rank.
-    def dist_grid(self, grid_global):
+    # every rank; with ``root`` only the root holds the global array, on
+    # its device, and the shards move point to point over the mesh.
+    def dist_grid(self, grid_global=None, root=None, nfld=None):
+        """This rank's block of rows of a global grid; on a mesh with
+        ``root`` only that rank passes it and the blocks are scattered to
+        the ranks over the mesh, the others passing ``nfld``."""
         if self._sharded is not None:
-            return self._sharded.dist_grid(grid_global)
+            return self._sharded.dist_grid(grid_global, root, nfld)
         return self._put(grid_global)
 
-    def gath_grid(self, grid):
+    def gath_grid(self, grid, root=None):
+        """The global grid: a numpy array (on every rank of a mesh), or on
+        a mesh with ``root`` a tensor on the root's device, gathered there
+        over the mesh (None on the other ranks)."""
         if self._sharded is not None:
-            return self._sharded.gath_grid(grid)
+            return self._sharded.gath_grid(grid, root)
+        if root is not None:
+            return self._put(grid)
         return torch.as_tensor(grid).detach().cpu().numpy()
 
-    def dist_spec(self, spec_global, kvset=None):
+    def dist_spec(self, spec_global=None, kvset=None, root=None, nfld=None):
         """This rank's fields of a global (nfld, nspec2) array: those
-        ``kvset`` gives its v-rank, by default its block."""
+        ``kvset`` gives its v-rank, by default its block; with ``root`` as
+        ``dist_grid``."""
         if self._sharded is not None:
-            return self._sharded.dist_spec(spec_global, kvset)
+            return self._sharded.dist_spec(spec_global, kvset, root, nfld)
         return self._put(spec_global)
 
-    def gath_spec(self, spec, kvset=None):
+    def gath_spec(self, spec, kvset=None, root=None, nfld=None):
+        """The global (nfld, nspec2) array; with ``root`` as ``gath_grid``."""
         if self._sharded is not None:
-            return self._sharded.gath_spec(spec, kvset)
+            return self._sharded.gath_spec(spec, kvset, root, nfld)
+        if root is not None:
+            return self._put(spec)
         return torch.as_tensor(spec).detach().cpu().numpy()
 
     # -- inquiry ----------------------------------------------------------

@@ -45,7 +45,18 @@ local slots, each one convolution length shared by every w-rank), as in
 the JAX package.
 
 Every public method is collective: each rank of the mesh calls it with its
-own shards and the same field counts, flags and KVSET vectors.
+own shards and the same field counts, flags and KVSET vectors.  Given the
+KVSET vectors, a call makes no host synchronisation: its index tensors
+are made once and kept (``_idx``), and the collectives are enqueued on the
+device (NCCL) without the host waiting for them.
+
+Spans (``utils.timing.hook``, while the recorder is on): ``api.inv_trans``,
+``api.dir_trans``, ``spectral``, ``legendre`` and ``fourier`` as on one
+device, the transpositions ``trmtol``, ``trltom``, ``trltog``, ``trgtol``,
+``updsp`` (the all_reduce over "w" after the packing), ``boundary`` (the
+uneven latitude exchange), and ``dist_grid``, ``gath_grid``, ``dist_spec``,
+``gath_spec`` for their rooted forms; the bytes a rank sends are the
+recorder's ``sent.<tag>`` counters (``comm``).
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from ..resolution import (GroupedLegendre, LegendreGroup, Resolution,
                           check_dtype, default_leg_groups)
 from ..transform import (InvFlags, _check_precision, _check_spec,
                          _table_dtype, fsc, legendre_inputs)
+from ..utils.timing import hook
 from . import comm
 from .distribution import (build_distribution, rank_fourier, rank_groups,
                            rank_inputs, rank_legendre, rank_tables)
@@ -148,12 +160,13 @@ def output_index(kvuv: list, kvsc: list, flags, v: int) -> tuple:
     return sel, Fuv, Fsc
 
 
-def slot_fields(x: torch.Tensor, slots: np.ndarray) -> torch.Tensor:
+def slot_fields(x: torch.Tensor, slots: np.ndarray, idx=None) -> torch.Tensor:
     """Fields x (n, ...) at the padded slots of ``kvset_slots`` (a zero
-    field where the slot is -1)."""
+    field where the slot is -1); ``idx`` makes the index tensor on x's
+    device."""
+    idx = idx or (lambda a: torch.as_tensor(a, device=x.device))
     xz = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
-    return xz[torch.as_tensor(np.where(slots < 0, x.shape[0], slots),
-                              device=x.device)]
+    return xz[idx(np.where(slots < 0, x.shape[0], slots))]
 
 
 def place(x, maxc: int, like: torch.Tensor) -> torch.Tensor:
@@ -163,6 +176,55 @@ def place(x, maxc: int, like: torch.Tensor) -> torch.Tensor:
     if x is not None and x.shape[0]:
         out[: x.shape[0]] = x
     return out
+
+
+def _lat_cols(ndgl: int, eng: str) -> np.ndarray:
+    """The column of each latitude (and of the pad row, ndgl) in the output
+    of ``ShardedTransform._lt_inv``: natural order, but for the "dense"
+    engine's southern latitudes, which ``_inv_rows_in_place`` mirrors."""
+    cols = np.arange(ndgl + 1)
+    if eng == "dense":
+        h = ndgl // 2
+        cols[h: ndgl] = ndgl - 1 - cols[h: ndgl] + h
+    return cols
+
+
+def _inv_rows_in_place(d2: torch.Tensor, fl) -> torch.Tensor:
+    """``legendre_dense.legendre_inv_rows`` of a w-rank's realigned rows d2
+    (nfld, 2, ML, W) with K1's outputs copied straight into one zero-filled
+    (nfld, 2, ML, ndgl + 1) array, one copy a hemisphere a group: the
+    northern latitudes in natural order, the southern ones as K1 gives them
+    (column ndgnh + i is latitude ndgl - 1 - i: ``_lat_cols``), zero at a
+    group's inactive latitudes and in the last column."""
+    nfld, ndgnh = d2.shape[0], fl.ndgnh
+    out = d2.new_zeros((nfld, 2, d2.shape[2], 2 * ndgnh + 1))
+    for g in fl.groups:
+        north, south = legendre_dense.group_inv_dense(
+            legendre_dense.group_rows(d2[..., :g.J], g), g.pn)
+        shape = (nfld, 2, g.m1 - g.m0, ndgnh - g.i0)
+        out[:, :, g.m0:g.m1, g.i0:ndgnh] = \
+            north.transpose(0, 1).reshape(shape)
+        out[:, :, g.m0:g.m1, ndgnh + g.i0: 2 * ndgnh] = \
+            south.transpose(0, 1).reshape(shape)
+    return out
+
+
+def _rows_vordiv(rows_list: list, groups, ML: int, W1: int, nuv: int,
+                 t: dict) -> torch.Tensor:
+    """Every group's c-major realigned rows (gm, 2F, J) of a w-rank in one
+    zero-filled (ML + 1, 2F, W1) array (the last row zero), with UVTVD
+    applied once to all of them when ``nuv`` (``spectral.vordiv_rows`` and
+    the groups' padding and concatenation, in one pass: past a group's
+    width its rows and the valid mask of ``t`` are zero)."""
+    nfld = rows_list[0].shape[1] // 2
+    loc = rows_list[0].new_zeros((ML + 1, 2 * nfld, W1))
+    for g, r in zip(groups, rows_list, strict=True):
+        loc[g.m0:g.m1, :, :r.shape[-1]] = r
+    if nuv:
+        vd = spectral.uv_to_vordiv_rows(loc[:ML], 0, nuv, nfld, t)
+        loc[:ML, :2 * nuv] = vd[:, :2 * nuv]
+        loc[:ML, nfld: nfld + 2 * nuv] = vd[:, 2 * nuv:]
+    return loc
 
 
 class ShardedTransform:
@@ -193,14 +255,26 @@ class ShardedTransform:
         # the chirp-z buckets of the w-rank's latitude slots of lat_perm
         self.fourier = rank_fourier(d, iw, self.device)
         self._grid_group = mesh.group if self.w * self.v > 1 else None
+        self._idx_cache = {}
         self._boundary = self._boundary_maps()
+        # TRMTOL's latitude slots (pad slots read the zero last column) in
+        # the columns of ``_lt_inv``'s output
+        self._trmtol_cols = self._idx(_lat_cols(res.ndgl, self.eng)[
+            np.minimum(d.lat_perm, res.ndgl)])
         self._ll_cache = {}
         self._spec0 = torch.zeros((0, res.nspec2), dtype=self.dtype,
                                   device=self.device)
 
     # -- layout helpers -------------------------------------------------
     def _idx(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, np.int64), device=self.device)
+        """The int64 index tensor of x on the device, made once for each
+        content (a copy from the host waits for the device)."""
+        a = np.ascontiguousarray(x, np.int64)
+        key = (a.shape, a.tobytes())
+        t = self._idx_cache.get(key)
+        if t is None:
+            t = self._idx_cache[key] = torch.as_tensor(a, device=self.device)
+        return t
 
     def _boundary_maps(self) -> dict:
         """The rows the grid-boundary exchange moves: this rank's slots
@@ -227,20 +301,24 @@ class ShardedTransform:
         """(F, LLg, ndlon) on this rank's latitude slots -> (F, nrows,
         ndlon) on its pole-to-pole block."""
         b = self._boundary
-        got = comm.exchange(x.transpose(0, 1)[b["send_idx"]],
-                            self._grid_group, b["send"], b["recv"], "grid")
-        out = x.new_zeros((b["nrows"],) + (x.shape[0], x.shape[2]))
-        out[b["recv_pos"]] = got
-        return out.transpose(0, 1).contiguous()
+        with hook("boundary"):
+            got = comm.exchange(x.transpose(0, 1)[b["send_idx"]],
+                                self._grid_group, b["send"], b["recv"],
+                                "grid")
+            out = x.new_zeros((b["nrows"],) + (x.shape[0], x.shape[2]))
+            out[b["recv_pos"]] = got
+            return out.transpose(0, 1).contiguous()
 
     def _from_grid_block(self, x: torch.Tensor) -> torch.Tensor:
         """The inverse of ``_to_grid_block``; pad slots are zero."""
         b = self._boundary
-        got = comm.exchange(x.transpose(0, 1)[b["recv_pos"]],
-                            self._grid_group, b["recv"], b["send"], "grid")
-        out = x.new_zeros((self.dist.LLg,) + (x.shape[0], x.shape[2]))
-        out[b["send_idx"]] = got
-        return out.transpose(0, 1).contiguous()
+        with hook("boundary"):
+            got = comm.exchange(x.transpose(0, 1)[b["recv_pos"]],
+                                self._grid_group, b["recv"], b["send"],
+                                "grid")
+            out = x.new_zeros((self.dist.LLg,) + (x.shape[0], x.shape[2]))
+            out[b["send_idx"]] = got
+            return out.transpose(0, 1).contiguous()
 
     def _put(self, x):
         if x is None:
@@ -298,20 +376,24 @@ class ShardedTransform:
         def dense(x):
             return self._packed_to_dense_local(x, eng) if x.shape[0] else None
 
-        return torch.cat(legendre_inputs(
-            dense(pv), dense(pd), dense(psc), flags,
-            self._ct("vd", ("a", "b", "c", "valid"), eng),
-            self._ct("ns", ("a", "b", "valid"), eng)))
+        with hook("spectral"):
+            return torch.cat(legendre_inputs(
+                dense(pv), dense(pd), dense(psc), flags,
+                self._ct("vd", ("a", "b", "c", "valid"), eng),
+                self._ct("ns", ("a", "b", "valid"), eng)))
 
     # -- Legendre ---------------------------------------------------------
     def _lt_inv(self, dense: torch.Tensor) -> torch.Tensor:
-        """Inverse LT on this w-rank's m rows -> (F, 2, ML, ndgl): K1 on the
-        realigned rows of each group ("dense"), else the grouped einsums."""
-        if self.eng == "dense":
-            return legendre_dense.legendre_inv_rows(dense, self.legendre)
-        sym, asym = self._parity(dense)
-        return legendre_matmul.legendre_inv_grouped(
-            sym, asym, self._grouped(self.legendre))
+        """Inverse LT on this w-rank's m rows -> (F, 2, ML, ndgl + 1), the
+        latitudes in the columns ``_lat_cols`` gives them and a zero last
+        column: K1 on the realigned rows of each group, written in place
+        ("dense", ``_inv_rows_in_place``), else the grouped einsums."""
+        with hook("legendre"):
+            if self.eng == "dense":
+                return _inv_rows_in_place(dense, self.legendre)
+            sym, asym = self._parity(dense)
+            return F.pad(legendre_matmul.legendre_inv_grouped(
+                sym, asym, self._grouped(self.legendre)), (0, 1))
 
     def _pack_psum(self, vals: torch.Tensor) -> torch.Tensor:
         """The masked gather of the packed values whose m this w-rank owns
@@ -324,7 +406,8 @@ class ShardedTransform:
         out = vals[:, t["packed_c"], lp.clamp(0, ML - 1), ncol]
         out = torch.where(owned, out, torch.zeros((), dtype=out.dtype,
                                                   device=out.device))
-        return comm.all_reduce_sum(out, self.mesh.w_group, "psum")
+        with hook("updsp"):
+            return comm.all_reduce_sum(out, self.mesh.w_group, "psum")
 
     def _dir_packed(self, four: torch.Tensor, Fuv: int) -> torch.Tensor:
         """Direct LT of (F, 2, ML, ndgl), UVTVD and packing -> this rank's
@@ -333,42 +416,44 @@ class ShardedTransform:
         w = self.tables["wq"]
         nfld = four.shape[0]
         if self.eng == "dense":
-            rows_list = legendre_dense.legendre_dir_rows(four, self.legendre,
-                                                         w)
-            if Fuv:
-                rows_list = spectral.vordiv_rows(
-                    rows_list, self.legendre.groups, Fuv, nfld,
-                    self._ct("tv", ("p", "q", "r", "valid")))
-            W1 = res.NP + 1
-            loc = torch.cat([F.pad(r, (0, W1 - r.shape[-1]))
-                             for r in rows_list]
-                            + [rows_list[0].new_zeros((1, 2 * nfld, W1))])
+            with hook("legendre"):
+                rows_list = legendre_dense.legendre_dir_rows(
+                    four, self.legendre, w)
+            with hook("spectral"):
+                W1 = res.NP + 1
+                loc = _rows_vordiv(rows_list, self.legendre.groups,
+                                   self.dist.ML, W1, Fuv,
+                                   self._ct("tv", ("p", "q", "r", "valid")))
             if pack.pack_kernel() == "xla":
                 # (ML, 2F, W1) c-major rows -> (F, 2, ML, W1)
                 return self._pack_psum(loc[:-1].reshape(
                     -1, 2, nfld, W1).permute(2, 1, 0, 3))
-            # full-M m-major rows (zero rows where another w-rank owns m)
-            # for the compaction kernel K3, one launch, before the sum
-            mm = loc[self.tables["rom_w"]]
-            # the mesh keeps the fixed group count, as the JAX package's
-            ngroups = default_leg_groups(res.M)
-            packed = pack.packed_from_group_rows(
-                [mm[m0:m1] for m0, m1, _, _ in res.legendre_groups(ngroups)],
-                res, ngroups)
-            return comm.all_reduce_sum(packed, self.mesh.w_group, "psum")
-        sym, asym = legendre_matmul.legendre_dir_grouped(
-            four, self._grouped(self.legendre), w)
-        t = self.tables
-        dense = four.new_zeros(four.shape[:3] + (res.NP + 1,))
-        shape = sym.shape
-        for k, x in (("idx_sym_w", sym), ("idx_asym_w", asym)):
-            dense.scatter_add_(3, t[k][None, None].expand(shape), x)
-        dense = dense[..., : res.NP]
-        if Fuv:
-            dvor, ddiv = spectral.uv_to_vordiv(
-                dense[:Fuv], dense[Fuv: 2 * Fuv],
-                self._ct("tv", ("p", "q", "r", "valid")))
-            dense = torch.cat([dvor, ddiv, dense[2 * Fuv:]])
+            with hook("spectral"):
+                # full-M m-major rows (zero rows where another w-rank owns
+                # m) for the compaction kernel K3, one launch, before the sum
+                mm = loc[self.tables["rom_w"]]
+                # the mesh keeps the fixed group count, as the JAX package's
+                ngroups = default_leg_groups(res.M)
+                packed = pack.packed_from_group_rows(
+                    [mm[m0:m1] for m0, m1, _, _ in
+                     res.legendre_groups(ngroups)], res, ngroups)
+            with hook("updsp"):
+                return comm.all_reduce_sum(packed, self.mesh.w_group, "psum")
+        with hook("legendre"):
+            sym, asym = legendre_matmul.legendre_dir_grouped(
+                four, self._grouped(self.legendre), w)
+        with hook("spectral"):
+            t = self.tables
+            dense = four.new_zeros(four.shape[:3] + (res.NP + 1,))
+            shape = sym.shape
+            for k, x in (("idx_sym_w", sym), ("idx_asym_w", asym)):
+                dense.scatter_add_(3, t[k][None, None].expand(shape), x)
+            dense = dense[..., : res.NP]
+            if Fuv:
+                dvor, ddiv = spectral.uv_to_vordiv(
+                    dense[:Fuv], dense[Fuv: 2 * Fuv],
+                    self._ct("tv", ("p", "q", "r", "valid")))
+                dense = torch.cat([dvor, ddiv, dense[2 * Fuv:]])
         return self._pack_psum(dense)
 
     # -- the pipeline on this rank's slots ----------------------------------
@@ -379,28 +464,31 @@ class ShardedTransform:
         res, d, t = self.res, self.dist, self.tables
         Fuv, Fsc = pv.shape[0], psc.shape[0]
         four = self._lt_inv(self._lt_inputs(pv, pd, psc, flags))
-        # four: (F1, 2, ML, ndgl)
+        # four: (F1, 2, ML, ndgl + 1)
         # TRMTOL: latitudes to the length-sorted slots (pad slots read the
-        # appended zero row), split over "w", the m's gathered
-        fT = F.pad(four, (0, 1)).movedim(3, 0)[
-            self._idx(np.minimum(d.lat_perm, res.ndgl))]
-        fT = comm.all_to_all(fT, self.mesh.w_group, 0, 3, "TRMTOL")
-        four = fT.movedim(3, 0)[t["pos_of_m"]].permute(2, 3, 0, 1)
+        # zero last column), split over "w", the m's gathered
+        with hook("trmtol"):
+            fT = four.movedim(3, 0)[self._trmtol_cols]
+            fT = comm.all_to_all(fT, self.mesh.w_group, 0, 3, "TRMTOL")
+            four = fT.movedim(3, 0)[t["pos_of_m"]].permute(2, 3, 0, 1)
 
         # FSC on the local latitude slots (m in natural order)
-        four2 = fsc(four, Fuv, Fsc, flags, t["racthe_lat_w"])
+        with hook("spectral"):
+            four2 = fsc(four, Fuv, Fsc, flags, t["racthe_lat_w"])
         if fspgl_proc is not None:
             # FSPGL (fspgl_int_mod.F90): this rank's latitude slots, all
             # m's; the rows are in the length-sorted order of lat_perm
             four2 = fspgl_proc(four2)
         # (F2, LL, ndlon)
-        grid = fourier.synthesis_bucketed(four2, self.fourier)
+        with hook("fourier"):
+            grid = fourier.synthesis_bucketed(four2, self.fourier)
         # TRLTOG: the fields gathered over "v", the slots split further;
         # owner-major -> group-major
-        grid = comm.all_to_all(grid, self.mesh.v_group, 1, 0, "TRLTOG")
-        gsz = FieldLayout.inv(Fuv, Fsc, flags).sizes_padded
-        _, inv_perm = group_perms([g * self.v for g in gsz], self.v)
-        return grid[self._idx(inv_perm)]
+        with hook("trltog"):
+            grid = comm.all_to_all(grid, self.mesh.v_group, 1, 0, "TRLTOG")
+            gsz = FieldLayout.inv(Fuv, Fsc, flags).sizes_padded
+            _, inv_perm = group_perms([g * self.v for g in gsz], self.v)
+            return grid[self._idx(inv_perm)]
 
     def _dir_slots(self, grid: torch.Tensor, Fuv_g: int, Fsc_g: int):
         """(Fin, LLg, ndlon) group-major slot fields [u, v, scalars] on this
@@ -410,21 +498,26 @@ class ShardedTransform:
         gsz = ([Fuv_g, Fuv_g] if Fuv_g else []) + ([Fsc_g] if Fsc_g else [])
         om, _ = group_perms(gsz, self.v)
         # TRGTOL: the fields scattered over "v", the slots gathered
-        x = comm.all_to_all(grid[self._idx(om)], self.mesh.v_group, 0, 1,
-                            "TRGTOL")
-        four = fourier.analysis_bucketed(x, self.fourier, res.M)
+        with hook("trgtol"):
+            x = comm.all_to_all(grid[self._idx(om)], self.mesh.v_group, 0, 1,
+                                "TRGTOL")
+        with hook("fourier"):
+            four = fourier.analysis_bucketed(x, self.fourier, res.M)
         # four: (F, 2, M, LL)
         Fuv = Fuv_g // self.v
         if Fuv:
-            four[: 2 * Fuv] *= t["racthe_lat_w"]
+            with hook("spectral"):
+                four[: 2 * Fuv] *= t["racthe_lat_w"]
         # TRLTOM: m to the permuted order (pad rows read the appended
         # zero row), split over "w", the latitude slots gathered
-        fM = four.movedim(2, 0)
-        fM = torch.cat([fM, fM.new_zeros((1,) + fM.shape[1:])])
-        fM = fM[self._idx(np.minimum(d.perm, res.M))]
-        fT = comm.all_to_all(fM, self.mesh.w_group, 0, 3, "TRLTOM")
-        four = fT.movedim(3, 0)[t["lat_pos"]].permute(2, 3, 1, 0)
-        return self._dir_packed(four.contiguous(), Fuv)
+        with hook("trltom"):
+            fM = four.movedim(2, 0)
+            fM = torch.cat([fM, fM.new_zeros((1,) + fM.shape[1:])])
+            fM = fM[self._idx(np.minimum(d.perm, res.M))]
+            fT = comm.all_to_all(fM, self.mesh.w_group, 0, 3, "TRLTOM")
+            four = fT.movedim(3, 0)[t["lat_pos"]].permute(2, 3, 1, 0)
+            four = four.contiguous()
+        return self._dir_packed(four, Fuv)
 
     # -- inverse ------------------------------------------------------------
     def inv_trans(self, spvor=None, spdiv=None, spscalar=None,
@@ -433,6 +526,12 @@ class ShardedTransform:
         """Distributed inverse transform: this rank's spectral fields
         (nfld_local, nspec2) -> its grid block (nfld_out, nrows, ndlon),
         every field in the reference PGP order (the v-padding stripped)."""
+        with hook("api.inv_trans"):
+            return self._inv_trans(spvor, spdiv, spscalar, flags, npromatr,
+                                   kvsetuv, kvsetsc, fspgl_proc)
+
+    def _inv_trans(self, spvor, spdiv, spscalar, flags, npromatr, kvsetuv,
+                   kvsetsc, fspgl_proc):
         if (spvor is None) != (spdiv is None):
             raise ValueError("spvor and spdiv must be supplied together")
         if spvor is not None and spvor.shape != spdiv.shape:
@@ -457,7 +556,10 @@ class ShardedTransform:
     def _inv_kvset(self, spvor, spdiv, spsc, flags, kvuv, kvsc,
                    fspgl_proc=None):
         """inv_trans of this rank's fields under the ownership vectors."""
-        sel, cu, cs = output_index(kvuv, kvsc, flags, self.v)
+        key = ("output_index", tuple(kvuv), tuple(kvsc), flags)
+        if key not in self._idx_cache:
+            self._idx_cache[key] = output_index(kvuv, kvsc, flags, self.v)
+        sel, cu, cs = self._idx_cache[key]
         grid = self._inv_slots(place(spvor, cu, self._spec0),
                                place(spdiv, cu, self._spec0),
                                place(spsc, cs, self._spec0), flags,
@@ -502,6 +604,10 @@ class ShardedTransform:
         field (nfld, nrows, ndlon) -> (spvor, spdiv, spscalar), this rank's
         fields of each family (as ``kvsetuv``/``kvsetsc`` assign them, by
         default the v-rank's block); None for a family with no input."""
+        with hook("api.dir_trans"):
+            return self._dir_trans(u, v, scalars, kvsetuv, kvsetsc, npromatr)
+
+    def _dir_trans(self, u, v, scalars, kvsetuv, kvsetsc, npromatr):
         if (u is None) != (v is None):
             raise ValueError("u and v must be supplied together")
         if u is not None and u.shape != v.shape:
@@ -517,16 +623,18 @@ class ShardedTransform:
                                  f"{want[1]}) on this rank, got "
                                  f"{tuple(arr.shape)}")
         u, v, sc = map(self._put, (u, v, scalars))
-        kvuv = self._kv_global(u, kvsetuv, "kvsetuv")
-        kvsc = self._kv_global(sc, kvsetsc, "kvsetsc")
+        kvuv = self._kv_global(0 if u is None else u.shape[0], kvsetuv,
+                               "kvsetuv")
+        kvsc = self._kv_global(0 if sc is None else sc.shape[0], kvsetsc,
+                               "kvsetsc")
         if npromatr and 2 * len(kvuv) + len(kvsc) > npromatr:
             return self._dir_packets(u, v, sc, npromatr, kvuv, kvsc)
         return self._dir_kvset(u, v, sc, kvuv, kvsc)
 
-    def _kv_global(self, x, kv, name: str) -> list:
-        """The ownership vector of a family whose every field this rank
-        holds (grid space): as given, or the default blocks."""
-        n = 0 if x is None else x.shape[0]
+    def _kv_global(self, n: int, kv, name: str) -> list:
+        """The ownership vector of a family of n fields, every one of which
+        this rank holds (grid space) or a root holds: as given, or the
+        default blocks."""
         if kv is None:
             return default_kvset(n, self.v)
         kv = [int(k) for k in kv]
@@ -541,7 +649,7 @@ class ShardedTransform:
         slots_uv, cu = kvset_slots(kvuv, self.v)
         slots_sc, cs = kvset_slots(kvsc, self.v)
         grid = self._from_grid_block(torch.cat([
-            slot_fields(x, slots) for x, slots in
+            slot_fields(x, slots, self._idx) for x, slots in
             ((u, slots_uv), (v, slots_uv), (sc, slots_sc)) if len(slots)]))
         packed = self._dir_slots(grid, len(slots_uv), len(slots_sc))
         nu, ns = kvuv.count(iv), kvsc.count(iv)
@@ -638,36 +746,122 @@ class ShardedTransform:
         return grid[self._idx(inv_perm[sel]), :nrows].contiguous()
 
     # -- DIST_GRID / GATH_GRID / DIST_SPEC / GATH_SPEC ----------------------
-    def dist_grid(self, grid_global) -> torch.Tensor:
+    # Without ``root`` every rank holds the global array: dist_* take this
+    # rank's shard of it, and gath_* assemble it on every rank (a sum of
+    # zero-filled copies, copied to the host).  With ``root`` (a rank of the
+    # mesh, the reference's owner rank) only the root holds the global
+    # array, on the device: dist_* scatter each rank's shard to it and
+    # gath_* gather the shards to the root, point to point (``comm.scatter``,
+    # ``comm.gather``); the other ranks pass None to dist_* with ``nfld``,
+    # the global field count, and get None from gath_*.
+    def _blocks(self) -> list:
+        return [self.dist.grid_block(r) for r in range(self.w * self.v)]
+
+    def _nfld(self, x, nfld, kvset, root: int, name: str) -> int:
+        if self.mesh.rank == root:
+            if x is None:
+                raise ValueError(f"{name}: the root rank {root} passes the "
+                                 "global array")
+            return torch.as_tensor(x).shape[0]
+        if nfld is None:
+            if kvset is None:
+                raise ValueError(f"{name}: a rank other than the root "
+                                 "passes nfld (or kvset)")
+            nfld = len(kvset)
+        return int(nfld)
+
+    def dist_grid(self, grid_global=None, root: int | None = None,
+                  nfld: int | None = None) -> torch.Tensor:
         """This rank's block of rows of a global (nfld, ndgl, ndlon) grid."""
         first, end = self.dist.grid_block(self.mesh.rank)
-        return self._put(torch.as_tensor(grid_global)[:, first:end])
+        if root is None:
+            return self._put(torch.as_tensor(grid_global)[:, first:end])
+        with hook("dist_grid"):
+            n = self._nfld(grid_global, nfld, None, root, "dist_grid")
+            parts = None
+            if self.mesh.rank == root:
+                g = self._put(grid_global)
+                parts = [g[:, a:b] for a, b in self._blocks()]
+            return comm.scatter(parts, (n, end - first, self.res.grid.ndlon),
+                                self._spec0, self._grid_group, root)
 
-    def gath_grid(self, grid) -> np.ndarray:
-        """The global grid on every rank from each rank's block (a
-        collective: a sum of zero-filled copies over the mesh)."""
+    def gath_grid(self, grid, root: int | None = None):
+        """The global grid from each rank's block: without ``root`` a numpy
+        array on every rank (a collective: a sum of zero-filled copies over
+        the mesh), with it a tensor on the root's device, None elsewhere."""
         grid = self._put(grid)
-        first, end = self.dist.grid_block(self.mesh.rank)
-        out = grid.new_zeros((grid.shape[0], self.res.ndgl, grid.shape[2]))
-        out[:, first:end] = grid
-        return comm.all_reduce_sum(out, self._grid_group,
-                                   "gath").cpu().numpy()
+        if root is None:
+            first, end = self.dist.grid_block(self.mesh.rank)
+            out = grid.new_zeros((grid.shape[0], self.res.ndgl,
+                                  grid.shape[2]))
+            out[:, first:end] = grid
+            return comm.all_reduce_sum(out, self._grid_group,
+                                       "gath").cpu().numpy()
+        with hook("gath_grid"):
+            blocks = self._blocks()
+            nf, nl = grid.shape[0], grid.shape[2]
+            parts = comm.gather(grid, range(len(blocks)),
+                                [(nf, b - a, nl) for a, b in blocks],
+                                self._grid_group, root)
+            if parts is None:
+                return None
+            out = grid.new_empty((nf, self.res.ndgl, nl))
+            for (a, b), x in zip(blocks, parts):
+                out[:, a:b] = x
+            return out
 
-    def dist_spec(self, spec_global, kvset=None) -> torch.Tensor:
+    def dist_spec(self, spec_global=None, kvset=None, root: int | None = None,
+                  nfld: int | None = None) -> torch.Tensor:
         """This rank's fields of a global (nfld, nspec2) array: those
         ``kvset`` gives its v-rank, by default its block."""
-        spec = torch.as_tensor(spec_global)
-        kv = self._kv_global(spec, kvset, "kvset")
-        own = [i for i, s in enumerate(kv) if s == self.mesh.iv]
-        return self._put(spec[self._idx(own).cpu()])
+        if root is None:
+            spec = torch.as_tensor(spec_global)
+            kv = self._kv_global(spec.shape[0], kvset, "kvset")
+            own = [i for i, s in enumerate(kv) if s == self.mesh.iv]
+            return self._put(spec[self._idx(own).cpu()])
+        with hook("dist_spec"):
+            n = self._nfld(spec_global, nfld, kvset, root, "dist_spec")
+            kv = self._kv_global(n, kvset, "kvset")
+            parts = None
+            if self.mesh.rank == root:
+                spec = self._put(spec_global)
+                own = [spec[self._idx([i for i, s in enumerate(kv)
+                                       if s == iv])] for iv in range(self.v)]
+                parts = [own[r % self.v] for r in range(self.w * self.v)]
+            return comm.scatter(parts, (kv.count(self.mesh.iv),
+                                        self.res.nspec2),
+                                self._spec0, self._grid_group, root)
 
-    def gath_spec(self, spec, kvset=None) -> np.ndarray:
-        """The global (nfld, nspec2) array on every rank from each v-rank's
-        fields (a collective over the v-line)."""
+    def gath_spec(self, spec, kvset=None, root: int | None = None,
+                  nfld: int | None = None):
+        """The global (nfld, nspec2) array from each v-rank's fields:
+        without ``root`` a numpy array on every rank (a collective over the
+        v-line), with it a tensor on the root's device, gathered from the
+        ranks of the root's v-line, and None elsewhere; with ``root`` every
+        rank passes ``kvset`` or ``nfld``."""
         spec = self._put(spec)
-        (kv,) = field_sets(self.mesh, (spec.shape[0],), (kvset,), ("kvset",))
-        out = spec.new_zeros((len(kv), self.res.nspec2))
-        out[self._idx([i for i, s in enumerate(kv) if s == self.mesh.iv])] \
-            = spec
-        return comm.all_reduce_sum(out, self.mesh.v_group,
-                                   "gath").cpu().numpy()
+        if root is None:
+            (kv,) = field_sets(self.mesh, (spec.shape[0],), (kvset,),
+                               ("kvset",))
+            out = spec.new_zeros((len(kv), self.res.nspec2))
+            out[self._idx([i for i, s in enumerate(kv)
+                           if s == self.mesh.iv])] = spec
+            return comm.all_reduce_sum(out, self.mesh.v_group,
+                                       "gath").cpu().numpy()
+        if kvset is None and nfld is None:
+            raise ValueError("gath_spec: with a root every rank passes kvset "
+                             "or nfld")
+        with hook("gath_spec"):
+            kv = self._kv_global(len(kvset) if nfld is None else nfld, kvset,
+                                 "kvset")
+            line = (root // self.v) * self.v
+            parts = comm.gather(spec, range(line, line + self.v),
+                                [(kv.count(iv), self.res.nspec2)
+                                 for iv in range(self.v)],
+                                self._grid_group, root)
+            if parts is None:
+                return None
+            out = spec.new_empty((len(kv), self.res.nspec2))
+            for iv, x in enumerate(parts):
+                out[self._idx([i for i, s in enumerate(kv) if s == iv])] = x
+            return out

@@ -10,10 +10,10 @@ machine-eps, :850-860).  The same flags, the same seeded inputs and the same
 lines as the JAX driver, plus ``--device`` (the card unless told "cpu") and
 a device line.
 
-``--mesh WxV`` runs W·V ranks of one gloo world (``world.py``), each on its
-shards of the same inputs (``dist_spec``); an iteration's time is the
-slowest rank's, and rank 0 prints, from the spectra ``gath_spec`` brings
-it.
+``--mesh WxV`` runs W·V ranks of one world (``world.py``: NCCL with a
+card a rank, else gloo), each on its shards of the same inputs
+(``dist_spec``); an iteration's time is the slowest rank's, and rank 0
+prints, from the spectra ``gath_spec`` brings it.
 
 Usage:
     python -m ectrans_tpu_torch.programs.benchmark -g O48 -t 47 -n 10 \
@@ -154,7 +154,8 @@ def run(args, dev: torch.device, dtype: torch.dtype, mesh=None) -> dict:
     if mesh is not None:
         st = ett.SpectralTransform(args.grid, args.truncation, mesh=mesh,
                                    dtype=dtype, precision=args.precision)
-        say(f"mesh {mesh.w}x{mesh.v} over {mesh.w * mesh.v} ranks (gloo)")
+        say(f"mesh {mesh.w}x{mesh.v} over {mesh.w * mesh.v} ranks "
+            f"({torch.distributed.get_backend(mesh.group)})")
 
     split_api = None
     if args.callmode == 2:

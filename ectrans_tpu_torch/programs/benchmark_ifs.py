@@ -10,11 +10,11 @@ levels (the surface pressure in the first) is one inverse and one direct
 transform.  The same flags, seeded inputs, loop and lines as the JAX
 driver, plus ``--device`` (the card unless told "cpu") and a device line.
 
-``--mesh WxV`` runs W·V ranks of one gloo world (``world.py``): every rank
-keeps the global spectra, hands each packet's fields to the mesh
-(``dist_spec``) and gathers the packet's direct output back (``gath_spec``,
-counted in the time); an iteration's time is the slowest rank's, and rank 0
-prints.
+``--mesh WxV`` runs W·V ranks of one world (``world.py``: NCCL with a
+card a rank, else gloo): every rank keeps the global spectra, hands each
+packet's fields to the mesh (``dist_spec``) and gathers the packet's direct
+output back (``gath_spec``, counted in the time); an iteration's time is
+the slowest rank's, and rank 0 prints.
 
 Usage:
     python -m ectrans_tpu_torch.programs.benchmark_ifs -g TCO159 -l 137 -n 5
@@ -120,7 +120,8 @@ def run(args, dev: torch.device, dtype: torch.dtype, mesh=None) -> dict:
     if mesh is not None:
         st = ett.SpectralTransform(args.grid, args.truncation, mesh=mesh,
                                    dtype=dtype)
-        say(f"mesh {mesh.w}x{mesh.v} over {mesh.w * mesh.v} ranks (gloo)")
+        say(f"mesh {mesh.w}x{mesh.v} over {mesh.w * mesh.v} ranks "
+            f"({torch.distributed.get_backend(mesh.group)})")
 
     flags = ett.InvFlags(scders=True, uvders=True)
     rng = np.random.default_rng(0)

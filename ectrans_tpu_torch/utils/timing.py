@@ -18,9 +18,14 @@ numbered GSTATS counters (``ltinv_ctl_mod.F90:84,113``; NVTX ranges on GPU,
   ranges.
 * While the recorder is on, each collection of Python's garbage collector
   is a ``gc`` span (with no parent).
+* ``count("NAME", n)`` — a counter: while the recorder is on, adds n to
+  NAME's total (``counters()``) and keeps ``(NAME, n, span)`` with the
+  innermost open span (``counts()``), so that a reader takes, say, the
+  bytes a rank sent inside each transposition; off, it does nothing.
 * ``gstats_report()`` — the GSTATS-style report of the list by name:
   count, total, self time (the total less that of the spans nested in
-  them), average, min, max; ``reset_gstats()`` empties the list.
+  them), average, min, max; ``reset_gstats()`` empties the list and the
+  counters.
 
 The list grows by one record a span while the recorder is on: switch it on
 for the window to be read, and empty it between windows.  CUDA work is
@@ -47,6 +52,8 @@ _clock = time.perf_counter_ns
 # whole, so that no lock is needed, and parents held as records, so that
 # an index is only assigned when the list is read
 _records: list = []
+# [name, n, span record or None], appended whole as the span records are
+_counts: list = []
 _local = threading.local()
 _gc_open = None                 # (record, profiler range) of a collection
 _OFF = contextlib.nullcontext()  # a span while the recorder is off
@@ -103,6 +110,30 @@ def gstats(name: str):
     return _Span(name, False) if _on else _OFF
 
 
+def count(name: str, n: int) -> None:
+    """Adds n to the counter ``name`` while the recorder is on."""
+    if _on:
+        stack = _stack()
+        _counts.append([name, n, stack[-1] if stack else None])
+
+
+def counters() -> dict:
+    """name -> total of each counter since the list was last emptied."""
+    out = collections.Counter()
+    for name, n, _ in list(_counts):
+        out[name] += n
+    return dict(out)
+
+
+def counts() -> list:
+    """The counter records, in order: (name, n, index in ``spans()`` of
+    the innermost span open when it was counted, or -1)."""
+    recs = list(_records)
+    pos = {id(r): i for i, r in enumerate(recs)}
+    return [(name, n, -1 if r is None else pos.get(id(r), -1))
+            for name, n, r in list(_counts)]
+
+
 def _on_gc(phase: str, info: dict) -> None:
     global _gc_open
     if phase == "start":
@@ -149,8 +180,9 @@ def spans() -> list:
 
 
 def reset_gstats() -> None:
-    """Empty the list."""
+    """Empty the list and the counters."""
     _records.clear()
+    _counts.clear()
     _stack().clear()
 
 

@@ -1465,3 +1465,36 @@ def test_chirp_layer_adjoint_identity_on_card(dev, dtype):
         (xt,) = torch.autograd.grad(out, x, cot)
         lhs, rhs = dot(out.detach(), cot), dot(x.detach(), xt)
         assert abs(lhs - rhs) <= 2000 * eps * abs(lhs), (lhs, rhs)
+
+
+@pytest.fixture
+def four_cards(dev):
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 CUDA cards; found {torch.cuda.device_count()}")
+    return dev
+
+
+def test_driven_mesh_over_nccl(four_cards):
+    """``programs.driven`` on a 2 x 2 mesh of four cards over NCCL at O48
+    T47: a round trip of rank 0's global fields matches the single-device
+    transform on cuda:0 within fp32 rounding."""
+    from ectrans_tpu_torch.programs.driven import DrivenTransform
+
+    eps = float(np.finfo(np.float32).eps)
+    flags = ett.InvFlags(scders=True, uvders=True)
+    d = DrivenTransform("O48", 47, 2, 2, flags=flags)
+    try:
+        assert d.backend == "nccl"
+        res = d.res
+        sp = [torch.as_tensor(packed(res, n, 40 + n), dtype=torch.float32,
+                              device="cuda:0") for n in (3, 3, 5)]
+        g = d.inv(*sp)
+        want = ett.inv_trans(res, *sp, flags=flags)
+        assert g.device == want.device
+        assert (g - want).abs().max() <= 64 * eps * want.abs().max()
+        out = d.dir(g[:3], g[3:6], g[6:11])
+        ref = ett.dir_trans(res, g[:3], g[3:6], g[6:11])
+        for a, b in zip(out, ref):
+            assert (a - b).abs().max() <= 64 * eps * b.abs().max()
+    finally:
+        d.close()
