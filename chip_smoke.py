@@ -208,13 +208,19 @@ After phase 7, three phases at full width:
    direction an iteration, of 8 vor/div pairs and 17 scalars, 8 and 16,
    and 1 and 2; its check OK, K1 and K2 16 times a transform, K3 once a
    direct transform, K4 once (first call, median, throughput, peak); (e)
-   (printed after (a)) the chirp-z kernels F1-F4 (``csrc/fourier_chirp.cu``)
-   at the step's largest calls, 83 fields through synthesis and 32 through
-   analysis: each against its plain stage (fp64 arrays within 1e-12 of
-   the largest |value|, outputs within 2 fp32 ulps of each field's), both
-   timed by CUDA events summed over the buckets, the FFTs beside them,
-   each kernel's bound (its bytes over 3.35 TB/s) and its launches in one
-   call of the layer, which must be 5 a bucket and one F4 launch.
+   (printed after (a)) the chirp-z kernels at the step's largest calls, 83
+   fields through synthesis and 32 through analysis: the staged kernels
+   F1-F4 (``csrc/fourier_chirp.cu``), the yardstick, each against its
+   plain stage (fp64 arrays within 1e-12 of the largest |value|, outputs
+   within 2 fp32 ulps of each field's), both timed by CUDA events summed
+   over the buckets, the FFTs beside them, each kernel's bound (its bytes
+   over 3.35 TB/s) and its launches in one call of the layer with every
+   bucket staged, which must be 5 a bucket and one F4 launch; F5, the
+   fused pass (``csrc/fourier_fused.cu``), against the staged kernels
+   (2 fp32 ulps), timed a bucket beside the staged stages' sum, with each
+   bucket's shared memory and fp64 rate and its bound by bytes and fp64
+   operations; one call of the layer launches F4 once and F5 once a bucket
+   (every bucket of TCO1279 fits a block), with no ``torch.fft`` call.
 
 14. the ectrans4py and C surfaces (``compat4py``, ``capi_bridge`` and the
    port's shim ``capi/ectrans_tpu_torch_capi.c``), after ``trans_end``:
@@ -279,6 +285,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -418,7 +425,7 @@ def launch_counters():
 
 def chirp_counters() -> dict:
     """The Fourier layer's counters, kept apart from ``KERNELS``' (its
-    kernels replace no Pallas kernel): the launches of F1, F3 and F4 by
+    kernels replace no Pallas kernel): the launches of F1, F3, F4 and F5 by
     direction (s: synthesis, a: analysis) and of F2, and the ``torch.fft``
     calls (each may run several cuFFT kernels)."""
     from ectrans_tpu_torch.ops import fourier as fz
@@ -426,7 +433,8 @@ def chirp_counters() -> dict:
     return {"F4s": fz.sums_synthesis, "F1s": fz.pre_synthesis,
             "F3s": fz.post_synthesis, "F4a": fz.sums_analysis,
             "F1a": fz.pre_analysis, "F3a": fz.post_analysis,
-            "F2": fz.chirp_product, "FFT": fz.chirp_fft}
+            "F2": fz.chirp_product, "FFT": fz.chirp_fft,
+            "F5s": fz.pass_synthesis, "F5a": fz.pass_analysis}
 
 
 def _chirp_attr(key: str) -> str:
@@ -442,21 +450,55 @@ def chirp_counts(fc: dict) -> dict:
     return {k: getattr(f, _chirp_attr(k)) for k, f in fc.items()}
 
 
-def chirp_want(nb: int, syn_calls: int, ana_calls: int) -> dict:
+def chirp_want(fused: int, staged: int, syn_calls: int,
+               ana_calls: int) -> dict:
     """``chirp_counters``' counts after syn_calls synthesis and ana_calls
-    analysis calls of the layer on nb buckets, each normalized and each
-    bucket's pairs in one chunk: F4 once a call, F1, F2 and F3 once a
-    bucket, the FFT twice (5 a bucket + 1 a call)."""
+    analysis calls of the layer, each normalized, on ``fused`` buckets that
+    run F5 and ``staged`` buckets whose pairs run in one chunk: F4 once a
+    call, F5 once a fused bucket, F1, F2 and F3 once and the FFT twice a
+    staged bucket."""
     both = syn_calls + ana_calls
-    return {"F4s": syn_calls, "F1s": nb * syn_calls, "F3s": nb * syn_calls,
-            "F4a": ana_calls, "F1a": nb * ana_calls, "F3a": nb * ana_calls,
-            "F2": nb * both, "FFT": 2 * nb * both}
+    return {"F4s": syn_calls, "F1s": staged * syn_calls,
+            "F3s": staged * syn_calls, "F4a": ana_calls,
+            "F1a": staged * ana_calls, "F3a": staged * ana_calls,
+            "F2": staged * both, "FFT": 2 * staged * both,
+            "F5s": fused * syn_calls, "F5a": fused * ana_calls}
 
 
-def _nbuckets(res, dev: torch.device) -> int:
+# an H100 block's opt-in shared memory (bytes): F5's limit where the lines
+# are made on the CPU, which has no blocks
+H100_BLOCK_SMEM = 227 * 1024
+
+
+def fits_block(dev: torch.device, nfft: int) -> bool:
+    """Whether a bucket of convolution length nfft runs F5 on dev's card
+    (``fourier.fuses`` under ``fourier.smem_limit``; an H100's limit on
+    the CPU)."""
     from ectrans_tpu_torch.ops import fourier as fz
 
-    return len(fz.bucketed_tables(res, dev).buckets)
+    limit = fz.smem_limit(dev) if dev.type == "cuda" else H100_BLOCK_SMEM
+    return fz.fuses(nfft, limit)
+
+
+def bucket_split(res, dev: torch.device) -> tuple:
+    """(fused, staged): how many buckets of res's tables run F5 on a card
+    (``fits_block``) and how many the staged kernels."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    bt = fz.bucketed_tables(res, dev)
+    fused = sum(fits_block(dev, bk.nfft) for bk in bt.buckets)
+    return fused, len(bt.buckets) - fused
+
+
+@contextlib.contextmanager
+def patched(obj, attr: str, value):
+    """Set obj.attr to value for the duration of a block."""
+    old = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, old)
 
 
 @contextlib.contextmanager
@@ -1358,7 +1400,7 @@ def phase_bench(dev: torch.device, counters: dict):
                                          ("K1", "K2", "K3", "K4"),
                                          reset=False, once=("K3", "K4"))
     fourier = chirp_counts(fc)
-    expect_launches(dev, fourier, chirp_want(_nbuckets(res, dev), 1, 1),
+    expect_launches(dev, fourier, chirp_want(*bucket_split(res, dev), 1, 1),
                     "round trip's Fourier layer", 4)
     # phase 8 holds the handle's outputs to these, kept on the host
     outputs = (grid.cpu(), [x.cpu() for x in out])
@@ -3491,24 +3533,57 @@ def chirp_bytes(bt, bk, way: str, nfld: int, item: int, M: int) -> dict:
                 F3=post)
 
 
+def fused_bytes(bt, bk, way: str, nfld: int, item: int, M: int) -> int:
+    """Bytes F5 moves for bucket bk: F1's and F3's reads and writes of the
+    inputs, the tables and the outputs (``chirp_bytes`` without the pass
+    array) and the kernel FFT once (the pairs of a row share it)."""
+    npairs = (nfld + 1) // 2
+    staged = chirp_bytes(bt, bk, way, nfld, item, M)
+    arr = npairs * bk.rows.shape[1] * bk.nfft * 16
+    if way == "synthesis":
+        inner = npairs * bk.rows.shape[1] * bk.ndlon * 16
+    else:
+        inner = npairs * bk.rows.shape[1] * (2 * min(M, bk.mb + 1) - 1) * 16
+    return (staged["F1"] - arr + staged["F3"] - inner
+            + bk.syn_bh.numel() * 16)
+
+
+def fused_flop(bk, nfld: int) -> float:
+    """F5's fp64 operations for bucket bk: two FFTs of nfft points a (row,
+    pair) at the nominal 5 nfft log2 nfft each, and the kernel FFT's
+    complex product (6 nfft)."""
+    n = bk.nfft
+    return ((nfld + 1) // 2 * bk.rows.shape[1]
+            * (10 * n * math.log2(n) + 6 * n))
+
+
 def chirp_kernels(dev: torch.device, name: str = "TCO1279",
                   fields=CHIRP_STEP_FIELDS) -> list:
-    """Phase 13 (e): the chirp-z kernels F1-F4 at the step's shapes, each
-    direction: every kernel against its plain stage on the same inputs
-    (fp64 arrays within CHIRP_TOL of the largest |value|, outputs within
-    CHIRP_ULPS fp32 ulps of each field's), both timed by CUDA events (mean
-    of 3 a bucket, summed over the buckets; the two FFTs of each bucket
-    beside them), each kernel's bound (its bytes over 3.35 TB/s), and the
-    counts of one call of the layer, set to 0 just before it: one F4
-    launch, and F1, F2 and F3 launches and two ``torch.fft`` calls a
-    bucket; with the device activities (cuFFT's kernels among them) a
-    profiled call runs."""
+    """Phase 13 (e): the chirp-z kernels at the step's shapes, each
+    direction.  The staged kernels F1-F4, the yardstick: every kernel
+    against its plain stage on the same inputs (fp64 arrays within
+    CHIRP_TOL of the largest |value|, outputs within CHIRP_ULPS fp32 ulps
+    of each field's), both timed by CUDA events (mean of 3 a bucket, summed
+    over the buckets; the two FFTs of each bucket beside them), each
+    kernel's bound (its bytes over 3.35 TB/s) and its counts in one staged
+    call of the layer (every bucket staged: F1, F2 and F3 launches and two
+    ``torch.fft`` calls a bucket, one F4 launch).  F5, the fused pass: its
+    output against its plain version, the staged pass on the plain stages
+    with the plain sums, bucket by bucket, and against the staged kernels'
+    (each within CHIRP_ULPS), timed a bucket beside
+    the staged stages' sum, with its shared memory, its bound (bytes and
+    fp64 operations) and the fp64 rate it reached; one call of the layer
+    launches F4 once and F5 once a bucket that fits (``fourier.fuses``),
+    and the staged kernels on the others.  The device activities a
+    profiled call of the layer runs."""
     import ectrans_tpu_torch as ett
+    from ectrans_tpu_torch import _build
     from ectrans_tpu_torch.ops import fourier as fz
 
     res = ett.setup(name)
     bt = fz.bucketed_tables(res, dev)
     nb = len(bt.buckets)
+    nfused = sum(fits_block(dev, bk.nfft) for bk in bt.buckets)
     gen = torch.Generator(device=dev).manual_seed(23)
     inputs = dict(
         synthesis=torch.randn((fields["synthesis"], 2, res.M, res.ndgl),
@@ -3518,33 +3593,46 @@ def chirp_kernels(dev: torch.device, name: str = "TCO1279",
     stages = dict(
         synthesis=(fz.sums_synthesis, fz.sums_synthesis_plain,
                    fz.pre_synthesis, fz.pre_synthesis_plain,
-                   fz.post_synthesis, fz.post_synthesis_plain),
+                   fz.post_synthesis, fz.post_synthesis_plain,
+                   fz.pass_synthesis, fz.staged_synthesis),
         analysis=(fz.sums_analysis, fz.sums_analysis_plain, fz.pre_analysis,
                   fz.pre_analysis_plain, fz.post_analysis,
-                  fz.post_analysis_plain))
+                  fz.post_analysis_plain, fz.pass_analysis,
+                  fz.staged_analysis))
     lines = []
     for way, x in inputs.items():
-        sums, sums_p, pre, pre_p, post, post_p = stages[way]
+        sums, sums_p, pre, pre_p, post, post_p, fused, staged = stages[way]
         nfld, item = x.shape[0], x.element_size()
         npairs = (nfld + 1) // 2
         syn = way == "synthesis"
+        d = way[0]
         call = ((lambda: fz.synthesis_bucketed(x, bt)) if syn else
                 (lambda: fz.analysis_bucketed(x, bt, res.M)))
-        call()
+
+        def staged_call():
+            with patched(fz, "_SMEM_LIMIT", 0):
+                return call()
+
         fc = chirp_counters()
-        chirp_zero(fc)
-        call()
-        counts = chirp_counts(fc)
-        expect_launches(dev, counts, chirp_want(nb, int(syn), int(not syn)),
-                        f"(e) {way}", 13)
-        d = way[0]
+        runs = {}
+        for kind, fn, want in (
+                ("fused", call, chirp_want(nfused, nb - nfused, int(syn),
+                                           int(not syn))),
+                ("staged", staged_call, chirp_want(0, nb, int(syn),
+                                                   int(not syn)))):
+            fn()
+            chirp_zero(fc)
+            fn()
+            counts = chirp_counts(fc)
+            expect_launches(dev, counts, want, f"(e) {way} {kind}", 13)
+            _sync(dev)
+            acts = device_activities(dev, fn)
+            runs[kind] = dict(counts=counts, ms=cuda_ms(fn), acts=len(acts),
+                              ffts=sum("fft" in a.lower() for a in acts))
+        counts = runs["staged"]["counts"]
         launches = dict(F4=counts["F4" + d], F1=counts["F1" + d],
                         FFT=counts["FFT"], F2=counts["F2"],
                         F3=counts["F3" + d])
-        _sync(dev)
-        t_call = cuda_ms(call)
-        acts = device_activities(dev, call)
-        nfft_acts = sum("fft" in a.lower() for a in acts)
         rep = {k: dict(ms=0.0, plain_ms=0.0, nbytes=0, err=0.0)
                for k in launches}
         ss = sums(x, bt)
@@ -3560,50 +3648,83 @@ def chirp_kernels(dev: torch.device, name: str = "TCO1279",
         out_k = x.new_empty((nfld, res.ndgl, res.grid.ndlon) if syn
                             else (nfld, 2, res.M, res.ndgl))
         out_p = torch.empty_like(out_k)
+        out_f = torch.zeros_like(out_k)   # F5 analysis leaves m > mb
+        per_bucket = []
         for ib, bk in enumerate(bt.buckets):
             extra = () if syn else (ib,)
             pre_args = (x, bt, bk, *extra, ss, 0, npairs)
             post_args = (bt, bk, *extra, ss)
             bh = bk.syn_bh if syn else bk.ana_bh
             nbytes = chirp_bytes(bt, bk, way, nfld, item, res.M)
+            staged_ms = 0.0
             a = pre(*pre_args)
-            d, scale, _ = compare("F1", a, pre_p(*pre_args))
-            rep["F1"]["err"] = max(rep["F1"]["err"], d / scale)
-            rep["F1"]["ms"] += cuda_ms(lambda: pre(*pre_args))
+            d_, scale, _ = compare("F1", a, pre_p(*pre_args))
+            rep["F1"]["err"] = max(rep["F1"]["err"], d_ / scale)
+            t = cuda_ms(lambda: pre(*pre_args))
+            rep["F1"]["ms"] += t
+            staged_ms += t
             rep["F1"]["plain_ms"] += cuda_ms(lambda: pre_p(*pre_args))
             f = fz.chirp_fft(a)
-            rep["FFT"]["ms"] += cuda_ms(lambda: fz.chirp_fft(a))
+            t = cuda_ms(lambda: fz.chirp_fft(a))
+            rep["FFT"]["ms"] += t
+            staged_ms += t
             del a
             g = f.clone()
             fz.chirp_product(g, bh)
-            d, scale, _ = compare("F2", g, f * bh)
-            rep["F2"]["err"] = max(rep["F2"]["err"], d / scale)
-            rep["F2"]["ms"] += cuda_ms(lambda: fz.chirp_product(g, bh))
-            rep["F2"]["plain_ms"] += cuda_ms(lambda: g.mul_(bh))
-            del f
+            d_, scale, _ = compare("F2", g, f * bh)
+            rep["F2"]["err"] = max(rep["F2"]["err"], d_ / scale)
+            h = f.clone()            # timed in place: g stays F2's output
+            t = cuda_ms(lambda: fz.chirp_product(h, bh))
+            rep["F2"]["ms"] += t
+            staged_ms += t
+            rep["F2"]["plain_ms"] += cuda_ms(lambda: h.mul_(bh))
+            del f, h
             b = fz.chirp_fft(g, inverse=True)
-            rep["FFT"]["ms"] += cuda_ms(lambda: fz.chirp_fft(g, True))
+            t = cuda_ms(lambda: fz.chirp_fft(g, True))
+            rep["FFT"]["ms"] += t
+            staged_ms += t
             del g
-            rep["F3"]["ms"] += cuda_ms(lambda: post(b, *post_args, out_k, 0))
+            t = cuda_ms(lambda: post(b, *post_args, out_k, 0))
+            rep["F3"]["ms"] += t
+            staged_ms += t
             rep["F3"]["plain_ms"] += cuda_ms(
                 lambda: post_p(b, *post_args, out_p, 0))
             del b
             for k, n in nbytes.items():
                 rep[k]["nbytes"] += n
+            fits = fits_block(dev, bk.nfft)
+            whole = fused if fits else staged
+            fused_ms = cuda_ms(lambda: whole(x, *post_args, out_f))
+            per_bucket.append(dict(
+                ib=ib, bk=bk, fused=fits, ms=fused_ms, staged_ms=staged_ms,
+                nbytes=fused_bytes(bt, bk, way, nfld, item, res.M),
+                flop=fused_flop(bk, nfld)))
         rep["F3"]["err"] = ulp_share(out_k, out_p)
+        del out_p
+        # F5's plain version: each bucket's staged pass on the plain stages
+        out_p = torch.zeros_like(out_k)
+        with patched(_build, "on_cpu", lambda t: True):
+            ss_p = sums_p(x, bt)
+            for ib, bk in enumerate(bt.buckets):
+                staged(x, bt, bk, *(() if syn else (ib,)), ss_p, out_p)
+        f5_plain = ulp_share(out_f, out_p)
+        f5_err = ulp_share(out_f, out_k)
         check(all(rep[k]["err"] <= CHIRP_TOL for k in ("F4", "F1", "F2"))
-              and rep["F3"]["err"] <= CHIRP_ULPS,
+              and rep["F3"]["err"] <= CHIRP_ULPS
+              and max(f5_plain, f5_err) <= CHIRP_ULPS,
               f"phase 13 (e) {way}: kernels vs plain stages "
-              f"{ {k: r['err'] for k, r in rep.items()} }")
-        del out_k, out_p, ss
+              f"{ {k: r['err'] for k, r in rep.items()} }, F5 vs the plain "
+              f"pipeline {f5_plain}, vs the staged kernels {f5_err}")
+        del out_k, out_p, out_f, ss, ss_p
         for k, r in rep.items():
             b = bound(0, r["nbytes"])
             plain = (f"plain {r['plain_ms']:.3f} ms" if r["plain_ms"]
                      else "cuFFT (no plain stage)")
             err = (f"{r['err']:.2f} fp32 ulps of each field's max" if k == "F3"
                    else f"{r['err']:.2e} of the largest |value|")
-            count = (f"{launches[k]} torch.fft calls a call" if k == "FFT"
-                     else f"launches {launches[k]} a call")
+            count = (f"{launches[k]} torch.fft calls a staged call"
+                     if k == "FFT" else f"launches {launches[k]} a staged "
+                                        f"call")
             lines.append(
                 f"phase 13 (e) {way} {k} ({nfld} fields, {npairs} pairs, "
                 f"{nb} buckets): kernel {r['ms']:.3f} ms (CUDA events, mean "
@@ -3611,12 +3732,44 @@ def chirp_kernels(dev: torch.device, name: str = "TCO1279",
                 f"({r['nbytes'] / 1e9:.3f} GB at 3.35 TB/s, "
                 f"{b['bound_ms'] / max(r['ms'], 1e-9):.1%} of it); {plain}; "
                 f"{count}; kernel vs plain {err}")
-        nk = sum(v for k, v in launches.items() if k != "FFT")
-        lines.append(f"phase 13 (e) {way} layer: {t_call:.3f} ms a call "
-                     f"(CUDA events, mean of 3); {nk} launches and "
-                     f"{launches['FFT']} torch.fft calls a call (5 a bucket "
-                     f"+ 1); a profiled call ran {len(acts)} device "
-                     f"activities, {nfft_acts} of them cuFFT's")
+        f5 = {k: sum(p[k] for p in per_bucket)
+              for k in ("ms", "staged_ms", "nbytes", "flop")}
+        b = bound(f5["flop"], f5["nbytes"], FP64_FLOPS)
+        lines.append(
+            f"phase 13 (e) {way} F5 ({nfld} fields, {npairs} pairs, "
+            f"{nb} buckets): kernel {f5['ms']:.3f} ms (CUDA events, mean of "
+            f"3 a bucket, summed), staged stages {f5['staged_ms']:.3f} ms; "
+            f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} (bytes "
+            f"{b['bytes_ms']:.3f} ms, {f5['nbytes'] / 1e9:.3f} GB; fp64 "
+            f"{b['ops_ms']:.3f} ms, {f5['flop'] / 1e9:.1f} GFLOP at "
+            f"{FP64_FLOPS / 1e12:.0f} TFLOP/s; {b['bound_ms'] / max(f5['ms'], 1e-9):.1%} "
+            f"of it); launches {runs['fused']['counts']['F5' + d]} a call; "
+            f"vs the plain pipeline {f5_plain:.2f}, vs the staged kernels "
+            f"{f5_err:.2f} fp32 ulps of each field's max")
+        for p in per_bucket:
+            bk = p["bk"]
+            rate = p["flop"] / max(p["ms"], 1e-9) / 1e9
+            lines.append(
+                f"phase 13 (e) {way} F5 bucket {p['ib']}: nfft {bk.nfft} "
+                f"{'x'.join(map(str, bk.radices))}, "
+                f"{bk.rows.shape[1]} rows, shared memory "
+                f"{fz.fused_smem_bytes(bk.nfft)} B a block, "
+                f"{'fused' if p['fused'] else 'staged in the layer'}"
+                f"; {p['ms']:.3f} ms against staged {p['staged_ms']:.3f} ms "
+                f"({p['staged_ms'] / max(p['ms'], 1e-9):.2f}x); fp64 "
+                f"{rate:.2f} TFLOP/s ({rate * 1e12 / FP64_FLOPS:.1%} of "
+                f"{FP64_FLOPS / 1e12:.0f})")
+        fu, st = runs["fused"], runs["staged"]
+        nk = sum(v for k, v in fu["counts"].items() if k != "FFT")
+        nks = sum(v for k, v in st["counts"].items() if k != "FFT")
+        lines.append(f"phase 13 (e) {way} layer: {fu['ms']:.3f} ms a call "
+                     f"(CUDA events, mean of 3), {nk} launches and "
+                     f"{fu['counts']['FFT']} torch.fft calls, {fu['acts']} "
+                     f"device activities ({fu['ffts']} cuFFT's); every "
+                     f"bucket staged {st['ms']:.3f} ms, {nks} launches and "
+                     f"{st['counts']['FFT']} torch.fft calls (5 a bucket "
+                     f"+ 1), {st['acts']} device activities ({st['ffts']} "
+                     f"cuFFT's)")
     return lines
 
 
@@ -3662,8 +3815,9 @@ def phase_fourier(dev: torch.device, counters: dict, name: str = "TCO1279",
     check("-> OK" in out, "phase 13 (c): the IFS driver's check failed")
     check(launches == want, f"phase 13 (c) launched {launches}; expected "
                             f"{want}")
-    expect_launches(dev, fourier, chirp_want(_nbuckets(ifs_res, dev), calls,
-                                             calls), "(c) Fourier layer", 13)
+    expect_launches(dev, fourier, chirp_want(*bucket_split(ifs_res, dev),
+                                             calls, calls),
+                    "(c) Fourier layer", 13)
     med = statistics.median(rep["t_rt"]) * 1e3
     print(f"phase 13 (c) benchmark_ifs {args.grid} L{args.nlev} npromatr "
           f"{args.npromatr} fp32: check OK (drift {rep['drift']:.3e}); "

@@ -88,6 +88,10 @@ _ENTRIES = {
                               _I, _I, _P], _FLOAT),
     "ect_fourier_ana_post": ([_P, _P, _P, _P, _L, _D, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P], _FLOAT),
+    "ect_fourier_syn_fused": ([_P] * 9 + [_D, _P] + [_I] * 8
+                              + [_L, _L, _I, _I, _P], _FLOAT),
+    "ect_fourier_ana_fused": ([_P] * 8 + [_L, _D, _P] + [_I] * 9
+                              + [_L, _L, _I, _I, _P], _FLOAT),
 }
 
 _lock = threading.Lock()

@@ -61,32 +61,18 @@
 
 #include <cuda_runtime.h>
 
+#include "fourier_common.cuh"
+
 namespace fz {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int TILE = 32;      // rows x modes of a transposed tile
-constexpr int NP = 32;        // partial sums of squares a field (and bucket)
 constexpr int PPB = 4;        // field pairs a block (F1, F3)
 constexpr int PPB2 = 16;      // field pairs a block (F2)
 constexpr int ZW = 256;       // F1 synthesis: zero slots a block's rows get
 constexpr int SLOTS = 2048;   // F1 analysis: slots a block
 constexpr int KPT = TILE / WARPS;   // rows (modes) a thread of a tile
-
-__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
-  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// field f's RMS from its NP partial sums at ss[f * ld]: one warp
-__device__ __forceinline__ double warp_scale(const double* ss, long long ld,
-                                             int f, int nfld, double count) {
-  if (ss == nullptr || f >= nfld) return 1.0;
-  double v = ss[(long long)f * ld + (threadIdx.x & 31)];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const double r = sqrt(v / count);
-  return r > 0.0 ? r : 1.0;
-}
 
 // sc[i] = the RMS of field f0 + i (its reciprocal with ``inverse``), i <
 // nf (at most 2 PPB), a warp a field

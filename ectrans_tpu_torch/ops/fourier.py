@@ -38,10 +38,15 @@ Two layers keep this contract:
   five stages: F1 (mask, gather, widening, RMS division, pair pack, chirp,
   zero pad), the FFT, F2 (the kernel FFT's product), the inverse FFT and
   F3 (crop, chirp, unpack, RMS, one rounding into the output), with F4
-  (the RMS sums) once a call: on a card the kernels of
-  ``csrc/fourier_chirp.cu`` around ``torch.fft``, on the CPU their plain
-  stages.  The mesh runs the same layer on each rank's length-sorted slots
-  (``parallel.distribution.rank_fourier``);
+  (the RMS sums) once a call.  On a card a bucket whose nfft points fit
+  one block's shared memory (``fuses``: every bucket up to TCO1279) runs
+  all five in one kernel, F5 (``csrc/fourier_fused.cu``), so that no
+  (pairs, rows, nfft) array crosses device memory; any other bucket runs
+  them staged, the kernels of ``csrc/fourier_chirp.cu`` around
+  ``torch.fft``; on the CPU every bucket runs the plain stages.  Each call
+  counts its buckets as ``fourier.fused`` and ``fourier.staged``
+  (``utils.timing.count``).  The mesh runs the same layer on each rank's
+  length-sorted slots (``parallel.distribution.rank_fourier``);
 * **the per-NLOEN layer** (``synthesis``, ``analysis``): one real FFT per
   distinct NLOEN, the tests' exact reference, reached in a transform only
   through the private ``_fourier="rows"``.  A mode m at or above a row's
@@ -74,13 +79,14 @@ no FFT op), and the ``optimization_barrier`` guards.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
 import torch
 
 from .. import _build
-from ..utils.timing import hook
+from ..utils.timing import count, hook
 
 
 def fold(re: torch.Tensor, im: torch.Tensor, L: int) -> torch.Tensor:
@@ -398,6 +404,107 @@ def host_bluestein_tables(nloen, nmen, mmax: int, ndlon: int | None = None,
         ana_out=np.where(kept, _chirp(Ls, ks, -1.0) / Ls, 0.0))
 
 
+# F5's FFT of length nfft in one block's shared memory (``fourier_fused.cu``)
+FINE = 64                    # fine twiddles of ``twiddle_table``
+_SMEM_LIMIT = None           # F5's shared memory a block (bytes); None: the
+                             # card's own (``smem_limit``)
+
+
+RADICES = (12, 10, 9, 8, 7, 6, 5, 4, 3, 2)    # F5's butterflies
+# the first pass's butterflies are contiguous rows: in the padded row (an
+# element in 8) radices 8, 4 and 2 read them from every bank, 7 from one
+FIRST = (8, 4, 2, 3, 5, 9, 6, 10, 12, 7)
+
+
+def _factorings(n: int, top: int):
+    """Every multiset of RADICES up to ``top`` whose product is n, as
+    non-increasing tuples."""
+    if n == 1:
+        yield ()
+    for r in RADICES:
+        if r <= top and n % r == 0:
+            for rest in _factorings(n // r, r):
+                yield (r,) + rest
+
+
+@functools.lru_cache(maxsize=None)
+def fft_radices(nfft: int) -> tuple:
+    """The radices of F5's FFT of length nfft (2^a 3^b 5^c 7^d), in the
+    forward FFT's order: the fewest passes (each a round trip of the row
+    through shared memory), the radix the first pass reads best (``FIRST``)
+    first, then the largest radices, largest first."""
+    plans = list(_factorings(nfft, max(RADICES)))
+    if not plans:
+        raise ValueError(f"nfft {nfft} is not a 2^a 3^b 5^c 7^d")
+    fewest = min(map(len, plans))
+
+    def order(plan):
+        first = min(plan, key=FIRST.index)
+        rest = list(plan)
+        rest.remove(first)
+        return (first, *rest)
+
+    return min((order(p) for p in plans if len(p) == fewest),
+               key=lambda p: (FIRST.index(p[0]), [-r for r in p[1:]]))
+
+
+def fft_plan(radices) -> int:
+    """The radices as F5 takes them: 4 bits each, the first lowest."""
+    return sum(r << (4 * p) for p, r in enumerate(radices))
+
+
+def digit_places(radices) -> np.ndarray:
+    """(nfft,) int64: the position in F5's row of each slot s, where its
+    forward FFT (decimation in time, ``radices`` in order) takes input s
+    and its inverse FFT (decimation in frequency, the radices in reverse
+    order) leaves output point s: the position whose digits (the lowest of
+    radix ``radices[0]``), read in reverse order, make s."""
+    rest = np.arange(int(np.prod(radices)))
+    rev = np.zeros_like(rest)
+    for r in radices:
+        rev = rev * r + rest % r
+        rest = rest // r
+    return np.argsort(rev)
+
+
+def twiddle_table(nfft: int) -> np.ndarray:
+    """F5's twiddles, complex128 made in float64: W^l for l < FINE, then
+    W^(FINE h) for h < ceil(nfft / FINE), W = e^(-2 pi i / nfft), so that
+    W^e = table[FINE + e // FINE] * table[e % FINE] for e < nfft."""
+    k = np.concatenate([np.arange(FINE), FINE * np.arange(-(-nfft // FINE))])
+    ph = 2.0 * np.pi * k / nfft
+    return np.cos(ph) - 1j * np.sin(ph)
+
+
+def fused_smem_bytes(nfft: int) -> int:
+    """The dynamic shared memory of an F5 block, as its launch takes it:
+    the row padded by one element in 8, the twiddles and the pair's RMS,
+    16 bytes each."""
+    return 16 * (nfft + nfft // 8 + FINE + -(-nfft // FINE) + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _optin(index: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return props.shared_memory_per_block_optin
+
+
+def smem_limit(device) -> int:
+    """The shared memory an F5 block may use on a card (bytes): the card's
+    opt-in maximum a block (227 KB on an H100), read once a card;
+    ``_SMEM_LIMIT`` where it is set."""
+    if _SMEM_LIMIT is not None:
+        return _SMEM_LIMIT
+    index = torch.device(device).index
+    return _optin(torch.cuda.current_device() if index is None else index)
+
+
+def fuses(nfft: int, limit: int) -> bool:
+    """Whether a bucket of convolution length nfft runs F5 on a card whose
+    block may use ``limit`` bytes of shared memory (``smem_limit``)."""
+    return fused_smem_bytes(nfft) <= limit
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Bucket:
     """One latitude bucket: its rows (``spans``, (first, end) row ranges
@@ -407,7 +514,10 @@ class Bucket:
     (complex128: the passes run in fp64), the kernel FFTs ``syn_bh`` and
     ``ana_bh`` divided by nfft (the inverse FFT runs unnormalized), with
     ``rows`` (2, rows) int32: each row's index in the layer and its NLOEN
-    (analysis reads the points j < NLOEN), a view of the tables' ``rows``."""
+    (analysis reads the points j < NLOEN), a view of the tables' ``rows``,
+    and F5's FFT: its ``radices`` (``fft_radices``), and for nfft < 2^15
+    (else None) ``twiddles`` (``twiddle_table``) and ``place`` (nfft,)
+    int16, each slot's position in the row (``digit_places``)."""
 
     spans: tuple
     mb: int
@@ -420,6 +530,9 @@ class Bucket:
     ana_bh: torch.Tensor
     ana_out: torch.Tensor
     rows: torch.Tensor
+    radices: tuple
+    twiddles: torch.Tensor | None
+    place: torch.Tensor | None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -457,6 +570,17 @@ class BucketedTables:
         return out
 
 
+def bucket_shape(nloen, nmen, nsmax: int) -> tuple:
+    """(mb, ndlon, nfft) of a bucket of rows of lengths ``nloen`` (0: a pad
+    row) truncated at ``nmen``: its highest kept wavenumber, its longest
+    row and its convolution length ``good_size(ndlon + 2 mb + 1)``."""
+    nloen = np.asarray(nloen, np.int64)
+    real = nloen > 0
+    mb = int(min(nsmax, np.asarray(nmen)[real].max(initial=0)))
+    nd = int(nloen.max(initial=1))
+    return mb, nd, good_size(nd + 2 * mb + 1)
+
+
 def bucket_tables(nloen, nmen, nsmax: int, spans_list, ndlon: int, device,
                   shapes=None) -> BucketedTables:
     """The tables of buckets ``spans_list`` (one tuple of row spans each,
@@ -474,11 +598,8 @@ def bucket_tables(nloen, nmen, nsmax: int, spans_list, ndlon: int, device,
         seen[rows] += 1
         parts.append(np.stack([rows, nloen[rows]]))
         starts.append(starts[-1] + len(rows))
-        real = nloen[rows] > 0
         if shapes is None:
-            mb = int(min(nsmax, nmen[rows][real].max(initial=0)))
-            nd = int(nloen[rows].max(initial=1))
-            nfft = good_size(nd + 2 * mb + 1)
+            mb, nd, nfft = bucket_shape(nloen[rows], nmen[rows], nsmax)
         else:
             mb, nd, nfft = shapes[bi]
         shape.append((spans, rows, mb, nd, nfft))
@@ -494,14 +615,20 @@ def bucket_tables(nloen, nmen, nsmax: int, spans_list, ndlon: int, device,
         h["syn_bh"] /= nfft
         h["ana_bh"] /= nfft
 
+        radices = fft_radices(nfft)
+        if nfft < 2 ** 15:           # int16 positions; fuses() needs less
+            h["place"] = digit_places(radices).astype(np.int16)
+            h["twiddles"] = twiddle_table(nfft)
+
         def dev(name):
-            return torch.as_tensor(h[name], device=device)
+            return None if name not in h else torch.as_tensor(h[name],
+                                                              device=device)
 
         buckets.append(Bucket(
             spans=tuple(spans), mb=mb, ndlon=nd, nfft=nfft,
             **{k: dev(k) for k in ("syn_in", "syn_bh", "syn_out", "ana_in",
-                                   "ana_bh", "ana_out")},
-            rows=table[2 * s0: 2 * s1].view(2, s1 - s0)))
+                                   "ana_bh", "ana_out", "twiddles", "place")},
+            rows=table[2 * s0: 2 * s1].view(2, s1 - s0), radices=radices))
     mkeep = np.where(nloen > 0, nmen, -1)
     return BucketedTables(
         buckets=tuple(buckets), nrows=len(nloen), ndlon=ndlon, M=M,
@@ -555,6 +682,8 @@ def bucketed_tables(res, device,
 # a zero partner.  The sums of squares ``ss`` are (nfld, P) fp64 in
 # synthesis, (nfld, nbuckets, P) in analysis (P = NP partial sums from the
 # kernels, 1 from the plain versions); None (normalize=False) scales by 1.
+# On a card F5 (``pass_synthesis``, ``pass_analysis``, ``fourier_fused.cu``)
+# runs a bucket's five stages in one kernel where ``fuses`` allows.
 # ----------------------------------------------------------------------
 
 NP = 32                      # F4's partial sums a field (a bucket)
@@ -873,18 +1002,117 @@ def post_analysis(b: torch.Tensor, bt: BucketedTables, bk: Bucket, ib: int,
     post_analysis.launches += 1
 
 
-for _stage in (sums_synthesis, sums_analysis, pre_synthesis, pre_analysis,
-               chirp_product, post_synthesis, post_analysis):
-    _stage.launches = 0
-chirp_fft.calls = 0
-
-
 def _pair_chunks(npairs: int, bk: Bucket):
     """(p0, p1) ranges of pairs whose three (pairs, rows, nfft) complex128
     arrays fit in ``_CHUNK_BYTES``."""
     per_pair = 3 * bk.rows.shape[1] * bk.nfft * 16
     chunk = max(1, _CHUNK_BYTES // per_pair)
     return [(p, min(npairs, p + chunk)) for p in range(0, npairs, chunk)]
+
+
+def staged_synthesis(x, bt: BucketedTables, bk: Bucket, ss,
+                     out: torch.Tensor) -> None:
+    """Bucket bk's synthesis pass for every pair of x as five stages a
+    chunk of pairs: F1, the FFT, F2, the inverse FFT, F3."""
+    for p0, p1 in _pair_chunks((x.shape[0] + 1) // 2, bk):
+        a = chirp_fft(pre_synthesis(x, bt, bk, ss, p0, p1))
+        chirp_product(a, bk.syn_bh)
+        a = chirp_fft(a, inverse=True)
+        post_synthesis(a, bt, bk, ss, out, p0)
+
+
+def staged_analysis(g, bt: BucketedTables, bk: Bucket, ib: int, ss,
+                    out: torch.Tensor) -> None:
+    """Bucket ib's analysis pass for every pair of g as five stages a
+    chunk of pairs."""
+    for p0, p1 in _pair_chunks((g.shape[0] + 1) // 2, bk):
+        a = chirp_fft(pre_analysis(g, bt, bk, ib, ss, p0, p1))
+        chirp_product(a, bk.ana_bh)
+        a = chirp_fft(a, inverse=True)
+        post_analysis(a, bt, bk, ib, ss, out, p0)
+
+
+def _check_fused(bk: Bucket, x: torch.Tensor, out: torch.Tensor) -> None:
+    limit = smem_limit(x.device)
+    if not fuses(bk.nfft, limit) or bk.place is None:
+        raise ValueError(f"nfft {bk.nfft} does not fit one block "
+                         f"({fused_smem_bytes(bk.nfft)} bytes of shared "
+                         f"memory, {limit} allowed)")
+    if out.dtype != x.dtype:
+        raise TypeError(f"F5 writes its input's dtype {x.dtype}, got an "
+                        f"output of {out.dtype}")
+
+
+def pass_synthesis(x: torch.Tensor, bt: BucketedTables, bk: Bucket, ss,
+                   out: torch.Tensor) -> None:
+    """F5, synthesis: bucket bk's whole pass for every pair of the Fourier
+    input x (nfld, 2, M, nrows), F1 to F3 of ``staged_synthesis`` in one
+    launch, each (row, pair) in one block's shared memory, rounded once
+    into its rows of out (nfld, nrows, ndlon); on the CPU the staged plain
+    stages."""
+    if _build.on_cpu(x):
+        staged_synthesis(x, bt, bk, ss, out)
+        return
+    x = _operand(x, bt)
+    nfld, _, M, nrows = x.shape
+    _check_sums(ss, (nfld, NP))
+    _check_out(out, bt, (nfld, bt.nrows, bt.ndlon))
+    _check_fused(bk, x, out)
+    with _build.on_device(x):
+        _build.launch("ect_fourier_syn_fused", x.dtype, x.data_ptr(),
+                      bt.mkeep.data_ptr(), bk.rows.data_ptr(),
+                      bk.syn_in.data_ptr(), bk.syn_bh.data_ptr(),
+                      bk.syn_out.data_ptr(), bk.twiddles.data_ptr(),
+                      bk.place.data_ptr(), _ptr(ss), _syn_count(bt),
+                      out.data_ptr(), nfld, M, nrows, bt.ndlon,
+                      bk.rows.shape[1], bk.ndlon, bk.mb, bk.nfft,
+                      fused_smem_bytes(bk.nfft), fft_plan(bk.radices),
+                      len(bk.radices),
+                      (nfld + 1) // 2)
+    pass_synthesis.launches += 1
+
+
+def pass_analysis(g: torch.Tensor, bt: BucketedTables, bk: Bucket, ib: int,
+                  ss, out: torch.Tensor) -> None:
+    """F5, analysis: bucket ib's whole pass for every pair of the grid g
+    (nfld, nrows, ndlon), F1 to F3 of ``staged_analysis`` in one launch,
+    rounded once into its rows of out (nfld, 2, M, nrows) for m < min(M,
+    mb + 1); the rows' higher m are left as they are (zeros in a layer
+    call, which fills its output with zeros first); on the CPU the staged
+    plain stages, which write those zeros."""
+    if _build.on_cpu(g):
+        staged_analysis(g, bt, bk, ib, ss, out)
+        return
+    g = _operand(g, bt)
+    nfld, nrows, ndlon = g.shape
+    nb = len(bt.buckets)
+    _check_sums(ss, (nfld, nb, NP))
+    _check_out(out, bt, (nfld, 2, None, bt.nrows))
+    _check_fused(bk, g, out)
+    M = out.shape[2]
+    with _build.on_device(g):
+        _build.launch("ect_fourier_ana_fused", g.dtype, g.data_ptr(),
+                      bk.rows.data_ptr(), bk.ana_in.data_ptr(),
+                      bk.ana_bh.data_ptr(), bk.ana_out.data_ptr(),
+                      bk.twiddles.data_ptr(), bk.place.data_ptr(),
+                      None if ss is None else ss[:, ib].data_ptr(), nb * NP,
+                      _ana_count(bk), out.data_ptr(), nfld, M, nrows, ndlon,
+                      bk.rows.shape[1], bk.ndlon, bk.mb, min(M, bk.mb + 1),
+                      bk.nfft, fused_smem_bytes(bk.nfft),
+                      fft_plan(bk.radices), len(bk.radices), (nfld + 1) // 2)
+    pass_analysis.launches += 1
+
+
+for _stage in (sums_synthesis, sums_analysis, pre_synthesis, pre_analysis,
+               chirp_product, post_synthesis, post_analysis, pass_synthesis,
+               pass_analysis):
+    _stage.launches = 0
+chirp_fft.calls = 0
+
+
+def _fused(x: torch.Tensor, bk: Bucket) -> bool:
+    """Whether the layer runs bucket bk as F5: on a card, where it fits."""
+    return not _build.on_cpu(x) and fuses(bk.nfft, smem_limit(x.device))
 
 
 def _operand(x: torch.Tensor, bt: BucketedTables) -> torch.Tensor:
@@ -906,13 +1134,14 @@ def _synthesize(fourier: torch.Tensor, bt: BucketedTables,
     nfld = x.shape[0]
     ss = sums_synthesis(x, bt) if normalize else None
     out = x.new_empty((nfld, bt.nrows, bt.ndlon))
-    for bk in bt.buckets:
+    fuse = [_fused(x, bk) for bk in bt.buckets]
+    for bk, fused in zip(bt.buckets, fuse):
         with hook("fourier.bucket"):
-            for p0, p1 in _pair_chunks((nfld + 1) // 2, bk):
-                a = chirp_fft(pre_synthesis(x, bt, bk, ss, p0, p1))
-                chirp_product(a, bk.syn_bh)
-                a = chirp_fft(a, inverse=True)
-                post_synthesis(a, bt, bk, ss, out, p0)
+            if fused:
+                pass_synthesis(x, bt, bk, ss, out)
+            else:
+                staged_synthesis(x, bt, bk, ss, out)
+    _count_buckets(fuse)
     return out
 
 
@@ -921,15 +1150,23 @@ def _analyze(grid: torch.Tensor, bt: BucketedTables, M: int,
     x = _operand(grid, bt)
     nfld = x.shape[0]
     ss = sums_analysis(x, bt) if normalize else None
-    out = x.new_empty((nfld, 2, M, bt.nrows))
-    for ib, bk in enumerate(bt.buckets):
+    fuse = [_fused(x, bk) for bk in bt.buckets]
+    # F5 leaves the zeros above each bucket's mb to this fill
+    out = (x.new_zeros if any(fuse) else x.new_empty)((nfld, 2, M,
+                                                        bt.nrows))
+    for ib, (bk, fused) in enumerate(zip(bt.buckets, fuse)):
         with hook("fourier.bucket"):
-            for p0, p1 in _pair_chunks((nfld + 1) // 2, bk):
-                a = chirp_fft(pre_analysis(x, bt, bk, ib, ss, p0, p1))
-                chirp_product(a, bk.ana_bh)
-                a = chirp_fft(a, inverse=True)
-                post_analysis(a, bt, bk, ib, ss, out, p0)
+            if fused:
+                pass_analysis(x, bt, bk, ib, ss, out)
+            else:
+                staged_analysis(x, bt, bk, ib, ss, out)
+    _count_buckets(fuse)
     return out
+
+
+def _count_buckets(fuse: list) -> None:
+    count("fourier.fused", sum(fuse))
+    count("fourier.staged", len(fuse) - sum(fuse))
 
 
 def _adjoint_weights(bt: BucketedTables, dtype: torch.dtype,

@@ -1189,23 +1189,34 @@ def test_phase15_on_the_cpu(smoke, capsys):
 
 def test_phase13_chirp_lines_on_the_cpu(smoke, cpu_card):
     """Phase 13 (e) at O48 on the CPU (5 fields through synthesis, 3
-    through analysis): each stage's line with its bytes and bound, and the
-    layer's; the plain stages run for the kernels there, so they agree
-    exactly and count no launch."""
+    through analysis): each staged stage's line with its bytes and bound,
+    F5's line, a line a bucket (nfft, radices, shared memory, fp64 rate)
+    and the layer's; the plain stages run for the kernels there, so they
+    agree exactly and count no launch."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
     lines = smoke.chirp_kernels(cpu_card, "O48",
                                 dict(synthesis=5, analysis=3))
-    assert len(lines) == 12
+    assert len(lines) == 16
     for way, n in (("synthesis", 5), ("analysis", 3)):
         got = [line for line in lines if line.startswith(
             f"phase 13 (e) {way} ")]
-        assert [line.split()[4] for line in got[:5]] == [
-            "F4", "F1", "FFT", "F2", "F3"]
+        assert [line.split()[4] for line in got[:6]] == [
+            "F4", "F1", "FFT", "F2", "F3", "F5"]
         assert all(f"({n} fields, {(n + 1) // 2} pairs, 1 buckets)" in line
-                   for line in got[:5])
-        assert "0 launches and 0 torch.fft calls a call" in got[5]
-        assert "0 device activities" in got[5]
+                   for line in got[:6])
         assert "cuFFT (no plain stage)" in got[2]
-        assert "0 torch.fft calls a call" in got[2]
+        assert "0 torch.fft calls a staged call" in got[2]
+        assert "launches 0 a call" in got[5]
+        assert ("vs the plain pipeline 0.00, vs the staged kernels 0.00 "
+                "fp32 ulps") in got[5]
+        assert "fp64" in got[5] and "GFLOP at 34 TFLOP/s" in got[5]
+        assert got[6].startswith(f"phase 13 (e) {way} F5 bucket 0: nfft ")
+        smem = fz.fused_smem_bytes(int(got[6].split()[8]))
+        assert f"shared memory {smem} B a block, fused" in got[6]
+        assert "0 launches and 0 torch.fft calls, 0 device activities" in (
+            got[7])
+        assert "every bucket staged" in got[7]
 
 
 def test_chirp_bytes_count_each_value_once(smoke):
@@ -1229,3 +1240,17 @@ def test_chirp_bytes_count_each_value_once(smoke):
     assert ana["F3"] == (2 * bk.rows.shape[1] * (2 * bk.mb + 1) * 16
                          + bk.ana_out.numel() * 16
                          + 4 * 2 * res.M * res.ndgl * 8)
+
+
+def test_chirp_want_counts_fused_and_staged_buckets(smoke):
+    """The layer's counts a call: F4 once, F5 once a fused bucket, F1, F2
+    and F3 once and two torch.fft calls a staged bucket; at O48 (one
+    bucket, nfft 480) the bucket fuses."""
+    import ectrans_tpu_torch as ett
+
+    want = smoke.chirp_want(10, 2, 3, 1)
+    assert want == {"F4s": 3, "F1s": 6, "F3s": 6, "F4a": 1, "F1a": 2,
+                    "F3a": 2, "F2": 8, "FFT": 16, "F5s": 30, "F5a": 10}
+    assert set(want) == set(smoke.chirp_counters())
+    assert smoke.bucket_split(ett.setup("O48", 47),
+                              torch.device("cpu")) == (1, 0)

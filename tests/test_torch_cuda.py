@@ -1294,12 +1294,20 @@ def _close(got, want, rtol, what):
 ZERO_FIELD_ATOL = 1e-11
 
 
-def _within_ulps(got, want, what):
+def _within_ulps(got, want, what, pairs=False):
     """Each field within 2 fp32 ulps of its largest |value| (fp32), or
     1e-13 of it (fp64); fields 3, 7, ... (zero inputs) within
-    ZERO_FIELD_ATOL."""
+    ZERO_FIELD_ATOL.  ``pairs``: fp64 within 1e-13 of the larger of the
+    field's and its pair partner's largest |value|, for an FFT other than
+    the plain pipeline's (F5's against cuFFT): the pair shares one complex
+    FFT, whose rounding is relative to the pair, and without the RMS
+    scaling (normalize=False; only there) a field's partner may be 1e3
+    times larger."""
+    scales = want.flatten(1).abs().amax(1).tolist()
     for f in range(want.shape[0]):
         s = want[f].abs().max().item()
+        if pairs and want.dtype == torch.float64 and (f ^ 1) < len(scales):
+            s = max(s, scales[f ^ 1])
         err = (got[f] - want[f]).abs().max().item()
         tol = (2 * float(np.spacing(np.float32(s)))
                if want.dtype == torch.float32 else 1e-13 * s)
@@ -1322,12 +1330,25 @@ def _chirp_counts():
     calls."""
     from ectrans_tpu_torch.ops import fourier as fz
 
-    counts = {f.__name__: f.launches for f in (
-        fz.sums_synthesis, fz.sums_analysis, fz.pre_synthesis,
-        fz.pre_analysis, fz.chirp_product, fz.post_synthesis,
-        fz.post_analysis)}
+    counts = {f.__name__: f.launches for f in _chirp_stages()}
     counts["fft"] = fz.chirp_fft.calls
     return counts
+
+
+def _chirp_stages() -> tuple:
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    return (fz.sums_synthesis, fz.sums_analysis, fz.pre_synthesis,
+            fz.pre_analysis, fz.chirp_product, fz.post_synthesis,
+            fz.post_analysis, fz.pass_synthesis, fz.pass_analysis)
+
+
+def _chirp_zero() -> None:
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    for f in _chirp_stages():
+        f.launches = 0
+    fz.chirp_fft.calls = 0
 
 
 @pytest.mark.parametrize("normalize", [True, False])
@@ -1383,20 +1404,25 @@ def test_chirp_kernels_match_plain_stages(dev, name, dtype, normalize):
     _within_ulps(got_a, want_a, "F3 analysis")
 
 
+@pytest.mark.parametrize("staged", [False, True])
 @pytest.mark.parametrize("normalize", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", ["TCO639", "TCO1279"])
 def test_chirp_layer_matches_plain_pipeline(dev, name, dtype, normalize,
-                                            monkeypatch):
+                                            staged, monkeypatch):
     """synthesis_bucketed and analysis_bucketed on the kernels against the
     same pipeline on the plain stages, 5 fields; each call, its counts set
-    to 0 just before it, makes 5 calls a bucket (the F1, F2 and F3
-    launches, the FFT and the inverse FFT) and one F4 launch when it
-    normalizes."""
+    to 0 just before it, makes one F4 launch when it normalizes and, every
+    bucket fitting a block, one F5 launch a bucket and no torch.fft call;
+    with the shared-memory limit at 0 (``staged``), 5 calls a bucket (the
+    F1, F2 and F3 launches, the FFT and the inverse FFT)."""
     from ectrans_tpu_torch.ops import fourier as fz
 
     res = ett.setup(name)
     bt = fz.bucketed_tables(res, dev)
+    assert all(fz.fuses(bk.nfft, fz.smem_limit(dev)) for bk in bt.buckets)
+    if staged:
+        monkeypatch.setattr(fz, "_SMEM_LIMIT", 0)
     four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, 5, dtype, dev, 32)
     nb = len(bt.buckets)
     for way, call in (
@@ -1404,18 +1430,19 @@ def test_chirp_layer_matches_plain_pipeline(dev, name, dtype, normalize,
              lambda: fz.synthesis_bucketed(four, bt, normalize)),
             ("analysis",
              lambda: fz.analysis_bucketed(grid, bt, res.M, normalize))):
-        for f in (fz.sums_synthesis, fz.sums_analysis, fz.pre_synthesis,
-                  fz.pre_analysis, fz.chirp_product, fz.post_synthesis,
-                  fz.post_analysis):
-            f.launches = 0
-        fz.chirp_fft.calls = 0
+        _chirp_zero()
         got = call()
         want = dict.fromkeys(_chirp_counts(), 0)
-        want.update({f"sums_{way}": int(normalize), f"pre_{way}": nb,
-                     "chirp_product": nb, f"post_{way}": nb, "fft": 2 * nb})
+        want[f"sums_{way}"] = int(normalize)
+        if staged:
+            want.update({f"pre_{way}": nb, "chirp_product": nb,
+                         f"post_{way}": nb, "fft": 2 * nb})
+        else:
+            want[f"pass_{way}"] = nb
         assert _chirp_counts() == want
-        assert sum(want.values()) == 5 * nb + normalize
-        _within_ulps(got, _plain_layer(monkeypatch, call), "layer")
+        assert sum(want.values()) == (5 if staged else 1) * nb + normalize
+        _within_ulps(got, _plain_layer(monkeypatch, call), "layer",
+                     pairs=not (staged or normalize))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1465,6 +1492,145 @@ def test_chirp_layer_adjoint_identity_on_card(dev, dtype):
         (xt,) = torch.autograd.grad(out, x, cot)
         lhs, rhs = dot(out.detach(), cot), dot(x.detach(), xt)
         assert abs(lhs - rhs) <= 2000 * eps * abs(lhs), (lhs, rhs)
+
+
+# F5, the fused pass (csrc/fourier_fused.cu): a bucket's whole chirp-z pass
+# in one block's shared memory, against the plain pipeline with the same
+# limits (_within_ulps)
+
+
+def _layer_calls(fz, res, bt, four, grid, normalize=True):
+    return (("synthesis", lambda: fz.synthesis_bucketed(four, bt, normalize)),
+            ("analysis",
+             lambda: fz.analysis_bucketed(grid, bt, res.M, normalize)))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name,nsmax,nbuckets", [
+    ("O48", 47, None), ("O48", 47, 3), ("O160", 159, None),
+    ("O160", 159, 10)])
+def test_fused_layer_on_every_bucket(dev, name, nsmax, nbuckets, dtype,
+                                     normalize, monkeypatch):
+    """Every bucket of O48 and O160 (one bucket, and 3 and 10 of their
+    own), 17 fields (odd: the last pair's partner is zero; a zero field),
+    both directions: one F5 launch a bucket, no torch.fft call, and the
+    plain pipeline's outputs."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    res = ett.setup(name, nsmax)
+    bt = fz.bucketed_tables(res, dev, nbuckets)
+    nb = len(bt.buckets)
+    assert nb == (nbuckets or 1)
+    four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, CHIRP_FIELDS,
+                               dtype, dev, 36)
+    for way, call in _layer_calls(fz, res, bt, four, grid, normalize):
+        _chirp_zero()
+        got = call()
+        assert _chirp_counts()[f"pass_{way}"] == nb
+        assert _chirp_counts()["fft"] == 0
+        _within_ulps(got, _plain_layer(monkeypatch, call), f"{name} {way}",
+                     pairs=not normalize)
+
+
+# an nfft of each factor set TCO1279's buckets use: 2 3^2 7^2, 5 7^3,
+# 3^4 7^2, 2^2 5 7^3, 2^5 3^5
+FACTOR_NFFT = [882, 1715, 3969, 6860, 7776]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nfft", FACTOR_NFFT)
+def test_fused_pass_for_each_factor_set(dev, nfft, dtype, monkeypatch):
+    """The TCO1279 bucket of convolution length nfft through F5 alone, 17
+    fields, normalized, each direction: its rows equal the plain staged
+    pass's (the same sums of squares)."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    res = ett.setup("TCO1279")
+    bt = fz.bucketed_tables(res, dev)
+    (ib, bk), = [(i, b) for i, b in enumerate(bt.buckets) if b.nfft == nfft]
+    rows = bk.rows[0].long()
+    four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, CHIRP_FIELDS,
+                               dtype, dev, 37)
+    ss, sp = fz.sums_synthesis(four, bt), fz.sums_analysis(grid, bt)
+    for way, run, shape in (
+            ("synthesis", lambda out: fz.pass_synthesis(four, bt, bk, ss,
+                                                        out), grid.shape),
+            ("analysis", lambda out: fz.pass_analysis(grid, bt, bk, ib, sp,
+                                                      out), four.shape)):
+        # analysis leaves the modes above the bucket's mb to the caller
+        fill = float("nan") if way == "synthesis" else 0.0
+        got = torch.full(shape, fill, dtype=dtype, device=dev)
+        want = torch.full_like(got, float("nan"))
+        _chirp_zero()
+        run(got)
+        assert _chirp_counts()[f"pass_{way}"] == 1
+        _plain_layer(monkeypatch, lambda: run(want))
+        pick = ((lambda t: t[:, rows]) if way == "synthesis" else
+                (lambda t: t[..., rows]))
+        assert bool(torch.isfinite(pick(got)).all())
+        _within_ulps(pick(got), pick(want), f"nfft {nfft} {way}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_layer_on_mesh_rank_tables(dev, dtype, monkeypatch):
+    """F5 on a (3, 1) mesh's rank tables at TCO1279 (2,560 rows in 3 x 854
+    slots: pad rows of length 0; shapes shared across the w-ranks): every
+    bucket fused, the plain pipeline's outputs, exact zeros on the pad
+    rows."""
+    from ectrans_tpu_torch.ops import fourier as fz
+    from ectrans_tpu_torch.parallel import distribution as tdist
+
+    res = ett.setup("TCO1279")
+    dist = tdist.build_distribution(res, 3, 1)
+    npad = 0
+    for iw in range(3):
+        bt = tdist.rank_fourier(dist, iw, dev)
+        assert all(fz.fuses(bk.nfft, fz.smem_limit(dev))
+                   for bk in bt.buckets)
+        pad = (bt.nloen == 0).cpu()
+        npad += int(pad.sum())
+        four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, 5, dtype, dev,
+                                   38 + iw)
+        for way, call in _layer_calls(fz, res, bt, four, grid):
+            _chirp_zero()
+            got = call()
+            assert _chirp_counts()[f"pass_{way}"] == len(bt.buckets)
+            _within_ulps(got, _plain_layer(monkeypatch, call), "mesh")
+            rows = got[:, pad] if got.dim() == 3 else got[..., pad]
+            assert torch.all(rows.cpu() == 0)
+    assert npad == 3 * dist.LL - res.ndgl > 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_and_staged_buckets_in_one_call(dev, dtype, monkeypatch):
+    """The shared-memory limit lowered to bucket 5's block at TCO639:
+    buckets 0-5 run F5, 6-11 the staged kernels and torch.fft, in one
+    call; the outputs equal the all-fused call's and the plain
+    pipeline's."""
+    from ectrans_tpu_torch.ops import fourier as fz
+
+    res = ett.setup("TCO639")
+    bt = fz.bucketed_tables(res, dev)
+    nb = len(bt.buckets)
+    four, grid = _chirp_inputs(res.M, bt.nrows, bt.ndlon, CHIRP_FIELDS,
+                               dtype, dev, 41)
+    for way, call in _layer_calls(fz, res, bt, four, grid):
+        fused = call()
+        with monkeypatch.context() as m:
+            m.setattr(fz, "_SMEM_LIMIT",
+                      fz.fused_smem_bytes(bt.buckets[5].nfft))
+            assert [fz.fuses(bk.nfft, fz.smem_limit(dev))
+                    for bk in bt.buckets] == (
+                [True] * 6 + [False] * (nb - 6))
+            _chirp_zero()
+            mixed = call()
+            counts = _chirp_counts()
+        assert counts[f"pass_{way}"] == 6 and counts[f"pre_{way}"] == nb - 6
+        assert counts[f"post_{way}"] == nb - 6
+        assert counts["fft"] == 2 * (nb - 6)
+        _within_ulps(mixed, fused, f"mixed {way}")
+        _within_ulps(mixed, _plain_layer(monkeypatch, call), f"plain {way}")
 
 
 @pytest.fixture

@@ -10,6 +10,8 @@ arithmetic in another order); the outputs rounded once to fp32 within one
 fp32 ulp of each field's largest |value| (a value rounded from two fp64
 results 1e-13 apart may land one ulp apart)."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -392,3 +394,179 @@ def test_kernel_operand_checks_refuse_what_the_kernels_do_not_take(o48):
     with pytest.raises(ValueError, match="sums of squares"):
         fourier._check_sums(torch.zeros((3, 1), dtype=torch.float64),
                             (3, fourier.NP))
+
+
+# F5, the fused pass (``csrc/fourier_fused.cu``): which buckets run it, and
+# the host tables its FFT takes, against numpy in float64
+def _grid_bucket_nfft(name: str) -> list:
+    from ectrans_tpu_torch import grids
+
+    g = grids.make_grid(name)
+    nloen, nmen = np.asarray(g.nloen), g.nmen()
+    out = []
+    for spans in fourier.bucket_spans(g.ndgl, 12):
+        rows = np.concatenate([np.arange(a, b) for a, b in spans])
+        out.append(fourier.bucket_shape(nloen[rows], nmen[rows], g.nsmax)[2])
+    return out
+
+
+# an H100 block's opt-in shared memory (bytes)
+H100_BLOCK_SMEM = 227 * 1024
+
+
+@pytest.mark.parametrize("name,staged", [("TCO639", 0), ("TCO1279", 0),
+                                         ("TCO2559", 4)])
+def test_fused_dispatch_follows_the_bucket_shapes(name, staged):
+    """A bucket runs F5 on a card when its block's shared memory (the row
+    padded by one element in 8, the twiddles and the pair's RMS, 16 bytes
+    each) fits the 227 KB an H100's block may use: all twelve buckets of
+    TCO639 and TCO1279 (nfft up to 7,776), and TCo2559's but its four
+    equatorial ones (nfft 12,960 to 15,435), which run staged."""
+    nffts = _grid_bucket_nfft(name)
+    assert len(nffts) == 12
+    fits = [fourier.fuses(n, H100_BLOCK_SMEM) for n in nffts]
+    assert fits == [True] * (12 - staged) + [False] * staged
+    for n in nffts:
+        assert fourier.fused_smem_bytes(n) == 16 * (
+            n + n // 8 + fourier.FINE + -(-n // fourier.FINE) + 1)
+    if name == "TCO1279":
+        assert max(nffts) == 7776
+        assert fourier.fused_smem_bytes(7776) == 142960
+    if name == "TCO2559":
+        assert nffts[-1] == 15435 and min(nffts[-staged:]) == 12960
+
+
+def test_smem_limit_is_the_cards_own(monkeypatch):
+    """F5's limit is the card's opt-in shared memory a block, read once a
+    card; ``_SMEM_LIMIT``, where set, takes its place."""
+    reads = []
+
+    def props(index):
+        reads.append(index)
+        return types.SimpleNamespace(
+            shared_memory_per_block_optin=1000 * (index + 1))
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    fourier._optin.cache_clear()
+    try:
+        assert fourier.smem_limit(torch.device("cuda", 0)) == 1000
+        assert fourier.smem_limit("cuda:0") == 1000
+        assert fourier.smem_limit(torch.device("cuda")) == 2000
+        assert reads == [0, 1]
+        monkeypatch.setattr(fourier, "_SMEM_LIMIT", 0)
+        assert fourier.smem_limit(torch.device("cuda", 0)) == 0
+        assert reads == [0, 1]
+    finally:
+        fourier._optin.cache_clear()
+
+
+# one nfft of each factor set TCO1279's buckets use, and TCO639's shortest
+PLAN_NFFT = [882, 1715, 3969, 6860, 7776, 480]
+
+
+@pytest.mark.parametrize("nfft", PLAN_NFFT)
+def test_twiddle_table_matches_numpy(nfft):
+    """F5's twiddle table in float64: W^l (l < FINE) and W^(FINE h) equal
+    numpy's e^(-2 pi i k / nfft) within 8 eps, and every W^e, e < nfft, as
+    the kernel forms it (one coarse entry times one fine) within 16 eps
+    (the roundings of the product, and of the phases in both: 2 pi k /
+    nfft near 2 pi is rounded to 2 eps)."""
+    tw = fourier.twiddle_table(nfft)
+    assert tw.dtype == np.complex128
+    F = fourier.FINE
+    k = np.concatenate([np.arange(F), F * np.arange(-(-nfft // F))])
+    np.testing.assert_allclose(tw, np.exp(-2j * np.pi * k / nfft), rtol=0,
+                               atol=8 * np.finfo(np.float64).eps)
+    e = np.arange(nfft)
+    w = tw[F + e // F] * tw[e % F]
+    assert np.abs(w - np.exp(-2j * np.pi * e / nfft)).max() <= (
+        16 * np.finfo(np.float64).eps)
+
+
+def _f5_fft_model(x, radices, place, inverse=False):
+    """The passes of F5's FFT in numpy, as the kernel makes them: forward,
+    slot s at position place[s], decimation in time over the radices in
+    order (twiddles before each butterfly), natural order out; inverse,
+    natural order in, decimation in frequency over the radices in reverse
+    order (conjugate twiddles after each butterfly), point j left at
+    position place[j]."""
+    N = len(x)
+    sign = 1.0 if inverse else -1.0
+    if inverse:
+        a, order = x.astype(complex), radices[::-1]
+    else:
+        a = np.zeros(N, complex)
+        a[place] = x
+        order = radices
+    L = 1 if not inverse else N
+    for R in order:
+        Ls = L * R if not inverse else L
+        Lb = Ls // R
+        t = np.arange(N // R)
+        b, j = t // Lb, t % Lb
+        idx = (b * Ls + j)[:, None] + Lb * np.arange(R)[None, :]
+        tw = np.exp(sign * 2j * np.pi * (j * (N // Ls))[:, None]
+                    * np.arange(R)[None, :] / N)
+        dft = np.exp(sign * 2j * np.pi * np.outer(np.arange(R),
+                                                  np.arange(R)) / R)
+        v = a[idx]
+        a[idx] = (v @ dft) * tw if inverse else (v * tw) @ dft
+        L = Ls if not inverse else Lb
+    return a[place] if inverse else a
+
+
+@pytest.mark.parametrize("nfft", PLAN_NFFT)
+def test_fft_plan_and_places_give_numpys_fft(nfft):
+    """fft_radices (the fewest radices of 2 to 12, the best-read first)
+    multiply to nfft, and with digit_places (a permutation) the kernel's
+    passes, modelled in numpy, give numpy's FFT and its unnormalized
+    inverse."""
+    rad = fourier.fft_radices(nfft)
+    assert int(np.prod(rad)) == nfft and set(rad) <= set(fourier.RADICES)
+    place = fourier.digit_places(rad)
+    assert np.array_equal(np.sort(place), np.arange(nfft))
+    assert fourier.fft_plan(rad) == sum(r << 4 * i for i, r in
+                                        enumerate(rad))
+    rng = np.random.default_rng(nfft)
+    x = rng.standard_normal(nfft) + 1j * rng.standard_normal(nfft)
+    X = _f5_fft_model(x, rad, place)
+    np.testing.assert_allclose(X, np.fft.fft(x), rtol=0,
+                               atol=1e-12 * np.abs(X).max())
+    y = _f5_fft_model(X, rad, place, inverse=True)
+    np.testing.assert_allclose(y, nfft * x, rtol=0,
+                               atol=1e-12 * np.abs(y).max())
+
+
+def test_bucket_tables_carry_the_fused_tables(o48):
+    """Each bucket's F5 tables: its radices, its places (nfft,) int16 and
+    its twiddles, those of ``fft_radices``, ``digit_places`` and
+    ``twiddle_table`` for its nfft."""
+    _, bt = o48
+    for bk in bt.buckets:
+        assert bk.radices == fourier.fft_radices(bk.nfft)
+        assert bk.place.dtype == torch.int16 and bk.place.shape == (bk.nfft,)
+        assert np.array_equal(bk.place.numpy(),
+                              fourier.digit_places(bk.radices))
+        assert torch.equal(bk.twiddles,
+                           torch.as_tensor(fourier.twiddle_table(bk.nfft)))
+
+
+def test_layer_counts_its_fused_and_staged_buckets(o48):
+    """Each call of the layer counts its buckets run fused and staged
+    (``fourier.fused``, ``fourier.staged``) while the recorder is on: on
+    the CPU every bucket runs the plain stages."""
+    from ectrans_tpu_torch.utils import timing
+
+    res, bt = o48
+    four, grid = _inputs(res, 3, torch.float64, 11)
+    timing.enable()
+    try:
+        timing.reset_gstats()
+        fourier.synthesis_bucketed(four, bt)
+        fourier.analysis_bucketed(grid, bt, res.M)
+        got = timing.counters()
+    finally:
+        timing.disable()
+        timing.reset_gstats()
+    assert got == {"fourier.fused": 0, "fourier.staged": 2 * len(bt.buckets)}
